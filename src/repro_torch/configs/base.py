@@ -1,0 +1,61 @@
+"""Architecture configuration (counterpart of ``repro.configs.base``; the
+fields the dense family uses).  Field names and the ``-smoke``/``-tiny``
+reductions equal the reference's, so a config resolves to the same
+shapes in both packages."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Literal
+
+__all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: Literal["dense"]
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    rotary_frac: float = 1.0
+    rope_theta: float = 10000.0
+    attn_window: int | None = None
+    norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
+    mlp: Literal["swiglu", "gelu"] = "swiglu"
+    tie_embeddings: bool = True
+    dtype: str = "bfloat16"
+    source: str = ""
+
+
+def reduced_variant(cfg: ArchConfig) -> ArchConfig:
+    """``-smoke``: 2 layers, d_model <= 256, head_dim 32, vocab <= 1024,
+    float32 (the reference's CPU smoke reduction)."""
+    d_model = min(cfg.d_model, 256)
+    head_dim = 32
+    heads = max(2, min(cfg.num_heads, d_model // head_dim))
+    kv = max(1, min(cfg.num_kv_heads, heads))
+    while heads % kv:
+        kv -= 1
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-smoke", num_layers=2, d_model=d_model,
+        num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
+        d_ff=min(cfg.d_ff, 512), vocab_size=min(cfg.vocab_size, 1024),
+        dtype="float32")
+
+
+def tiny_variant(cfg: ArchConfig) -> ArchConfig:
+    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64."""
+    base = reduced_variant(cfg)
+    d_model, head_dim = 32, 16
+    heads = max(2, d_model // head_dim)
+    kv = max(1, min(base.num_kv_heads, heads))
+    while heads % kv:
+        kv -= 1
+    return dataclasses.replace(
+        base, name=cfg.name + "-tiny", num_layers=1, d_model=d_model,
+        num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
+        d_ff=min(base.d_ff, 64), vocab_size=min(base.vocab_size, 64))

@@ -1,0 +1,265 @@
+// Gradient-obfuscation kernels for Hopper (sm_90a): the self term of the
+// paper's Eq. (3),
+//
+//     v = w_self * x - b_self * (lambda o g),
+//     lambda = 2 lam_bar * (bitcast((bits >> 9) | 0x3F800000) - 1)   in f32,
+//
+// cast to x's dtype.  The PDSGD step calls it with w_self = 0, b_self = -1,
+// which gives u = Lambda o g.
+//
+// Replaces:
+//   obfuscate_update       <- repro/kernels/obfuscate.py::obfuscate_update
+//                             (_obfuscate_kernel, pallas_call at :85);
+//                             the bits are an input.
+//   obfuscate_update_krng  <- repro/kernels/obfuscate.py::obfuscate_update_krng
+//                             (_obfuscate_krng_kernel, pallas_call at :153);
+//                             the bits are drawn in the kernel.
+//
+// What bounds them on an H100.  obfuscate_update is an elementwise pass that
+// moves 10 B per bf16 element (x, g, bits in; v out) and does 5 float
+// operations on it: device memory bounds it.  Each thread takes 8
+// consecutive elements with 16-byte vector loads when the pointers allow it.
+// obfuscate_update_krng moves 6 B per bf16 element but runs the 20-round
+// Threefry-2x32 cipher (about 100 integer operations) for each one, so the
+// integer units bound it rather than memory.  The rotations use the funnel
+// shifter (one instruction each).
+//
+// In-kernel randomness.  The TPU kernel re-seeds the TPU's own generator per
+// tile, a stream no other device reproduces.  Here the kernel runs
+// threefry2x32 exactly as jax.random.bits does under
+// jax_threefry_partitionable: row a, column c of leaf l (columns
+// [off[l], off[l+1]) of every row) is
+//     x0 ^ x1 of threefry2x32(key[a, l], (hi(c - off[l]), lo(c - off[l]))),
+// with key[a, l] the per-(agent, leaf) key the caller derives from the step's
+// Lambda key.  Columns past off[n_leaves] (padding) get bits 0.  The realized
+// Lambda is therefore bit-identical to the reference's counter stream, and
+// the main path needs no bits buffer at all (the optional bits output is for
+// the parity check only).
+//
+// Bitwise parity with the plain PyTorch version.  The math is written with
+// __fmul_rn / __fsub_rn, which nvcc never contracts into FMAs, so every
+// product and difference is rounded once, as PyTorch's eager ops round them.
+//
+// Every entry point launches on the caller's stream and returns
+// cudaGetLastError() so a refused launch reaches the Python wrapper.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kVec = 8;
+constexpr int kMaxLeaves = 1024;
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// 8 elements of T as one aligned vector (two 16-byte words for f32, one for
+// bf16).
+template <typename T>
+struct alignas(sizeof(T) * kVec) Vec8 {
+  T v[kVec];
+};
+
+struct alignas(32) Bits8 {
+  uint32_t v[kVec];
+};
+
+__device__ __forceinline__ float obf_math(float x, float g, uint32_t bits,
+                                          float lam2, float w_self,
+                                          float b_self) {
+  float u01 = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  float lam = __fmul_rn(lam2, u01);
+  return __fsub_rn(__fmul_rn(w_self, x), __fmul_rn(b_self, __fmul_rn(lam, g)));
+}
+
+__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
+  return __funnelshift_l(v, v, r);
+}
+
+#define TF_ROUND(r) \
+  x0 += x1;         \
+  x1 = rotl(x1, r); \
+  x1 ^= x0;
+
+// Threefry-2x32, 20 rounds (jax _threefry2x32_lowering, unrolled form).
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  uint32_t x0, uint32_t x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0;
+  x1 += k1;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+
+#undef TF_ROUND
+
+// scal = [lam_bar, w_self, b_self] in device memory: the step never has to
+// bring lam_bar to the host.  x and g carry no __restrict__: the step writes
+// u over g in place (each thread reads its 8 elements before it writes them).
+template <typename T>
+__global__ void obfuscate_kernel(const T* x, const T* g,
+                                 const uint32_t* __restrict__ bits,
+                                 const float* __restrict__ scal,
+                                 T* out, int64_t n, int vec_ok) {
+  const float lam2 = __fmul_rn(2.0f, scal[0]);
+  const float w_self = scal[1], b_self = scal[2];
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  int64_t done = 0;
+  if (vec_ok) {
+    const int64_t nv = n / kVec;
+    for (int64_t i = tid; i < nv; i += stride) {
+      Vec8<T> xv = reinterpret_cast<const Vec8<T>*>(x)[i];
+      Vec8<T> gv = reinterpret_cast<const Vec8<T>*>(g)[i];
+      Bits8 bv = reinterpret_cast<const Bits8*>(bits)[i];
+      Vec8<T> ov;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        store_f(&ov.v[k], obf_math(load_f(&xv.v[k]), load_f(&gv.v[k]),
+                                   bv.v[k], lam2, w_self, b_self));
+      }
+      reinterpret_cast<Vec8<T>*>(out)[i] = ov;
+    }
+    done = nv * kVec;
+  }
+  for (int64_t i = done + tid; i < n; i += stride) {
+    store_f(&out[i], obf_math(load_f(&x[i]), load_f(&g[i]), bits[i], lam2,
+                              w_self, b_self));
+  }
+}
+
+// One thread per 8 consecutive columns of one row (cols % 8 == 0, so the 8
+// never straddle rows).  Leaf offsets live in shared memory; a thread finds
+// the leaf of its first column by binary search and walks forward across a
+// boundary inside its 8.
+template <typename T>
+__global__ void obfuscate_krng_kernel(const T* x, const T* g,
+                                      const uint32_t* __restrict__ keys,
+                                      const int64_t* __restrict__ offsets,
+                                      int n_leaves, int64_t rows,
+                                      int64_t cols,
+                                      const float* __restrict__ scal,
+                                      T* out, uint32_t* bits_out) {
+  __shared__ int64_t off[kMaxLeaves + 1];
+  for (int i = threadIdx.x; i <= n_leaves; i += blockDim.x) off[i] = offsets[i];
+  __syncthreads();
+  const float lam2 = __fmul_rn(2.0f, scal[0]);
+  const float w_self = scal[1], b_self = scal[2];
+  const int64_t end = off[n_leaves];
+  const int64_t nv = rows * cols / kVec;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < nv;
+       i += stride) {
+    const int64_t e0 = i * kVec;
+    const int64_t row = e0 / cols;
+    const int64_t col0 = e0 - row * cols;
+    // largest l with off[l] <= col0 (off[0] == 0)
+    int lo = 0, hi = n_leaves;
+    while (hi - lo > 1) {
+      int mid = (lo + hi) >> 1;
+      if (off[mid] <= col0) lo = mid; else hi = mid;
+    }
+    int l = lo;
+    Vec8<T> xv = reinterpret_cast<const Vec8<T>*>(x)[i];
+    Vec8<T> gv = reinterpret_cast<const Vec8<T>*>(g)[i];
+    Vec8<T> ov;
+    Bits8 bv;
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int64_t c = col0 + k;
+      uint32_t b = 0u;
+      if (c < end) {
+        while (c >= off[l + 1]) ++l;
+        const uint64_t ctr = (uint64_t)(c - off[l]);
+        const uint32_t* kp = keys + 2 * (row * n_leaves + l);
+        b = threefry_bits(kp[0], kp[1], (uint32_t)(ctr >> 32),
+                          (uint32_t)ctr);
+      }
+      bv.v[k] = b;
+      store_f(&ov.v[k], obf_math(load_f(&xv.v[k]), load_f(&gv.v[k]), b, lam2,
+                                 w_self, b_self));
+    }
+    reinterpret_cast<Vec8<T>*>(out)[i] = ov;
+    if (bits_out != nullptr) reinterpret_cast<Bits8*>(bits_out)[i] = bv;
+  }
+}
+
+int grid_for(int64_t work) {
+  int64_t blocks = (work + kThreads - 1) / kThreads;
+  const int64_t cap = 132 * 64;
+  if (blocks > cap) blocks = cap;
+  if (blocks < 1) blocks = 1;
+  return (int)blocks;
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (x, g and out share it).
+extern "C" int obfuscate_update(int dtype, const void* x, const void* g,
+                                const void* bits, const void* scal, void* out,
+                                long long n, int vec_ok, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int64_t work = vec_ok ? n / kVec : n;
+  const int grid = grid_for(work);
+  if (dtype == 0) {
+    obfuscate_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)x, (const float*)g, (const uint32_t*)bits,
+        (const float*)scal, (float*)out, n, vec_ok);
+  } else if (dtype == 1) {
+    obfuscate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
+        (const uint32_t*)bits, (const float*)scal, (__nv_bfloat16*)out, n,
+        vec_ok);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// keys: (rows, n_leaves, 2) uint32; offsets: (n_leaves + 1,) int64 with
+// offsets[0] == 0.  cols % 8 == 0 and 16-byte aligned x/g/out/bits_out are
+// the caller's checks.  bits_out may be null.
+extern "C" int obfuscate_update_krng(int dtype, const void* x, const void* g,
+                                     const void* keys, const void* offsets,
+                                     int n_leaves, long long rows,
+                                     long long cols, const void* scal,
+                                     void* out, void* bits_out,
+                                     void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || cols % kVec != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  const int grid = grid_for(rows * cols / kVec);
+  if (dtype == 0) {
+    obfuscate_krng_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)x, (const float*)g, (const uint32_t*)keys,
+        (const int64_t*)offsets, n_leaves, rows, cols, (const float*)scal,
+        (float*)out, (uint32_t*)bits_out);
+  } else if (dtype == 1) {
+    obfuscate_krng_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
+        (const uint32_t*)keys, (const int64_t*)offsets, n_leaves, rows, cols,
+        (const float*)scal, (__nv_bfloat16*)out, (uint32_t*)bits_out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,41 @@
+"""Family dispatch: ArchConfig -> ModelBundle (counterpart of
+``repro.models.build``; the dense family only)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import transformer
+from .common import init_params
+
+__all__ = ["ModelBundle", "build_model"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelBundle:
+    cfg: ArchConfig
+    param_defs: Any
+    loss_fn: Callable  # (params, batch) -> scalar
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return _DTYPES[self.cfg.dtype]
+
+    def init(self, generator: torch.Generator, device) -> Any:
+        """Random parameters from ``generator``, materialized on ``device``
+        (the generator must live on that device)."""
+        return init_params(generator, self.param_defs, self.dtype, device)
+
+
+def build_model(cfg: ArchConfig) -> ModelBundle:
+    if cfg.family != "dense":
+        raise KeyError(f"family {cfg.family!r} is not ported; only 'dense' "
+                       "is")
+    return ModelBundle(
+        cfg=cfg, param_defs=transformer.param_defs(cfg),
+        loss_fn=lambda params, batch: transformer.loss_fn(params, batch, cfg))

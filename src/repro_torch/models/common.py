@@ -1,0 +1,155 @@
+"""Shared model machinery (counterpart of ``repro.models.common``):
+parameter definitions, norms, rotary embeddings, naive causal GQA
+attention, SwiGLU and the padded-vocab cross-entropy.
+
+Layouts follow the reference: activations (B, S, d), attention heads
+(B, S, H, hd), weights as the reference's einsum operands.  Every function
+keeps the reference's dtype discipline (norms, rotary, softmax and the loss
+in f32; matmuls in the parameter dtype).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..kernels.build import to_device
+
+__all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
+           "rope_tables", "apply_rope", "attention", "swiglu",
+           "cross_entropy", "pad_vocab"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArrayDef:
+    """Declarative parameter: shape + logical axis names + initializer."""
+
+    shape: tuple[int, ...]
+    logical: tuple[str | None, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # stddev for normal; default 1/sqrt(fan_in)
+
+    def materialize(self, generator: torch.Generator, dtype: torch.dtype,
+                    device) -> torch.Tensor:
+        if self.init == "zeros":
+            return torch.zeros(self.shape, dtype=dtype, device=device)
+        if self.init == "ones":
+            return torch.ones(self.shape, dtype=dtype, device=device)
+        # same fan-in rule as the reference (second-to-last dim)
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        scale = self.scale if self.scale is not None else 1.0 / math.sqrt(
+            fan_in)
+        w = torch.randn(self.shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return (w * scale).to(dtype)
+
+
+def init_params(generator: torch.Generator, defs: Any, dtype: torch.dtype,
+                device) -> Any:
+    """Materialize a nested dict of ArrayDefs, leaves in sorted-key order
+    from one generator (the draws differ from the reference's; the tests
+    share weights through `repro_torch.convert`)."""
+    if isinstance(defs, dict):
+        return {k: init_params(generator, defs[k], dtype, device)
+                for k in sorted(defs)}
+    return defs.materialize(generator, dtype, device)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    out = (xf - mean) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, rotary_frac: float, theta: float) -> np.ndarray:
+    rot_dim = int(head_dim * rotary_frac) // 2 * 2
+    inv = 1.0 / (theta ** (np.arange(0, rot_dim, 2, dtype=np.float64)
+                           / rot_dim))
+    return inv.astype(np.float32)
+
+
+def rope_tables(seq: int, head_dim: int, rotary_frac: float, theta: float,
+                device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) of positions 0..seq-1, each (seq, 1, rot_dim/2) f32 —
+    computed once per forward and shared by every layer's q and k.  The
+    inverse frequencies reach the card without a blocking copy."""
+    inv = to_device(torch.from_numpy(rope_freqs(head_dim, rotary_frac,
+                                                theta)), device)
+    ang = torch.arange(seq, device=device)[:, None].float() * inv
+    return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim) with `rope_tables` for its seq.  Only
+    the first rot_dim channels rotate (partial rotary), interleaved pairs."""
+    rot_dim = cos.shape[-1] * 2
+    if rot_dim == 0:
+        return x
+    xr = x[..., :rot_dim].float()
+    x1, x2 = xr[..., 0::2], xr[..., 1::2]
+    r1 = x1 * cos - x2 * sin
+    r2 = x2 * cos + x1 * sin
+    rotated = torch.stack([r1, r2], dim=-1).reshape(xr.shape)
+    return torch.cat([rotated.to(x.dtype), x[..., rot_dim:]], dim=-1)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """Grouped-query attention, scores materialized (the reference's naive
+    path).  q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qg = q.reshape(B, Sq, KV, G, hd)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (
+        1.0 / math.sqrt(hd))
+    qpos = torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    g = torch.einsum("...d,df->...f", x, w_gate)
+    u = torch.einsum("...d,df->...f", x, w_up)
+    h = F.silu(g.float()).to(x.dtype) * u
+    return torch.einsum("...f,fd->...d", h, w_down)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab_size: int | None = None) -> torch.Tensor:
+    """Mean token cross-entropy in f32; ``vocab_size`` masks padded vocab."""
+    lf = logits.float()
+    if vocab_size is not None and vocab_size < lf.shape[-1]:
+        pad = torch.arange(lf.shape[-1], device=lf.device) >= vocab_size
+        lf = lf.masked_fill(pad, -1e30)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()
+
+
+def pad_vocab(vocab: int, multiple: int = 512) -> int:
+    return ((vocab + multiple - 1) // multiple) * multiple

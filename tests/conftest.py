@@ -14,6 +14,10 @@ def pytest_configure(config):
         "slow: iterative attack sweeps and other long-running tests, "
         "excluded from the default tier-1 run (enable with --run-slow "
         "or RUN_SLOW=1)")
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA card (the hand-written Hopper kernels); skips "
+        "where torch.cuda.is_available() is false")
 
 
 def pytest_addoption(parser):

@@ -1,0 +1,284 @@
+"""The port's kernels (`repro_torch.kernels`) against the reference's Pallas
+kernels, run as the reference's own tests run them on the CPU
+(``interpret=True``).  On CPU tensors the wrappers take their plain PyTorch
+versions, so these hold the plain versions' arithmetic; the tests marked
+``gpu`` hold the CUDA kernels against the plain versions on the card.
+
+Tolerances:
+* obfuscate (B1/B3) with the step's scalars (w_self=0, b_self=-1): bitwise
+  against the interpreted Pallas kernel, f32 and bf16.  With general
+  (w_self, b_self) in f32 the reference's CPU compiler fuses
+  w·x − b·(λg) into multiply-adds, so there the plain version is held
+  bitwise against the reference's unfused ``ref.obfuscate_ref`` instead
+  (in bf16 the final rounding hides the difference and it is bitwise
+  against the kernel too).
+* gossip (B2): rtol 1e-6 / atol 1e-6 in f32 — the sums run in another
+  order.
+"""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.core.pdsgd import _per_agent_bits
+from repro.kernels import fused_pdsgd_tree as jax_fused
+from repro.kernels import gossip_update as jax_gossip
+from repro.kernels import obfuscate_update as jax_obfuscate
+from repro.kernels import ref as jax_ref
+from repro.models import build_model as jax_build
+from repro_torch.core import prng
+from repro_torch.core.pdsgd import lambda_key_table, pdsgd_update
+from repro_torch.convert import params_from_numpy
+from repro_torch.kernels import (FlatLayout, fused_pdsgd_tree, gossip_update,
+                                 launch_counts, obfuscate_update,
+                                 obfuscate_update_krng, ref,
+                                 reset_launch_counts)
+
+RNG = np.random.default_rng(0)
+SCALARS_STEP = [(0.07, 0.0, -1.0), (0.0031, 0.0, -1.0), (1.5, 0.0, -1.0)]
+
+
+def _bits(shape) -> np.ndarray:
+    return RNG.integers(0, 2**32, size=shape, dtype=np.uint64).astype(
+        np.uint32)
+
+
+def _torch(a: np.ndarray) -> torch.Tensor:
+    return params_from_numpy(a)
+
+
+def _same_bits(a: np.ndarray, b: torch.Tensor):
+    if b.dtype == torch.bfloat16:
+        np.testing.assert_array_equal(a.view(np.int16),
+                                      b.view(torch.int16).numpy())
+    else:
+        np.testing.assert_array_equal(a.view(np.int32),
+                                      b.view(torch.int32).numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+@pytest.mark.parametrize("lam_bar,w_self,b_self", SCALARS_STEP)
+def test_obfuscate_plain_bitwise_vs_pallas(dtype, lam_bar, w_self, b_self):
+    R, C = 4, 1536
+    x = RNG.normal(size=(R, C)).astype(dtype)
+    g = RNG.normal(size=(R, C)).astype(dtype)
+    bits = _bits((R, C))
+    want = np.asarray(jax_obfuscate(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(bits),
+        jnp.float32(lam_bar), jnp.float32(w_self), jnp.float32(b_self),
+        block=(R, 256), interpret=True))
+    got = obfuscate_update(_torch(x), _torch(g), _torch(bits), lam_bar,
+                           w_self, b_self)
+    _same_bits(want, got)
+
+
+def test_obfuscate_general_scalars():
+    R, C = 4, 1024
+    bits = _bits((R, C))
+    x = RNG.normal(size=(R, C)).astype(np.float32)
+    g = RNG.normal(size=(R, C)).astype(np.float32)
+    s = (jnp.float32(0.13), jnp.float32(0.6), jnp.float32(0.3))
+    want = np.asarray(jax_ref.obfuscate_ref(jnp.asarray(x), jnp.asarray(g),
+                                            jnp.asarray(bits), *s))
+    got = obfuscate_update(_torch(x), _torch(g), _torch(bits), 0.13, 0.6, 0.3)
+    _same_bits(want, got)
+    xb, gb = x.astype(ml_dtypes.bfloat16), g.astype(ml_dtypes.bfloat16)
+    want = np.asarray(jax_obfuscate(jnp.asarray(xb), jnp.asarray(gb),
+                                    jnp.asarray(bits), *s, block=(R, 256),
+                                    interpret=True))
+    _same_bits(want, obfuscate_update(_torch(xb), _torch(gb), _torch(bits),
+                                      0.13, 0.6, 0.3))
+
+
+def _ragged_layout(m):
+    """Keys and offsets for leaves of ragged sizes, padded to 512."""
+    sizes = [5, 1, 300, 77, 1024, 3]
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    cols = -(-offsets[-1] // 512) * 512
+    keys = torch.stack([prng.split(prng.fold_in(prng.key(3), a), len(sizes))
+                        for a in range(m)])
+    return sizes, torch.from_numpy(offsets.astype(np.int64)), cols, keys
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
+def test_obfuscate_krng_plain_bitwise(dtype):
+    """B3's bits are jax.random.bits of each (row, leaf) key over the leaf;
+    v equals the Pallas B1 kernel fed those bits."""
+    m = 4
+    sizes, offsets, cols, keys = _ragged_layout(m)
+    want_bits = np.zeros((m, cols), np.uint32)
+    for a in range(m):
+        for l, n in enumerate(sizes):
+            jk = jax.random.wrap_key_data(
+                jnp.asarray(keys[a, l].numpy().astype(np.uint32)))
+            o = int(offsets[l])
+            want_bits[a, o:o + n] = np.asarray(
+                jax.random.bits(jk, (n,), jnp.uint32))
+    x = RNG.normal(size=(m, cols)).astype(dtype)
+    g = RNG.normal(size=(m, cols)).astype(dtype)
+    v, bits = obfuscate_update_krng(_torch(x), _torch(g), keys, offsets,
+                                    0.05, 0.0, -1.0, return_bits=True)
+    np.testing.assert_array_equal(bits.to(torch.int64).numpy(),
+                                  want_bits.astype(np.int64))
+    want_v = np.asarray(jax_obfuscate(
+        jnp.asarray(x), jnp.asarray(g), jnp.asarray(want_bits),
+        jnp.float32(0.05), jnp.float32(0.0), jnp.float32(-1.0),
+        block=(m, 256), interpret=True))
+    _same_bits(want_v, v)
+
+
+@pytest.mark.parametrize("m,n", [(4, 512), (5, 1024), (32, 2048)])
+def test_gossip_plain_vs_pallas(m, n):
+    W = RNG.dirichlet(np.ones(m), m).T.astype(np.float32)
+    B = RNG.dirichlet(np.ones(m), m).T.astype(np.float32)
+    X = RNG.normal(size=(m, n)).astype(np.float32)
+    U = RNG.normal(size=(m, n)).astype(np.float32)
+    want = np.asarray(jax_gossip(*map(jnp.asarray, (W, B, X, U)),
+                                 interpret=True))
+    got = gossip_update(*map(_torch, (W, B, X, U))).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _tiny_trees(m):
+    bundle = jax_build(jax_config("stablelm-3b-tiny"))
+    p = bundle.init(jax.random.key(0))
+    x = jax.tree.map(
+        lambda a: a[None] + 0.1 * jax.random.normal(
+            jax.random.key(1), (m,) + a.shape), p)
+    g = jax.tree.map(
+        lambda a: jax.random.normal(jax.random.key(2), (m,) + a.shape), p)
+    return x, g
+
+
+def test_fused_pdsgd_tree_vs_reference_on_tiny_tree():
+    """u bitwise and x' to the gossip tolerance, with the port drawing
+    Lambda from the key table (B3) and the reference reading the
+    `_per_agent_bits` it derives from the same key."""
+    m = 4
+    x, g = _tiny_trees(m)
+    from repro_torch.core.topology import make_topology
+    top = make_topology("ring", m)
+    W = np.asarray(top.weights, np.float32)
+    B = RNG.dirichlet(np.ones(m), m).T.astype(np.float32) * (
+        top.adjacency > 0)
+    B = (B / B.sum(0, keepdims=True)).astype(np.float32)
+    step, lam = 6, 0.03
+    jkey = jax.random.fold_in(jax.random.key(8), step)
+    bits = _per_agent_bits(jax.random.fold_in(jkey, 1), jnp.asarray(step), g)
+    want_tree, want = jax_fused(jnp.asarray(W), jnp.asarray(B), x, g, bits,
+                                jnp.float32(lam), interpret=True,
+                                observe=True, kernel_rng=False)
+    tx = params_from_numpy(jax.tree.map(np.asarray, x))
+    tg = params_from_numpy(jax.tree.map(np.asarray, g))
+    layout = FlatLayout.of(jax.tree.map(lambda a: a[0], tx))
+    keys = lambda_key_table(prng.fold_in(prng.key(8), step), step, m,
+                            layout.n_leaves)
+    got_tree, got = fused_pdsgd_tree(_torch(W), _torch(B), tx, tg, lam,
+                                     keys=keys)
+    _same_bits(np.asarray(want["u"]), got["u"])
+    np.testing.assert_array_equal(np.asarray(want["x"]), got["x"].numpy())
+    for a, b in zip(jax.tree.leaves(want_tree), jax.tree.leaves(got_tree)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
+                                   atol=1e-6)
+
+
+def test_flat_layout_matches_reference_concat_and_pad():
+    x, _ = _tiny_trees(2)
+    leaves = jax.tree.leaves(x)
+    ref_flat = np.concatenate([np.asarray(l).reshape(2, -1) for l in leaves],
+                              axis=1)
+    tx = params_from_numpy(jax.tree.map(np.asarray, x))
+    layout = FlatLayout.of(jax.tree.map(lambda a: a[0], tx))
+    buf = layout.flatten(tx, 2)
+    assert buf.shape[1] % 512 == 0 and buf.shape[1] - ref_flat.shape[1] < 512
+    np.testing.assert_array_equal(buf[:, :ref_flat.shape[1]].numpy(),
+                                  ref_flat)
+    assert (buf[:, ref_flat.shape[1]:] == 0).all()
+    for a, b in zip(layout.leaf_views(buf), jax.tree.leaves(tx)):
+        assert a.data_ptr() >= buf.data_ptr()  # views, not copies
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_fused_update_matches_in_port_eager_formula():
+    """The step's fused branch (key table -> obfuscate -> gossip) realizes
+    the reference's unfused per-leaf formula: same Lambda, same B."""
+    m = 4
+    x, g = _tiny_trees(m)
+    tx = params_from_numpy(jax.tree.map(np.asarray, x))
+    tg = params_from_numpy(jax.tree.map(np.asarray, g))
+    layout = FlatLayout.of(jax.tree.map(lambda a: a[0], tx))
+    X, G = layout.flatten(tx, m), layout.flatten(tg, m)
+    from repro_torch.core.topology import make_topology
+    top = make_topology("ring", m)
+    kw = dict(key=prng.fold_in(prng.key(2), 9), step=9,
+              W=torch.tensor(top.weights, dtype=torch.float32),
+              support=torch.tensor(top.adjacency, dtype=torch.float32),
+              lam_bar=torch.tensor(0.02))
+    eager = pdsgd_update(X, G, layout, eager=True, **kw)
+    bits_path = pdsgd_update(X, G, layout, kernel_rng=False, **kw)
+    fused = pdsgd_update(X.clone(), G.clone(), layout, in_place=True, **kw)
+    np.testing.assert_array_equal(fused.numpy(), bits_path.numpy())
+    np.testing.assert_allclose(fused.numpy(), eager.numpy(), rtol=1e-6,
+                               atol=1e-7)
+
+
+def test_wrappers_take_plain_version_only_on_cpu():
+    """CPU tensors go to the plain version and count no launch; a tensor on
+    any other non-CUDA device is refused, never computed."""
+    reset_launch_counts()
+    x = torch.zeros(2, 512)
+    bits = torch.zeros(2, 512, dtype=torch.uint32)
+    obfuscate_update(x, x, bits, 0.1, 0.0, -1.0)
+    gossip_update(torch.eye(2), torch.eye(2), x, x)
+    assert sum(launch_counts.values()) == 0
+    meta = torch.empty(2, 512, device="meta")
+    with pytest.raises(ValueError):
+        obfuscate_update(meta, meta, torch.empty(2, 512, dtype=torch.uint32,
+                                                 device="meta"),
+                         0.1, 0.0, -1.0)
+    with pytest.raises(ValueError):
+        gossip_update(torch.eye(2, device="meta"),
+                      torch.eye(2, device="meta"), meta, meta)
+    with pytest.raises(ValueError):
+        obfuscate_update(x, x[:, :256], bits, 0.1, 0.0, -1.0)
+
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the Hopper kernels run only there")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_obfuscate_kernels_bitwise_vs_plain(dtype):
+    _need_cuda()
+    dev = torch.device("cuda")
+    m = 4
+    sizes, offsets, cols, keys = _ragged_layout(m)
+    x = torch.randn(m, cols, dtype=torch.float32).to(dtype)
+    g = torch.randn(m, cols, dtype=torch.float32).to(dtype)
+    v, bits = obfuscate_update_krng(x.to(dev), g.to(dev), keys, offsets,
+                                    0.05, 0.3, -0.7, return_bits=True)
+    pv, pbits = ref.obfuscate_krng_ref(x, g, keys, offsets, 0.05, 0.3, -0.7)
+    assert torch.equal(bits.cpu(), pbits)
+    assert torch.equal(v.cpu().view(torch.uint8), pv.view(torch.uint8))
+    v1 = obfuscate_update(x.to(dev), g.to(dev), pbits.to(dev), 0.05, 0.3,
+                          -0.7)
+    assert torch.equal(v1.cpu().view(torch.uint8), pv.view(torch.uint8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 5, 32])
+def test_cuda_gossip_kernel_vs_plain(m):
+    _need_cuda()
+    dev = torch.device("cuda")
+    n = 4096
+    W = torch.rand(m, m)
+    B = torch.rand(m, m)
+    X, U = torch.randn(m, n), torch.randn(m, n)
+    got = gossip_update(W.to(dev), B.to(dev), X.to(dev), U.to(dev)).cpu()
+    torch.testing.assert_close(got, ref.gossip_ref(W, B, X, U), rtol=1e-5,
+                               atol=1e-5)

@@ -1,0 +1,105 @@
+"""The port's threefry randomness (`repro_torch.core.prng`) against
+``jax.random`` under jax_threefry_partitionable: keys, fold_in, split, bits
+and uniform bitwise; exponential within 2 ulp (a transcendental); and the
+per-(agent, leaf) Lambda bits bitwise against
+``repro.core.pdsgd._per_agent_bits`` on a stablelm-3b-tiny tree."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_config
+from repro.core.pdsgd import _per_agent_bits
+from repro.core.privacy import agent_key as jax_agent_key
+from repro.core.privacy import sample_B as jax_sample_B
+from repro.models import build_model as jax_build
+from repro_torch.core import prng
+from repro_torch.core.pdsgd import per_agent_bits
+from repro_torch.core.privacy import agent_key, sample_B
+from repro_torch.kernels import FlatLayout
+
+SEEDS = [0, 1, 2, 7, 42, 1234, 99991, 2**31 - 1]
+SHAPES = [(1,), (17,), (1000,), (2, 3, 4), (3, 5, 7), (7, 13), (4, 1, 9)]
+
+
+def _key_words(k) -> np.ndarray:
+    return np.asarray(jax.random.key_data(k)).astype(np.int64)
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.to(torch.int64).numpy()
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_key_fold_in_split_bitwise(seed):
+    k, t = jax.random.key(seed), prng.key(seed)
+    np.testing.assert_array_equal(_key_words(k), t.numpy())
+    for data in (0, 1, 5, 2**31 + 3, 2**32 - 1):
+        np.testing.assert_array_equal(_key_words(jax.random.fold_in(k, data)),
+                                      prng.fold_in(t, data).numpy())
+    for n in (1, 2, 3, 15):
+        np.testing.assert_array_equal(_key_words(jax.random.split(k, n)),
+                                      prng.split(t, n).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_bits_uniform_bitwise_and_exponential_2ulp(seed):
+    k = jax.random.fold_in(jax.random.key(seed), 3)
+    t = prng.fold_in(prng.key(seed), 3)
+    for shape in SHAPES:
+        b = np.asarray(jax.random.bits(k, shape, jnp.uint32))
+        np.testing.assert_array_equal(b.astype(np.int64),
+                                      _u32(prng.bits(t, shape)))
+        u = np.asarray(jax.random.uniform(k, shape, jnp.float32))
+        np.testing.assert_array_equal(
+            u.view(np.int32), prng.uniform(t, shape).numpy().view(np.int32))
+        e = np.asarray(jax.random.exponential(k, shape, jnp.float32))
+        te = prng.exponential(t, shape).numpy()
+        ulps = np.abs(e.view(np.int32).astype(np.int64)
+                      - te.view(np.int32).astype(np.int64))
+        assert ulps.max() <= 2, ulps.max()
+
+
+def test_agent_key_batched_matches_reference():
+    k, t = jax.random.key(5), prng.key(5)
+    agents = torch.arange(6)
+    batched = agent_key(t, 11, agents).numpy()
+    for a in range(6):
+        np.testing.assert_array_equal(
+            _key_words(jax_agent_key(k, 11, a)), batched[a])
+
+
+def test_sample_B_column_stochastic_and_matches_reference():
+    from repro_torch.core.topology import make_topology
+    top = make_topology("paper_fig1", 5)
+    sup = np.asarray(top.adjacency, np.float32)
+    jb = np.asarray(jax_sample_B(jax_agent_key(jax.random.key(9), 4, 0),
+                                 jnp.asarray(sup)))
+    tb = sample_B(agent_key(prng.key(9), 4, 0), torch.from_numpy(sup))
+    np.testing.assert_allclose(tb.numpy(), jb, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tb.sum(0).numpy(), 1.0, rtol=1e-6)
+    assert ((tb.numpy() > 0) == (sup > 0)).all()
+
+
+@pytest.mark.parametrize("step", [0, 7])
+def test_per_agent_bits_bitwise_on_tiny_tree(step):
+    """The flat Lambda bits equal the reference's per-leaf
+    ``_per_agent_bits``, flattened in tree order and zero-padded."""
+    m = 3
+    bundle = jax_build(jax_config("stablelm-3b-tiny"))
+    p = jax.tree.map(lambda a: jnp.broadcast_to(a, (m,) + a.shape),
+                     bundle.init(jax.random.key(0)))
+    key = jax.random.fold_in(jax.random.key(1), 4)
+    ref_bits = _per_agent_bits(jax.random.fold_in(key, 1), jnp.asarray(step),
+                               p)
+    flat_ref = np.concatenate(
+        [np.asarray(b).reshape(m, -1) for b in jax.tree.leaves(ref_bits)],
+        axis=1).astype(np.int64)
+    tree0 = jax.tree.map(lambda a: torch.zeros(a.shape[1:]), p)
+    layout = FlatLayout.of(tree0)
+    assert layout.paths[0] == "embed" and layout.paths[-1] == "unembed"
+    got = _u32(per_agent_bits(prng.fold_in(prng.key(1), 4), step, layout, m))
+    D = layout.size
+    np.testing.assert_array_equal(got[:, :D], flat_ref)
+    assert (got[:, D:] == 0).all()
