@@ -7,16 +7,26 @@ point, and reports what ran.
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # main-path steps (chiprun_out/)
+                                     # main-, dropout- and fault-path steps
+                                     # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
   device      card, power limit, versions, TF32 off, kernel build time
   kernel      B1 obfuscate_update, B3 obfuscate_update_krng, B2 gossip_update
-              at (rows, 2^22) against the plain versions
+              at (rows, 2^22) against the plain versions; B4
+              masked_gossip_update, B5 masked_gossip_update_krng and B6
+              guarded_gossip_update at m = 4, 5, 32 in f32 and bf16
   step_parity stablelm-3b-smoke f32, 4 agents, 2 steps: card vs CPU
   main_path   stablelm-3b (full width, depth 8), 4 agents on a ring, bf16,
               1 warm-up + 5 timed steps through run_training; then B3 and
               B2 timed and checked at the shapes that run gave them
+  dropout_path  the same model and entry point with --topology-dropout
+              0.25 (B3 + B4), 1 warm-up + 6 timed steps, then one
+              fused_pdsgd_flat(mask_key=...) update on its buffers (B5);
+              B4 and B5 timed and checked there
+  fault_path  the same model with Markov crash/restart, nan-corrupt
+              senders, guard clip 1e3 and --nan-policy skip (B3 + B6), 6
+              steps; B6 timed and checked at that path's shapes
   bits_path   the same entry point with kernel_rng=False (Lambda bits drawn
               outside the kernel, the reference's HBM-bits route) at depth
               2: B1 + B2, B1 timed and checked at that path's shapes
@@ -31,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -44,7 +55,8 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 MAIN_LAYERS = 8
 # record_function ranges of core/pdsgd.py's step
-STEP_RANGES = ("agent_grads", "pdsgd_update", "consensus_error")
+STEP_RANGES = ("coupling", "held_state", "agent_grads", "pdsgd_update",
+               "consensus_error")
 BITS_PATH_LAYERS = 2
 
 
@@ -103,6 +115,78 @@ def bf16_ulps(torch, got, exact, scale) -> float:
 
 def gossip_scale(W, B, X, U):
     return W.abs() @ X.float().abs() + B.abs() @ U.float().abs()
+
+
+def same_values(torch, a, b) -> bool:
+    """Equal values, nan where the other has nan (payloads aside)."""
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a[~na], b[~nb])
+
+
+def rand_mask(torch, m: int, gen, dev, p: float = 0.6):
+    """A symmetric 0/1 off-diagonal edge mask with agent 0 cut off (the
+    row of a down agent)."""
+    keep = torch.triu((torch.rand(m, m, generator=gen, device=dev) < p)
+                      .float(), diagonal=1)
+    mask = keep + keep.T
+    mask[0, :] = 0.0
+    mask[:, 0] = 0.0
+    return mask
+
+
+def col_stochastic(torch, support, gen):
+    B = torch.rand(support.shape, generator=gen,
+                   device=support.device) * support
+    return B / B.sum(0)
+
+
+def guarded_abs(torch, K, mask, B, X, U, XT, UT, clip):
+    """|w_ii x_i| + |b_ii u_i| + sum_j |guard(w_ij xt_j - b_ij ut_j)|, the
+    magnitude the guarded sum is rounded at (a non-finite link counts 0):
+    where large clipped links cancel, a summation-order difference is
+    relative to this, not to the result."""
+    m = X.shape[0]
+    w = K.ref.metropolis_ref(mask)
+    eye = torch.eye(m, device=w.device)
+    x, u = X.float(), U.float()
+    total = ((torch.diagonal(w)[:, None] * x).abs()
+             + (torch.diagonal(B)[:, None] * u).abs())
+    v = ((w * (1 - eye))[:, :, None] * XT.float()[None]
+         - (B * (1 - eye))[:, :, None] * UT.float()[None])
+    if clip is not None:
+        v = torch.clamp(v, -clip, clip)
+    return total + v.abs().nan_to_num(0.0, 0.0, 0.0).sum(dim=1)
+
+
+def guarded_check(torch, K, got, want, exact, mask, B, X, U, XT, UT, clip,
+                  what: str):
+    """B6 against its plain version: nan and inf exactly where the plain
+    version has them; finite entries to B2's tolerances taken relative to
+    the magnitude of the summed terms (`guarded_abs`): f32 |got - want| <=
+    1e-5 (1 + scale); bf16 within one bf16 ulp of the f32 result ``exact``
+    plus 1e-6 scale.  Returns (max abs error, max bf16 ulps) over the
+    finite entries."""
+    check(torch.equal(torch.isnan(got), torch.isnan(want))
+          and torch.equal(torch.isinf(got), torch.isinf(want)),
+          f"B6 {what}: non-finite positions differ from the plain version")
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    scale = guarded_abs(torch, K, mask, B, X, U, XT, UT, clip)
+    diff = (got.float() - want.float()).abs()
+    err = float(diff[fin].max())
+    if got.dtype == torch.float32:
+        ratio = float((diff / (1e-5 * (1.0 + scale)))[fin].max())
+        check(ratio <= 1.0, f"B6 {what}: abs {err}, {ratio} of the "
+                            f"tolerance")
+        return err, 0.0
+    e = exact.float()
+    spacing = torch.exp2(torch.floor(torch.log2(
+        e.abs().clamp_min(1e-30))) - 7)
+    ulps = float(((got.float() - e).abs() / (spacing + 1e-6 * scale))[fin]
+                 .max())
+    check(ulps <= 1.0, f"B6 {what}: {ulps} bf16 ulps")
+    return err, ulps
 
 
 # --------------------------------------------------------------------------
@@ -198,6 +282,114 @@ def phase_kernels(torch, K, prng):
           "results": out})
 
 
+def phase_kernels_coupled(torch, K):
+    """B4, B5 and B6 against their plain versions at m = 4, 5, 32, f32 and
+    bf16; B4's W_k and B5's mask bitwise."""
+    from repro_torch.core.mixing import make_mixing
+    from repro_torch.core.topology import make_topology
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    cols, gcols = 1 << 22, 1 << 18
+    out = {}
+    for m in (4, 5, 32):
+        eye = torch.eye(m, device=dev)
+        mask = rand_mask(torch, m, g, dev)
+        B = col_stochastic(torch, mask + eye, g)
+        Wk = K.ref.metropolis_ref(mask)
+        X = torch.randn(m, cols, generator=g, device=dev)
+        U = torch.randn(m, cols, generator=g, device=dev)
+        rec = {}
+        # B4: f32 to rtol/atol 1e-5, bf16 to one bf16 ulp of the f32 result
+        got = K.masked_gossip_update(mask, B, X, U)
+        want = K.ref.masked_gossip_ref(mask, B, X, U)
+        rec["B4_f32_max_abs_err"] = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
+              f"B4 f32 m={m} abs {rec['B4_f32_max_abs_err']}")
+        Xb, Ub = X.bfloat16(), U.bfloat16()
+        got16 = K.masked_gossip_update(mask, B, Xb, Ub)
+        exact = K.ref.gossip_ref(Wk, B, Xb.float(), Ub.float())
+        rec["B4_bf16_max_ulps"] = bf16_ulps(torch, got16, exact,
+                                            gossip_scale(Wk, B, Xb, Ub))
+        check(rec["B4_bf16_max_ulps"] <= 1.0,
+              f"B4 bf16 m={m}: {rec['B4_bf16_max_ulps']} bf16 ulps")
+        # B4's on-chip W_k: with X = [I | 0] and U = 0 the first m columns
+        # of the output are W_k exactly
+        Xi = torch.zeros(m, 64, device=dev)
+        Xi[:, :m] = eye
+        Wgot = K.masked_gossip_update(mask, B, Xi, torch.zeros_like(Xi))
+        check(same_bits(torch, Wgot[:, :m].contiguous(), Wk),
+              f"B4 m={m}: on-chip W_k not bitwise metropolis_from_mask")
+        rec["B4_Wk_bitwise"] = True
+        # B5: the exported mask bitwise MixingProcess.realize's, in dropout
+        # and resample mode over several steps; the output bitwise B4's on
+        # that mask and to B2's tolerance of the plain version
+        top = make_topology("ring", m)
+        for mode, proc in (
+                ("dropout", make_mixing(top, rate=0.25, seed=7)),
+                ("resample", make_mixing(top, resample_every=3,
+                                         resample_p=0.5, seed=9))):
+            adj = proc.mask_adj().to(dev)
+            for step in range(6):
+                for Xs, Us in ((X, U), (Xb, Ub)):
+                    o5, mk = K.masked_gossip_update_krng(
+                        proc.mask_key(step), proc.keep_prob, adj, B, Xs, Us)
+                    torch.cuda.synchronize()
+                    check(same_bits(torch, mk.cpu(), proc.realize_mask(step)),
+                          f"B5 m={m} {mode} step {step}: mask differs from "
+                          f"MixingProcess.realize")
+                    check(same_bits(torch, o5, K.masked_gossip_update(
+                        mk, B, Xs, Us)),
+                        f"B5 m={m} {mode} step {step}: output differs from "
+                        f"B4 on its mask")
+            o5, _ = K.masked_gossip_update_krng(
+                proc.mask_key(5), proc.keep_prob, adj, B, X, U)
+            p5, _ = K.ref.masked_gossip_krng_ref(
+                proc.mask_key(5), proc.keep_prob, adj, B, X, U)
+            check(torch.allclose(o5, p5, rtol=1e-5, atol=1e-5),
+                  f"B5 m={m} {mode}: differs from the plain version")
+            rec[f"B5_{mode}_mask_bitwise"] = True
+        # B6: every corrupt mode, guard clip 1e3 and none
+        corrupt = torch.zeros(m)
+        corrupt[1] = corrupt[m - 1] = 1.0
+        for dtype in (torch.float32, torch.bfloat16):
+            Xg = torch.randn(m, gcols, generator=g, device=dev).to(dtype)
+            Ug = torch.randn(m, gcols, generator=g, device=dev).to(dtype)
+            for cmode in ("nan", "inf", "scale"):
+                XT = K.ref.poison_transmit(Xg, corrupt, cmode, 1e4)
+                UT = K.ref.poison_transmit(Ug, corrupt, cmode, 1e4)
+                for clip in (1e3, None):
+                    what = f"m={m} {str(dtype)[6:]} {cmode} clip={clip}"
+                    got = K.guarded_gossip_update(
+                        mask, B, Xg, Ug, clip=clip, corrupt=corrupt,
+                        mode=cmode, scale=1e4)
+                    check(same_values(torch, got, K.guarded_gossip_update(
+                        mask, B, Xg, Ug, XT, UT, clip)),
+                        f"B6 {what}: in-register transmits differ from "
+                        f"staged ones")
+                    want = K.ref.guarded_gossip_ref(mask, B, Xg, Ug, XT, UT,
+                                                    clip)
+                    exact = K.ref.guarded_gossip_ref(
+                        mask, B, Xg.float(), Ug.float(), XT.float(),
+                        UT.float(), clip)
+                    err, ulps = guarded_check(torch, K, got, want, exact,
+                                              mask, B, Xg, Ug, XT, UT, clip,
+                                              what)
+                    rec[f"B6_{str(dtype)[6:]}_{cmode}_clip{clip}"] = {
+                        "max_abs_err": err, "max_bf16_ulps": ulps,
+                        "nonfinite": int((~torch.isfinite(got)).sum())}
+        out[f"m{m}"] = rec
+    emit({"phase": "kernel_coupled", "shape_B4_B5": [None, cols],
+          "shape_B6": [None, gcols],
+          "tolerances": {
+              "B4_f32": "rtol 1e-5 atol 1e-5", "B4_bf16": "1 bf16 ulp",
+              "B4_Wk": "bitwise", "B5_mask": "bitwise",
+              "B5_out": "bitwise B4 on its mask",
+              "B6": "nan/inf positions exact; finite: f32 1e-5 (1 + S), "
+                    "bf16 1 bf16 ulp + 1e-6 S, S = sum of |terms|"},
+          "results": out})
+
+
 def phase_step_parity(torch, train):
     """2 steps of stablelm-3b-smoke (f32) through run_training on the card
     (kernels) and on the CPU (plain versions), same weights and batches.
@@ -241,13 +433,34 @@ def _chunks(n: int, size: int = 1 << 24):
         yield s, min(n, s + size)
 
 
-def _run_path(torch, K, train, cfg, steps: int, kernel_rng: bool):
-    args = train.build_parser().parse_args(
+def _plain_ms(torch, fn, width: int) -> float:
+    """Host time of ``fn(s, e)`` over every column chunk, synchronized."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for s, e in _chunks(width):
+        fn(s, e)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def _path_args(train, steps: int, extra=()):
+    return train.build_parser().parse_args(
         ["--agents", "4", "--topology", "ring", "--per-agent-batch", "2",
          "--seq-len", "512", "--steps", str(steps), "--log-every", "1",
          "--lr", "0.4", "--warmup-hold", "200", "--seed", "0",
-         "--device", "cuda"])
+         "--device", "cuda", *extra])
+
+
+def _run_path(torch, K, train, cfg, steps: int, kernel_rng: bool,
+              extra=()):
+    """run_training with the launch counts set to 0 just before it.  The
+    counts returned are read just after it.  Earlier phases' buffers are
+    collected first, so the peak is this run's."""
+    args = _path_args(train, steps, extra)
+    gc.collect()
     torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() < 1 << 30,
+          f"{torch.cuda.memory_allocated()} B still allocated before a path")
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -315,13 +528,10 @@ def phase_main_path(torch, K, train, prng, cfg):
     b3 = {"ms": time_ms(torch, lambda: K.obfuscate_update_krng(
               X, G, keys, offsets, lam, 0.0, -1.0, out=V), iters=5),
           "max_abs_err": 0.0}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for s, e in _chunks(width):
-        bits = prng.leaf_bits(kd, offsets, m, width, start=s, stop=e)
-        K.ref.obfuscate_ref(X[:, s:e], G[:, s:e], bits, lam, 0.0, -1.0)
-    torch.cuda.synchronize()
-    b3["plain_ms"] = (time.perf_counter() - t) * 1e3
+    b3["plain_ms"] = _plain_ms(torch, lambda s, e: K.ref.obfuscate_ref(
+        X[:, s:e], G[:, s:e],
+        prng.leaf_bits(kd, offsets, m, width, start=s, stop=e), lam, 0.0,
+        -1.0), width)
     b3["bound_ms"], b3["bound_by"] = bound_ms(n * 6, n * 5)
     b3["library_ms"] = None
     # B2 on (X, V), bf16
@@ -346,12 +556,8 @@ def phase_main_path(torch, K, train, prng, cfg):
     b2 = {"ms": time_ms(torch, lambda: K.gossip_update(W, B, X, V, out=Xn),
                         iters=10), "max_abs_err": max_err,
           "max_bf16_ulps_vs_f32": ulps}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for s, e in _chunks(width):
-        K.ref.gossip_ref(W, B, X[:, s:e], V[:, s:e])
-    torch.cuda.synchronize()
-    b2["plain_ms"] = (time.perf_counter() - t) * 1e3
+    b2["plain_ms"] = _plain_ms(torch, lambda s, e: K.ref.gossip_ref(
+        W, B, X[:, s:e], V[:, s:e]), width)
     Wb, Bb = W.bfloat16(), B.bfloat16()
     b2["library_ms"] = time_ms(torch, lambda: Wb @ X - Bb @ V, iters=5)
     b2["bound_ms"], b2["bound_by"] = bound_ms(n * 6, width * 4 * m * m)
@@ -360,6 +566,246 @@ def phase_main_path(torch, K, train, prng, cfg):
     del G, V, Xn
     return {"obfuscate_update_krng": (counts, b3),
             "gossip_update": (counts, b2)}
+
+
+def _step_records(res):
+    return [r for r in res["history"] if "loss" in r]
+
+
+DROPOUT_FLAGS = ("--topology-dropout", "0.25")
+
+
+def phase_dropout_path(torch, K, train, prng, cfg):
+    """The trainer with link dropout (B3 + B4 every step), then one update
+    through ``fused_pdsgd_flat(mask_key=...)`` on its buffers (B5: the mask
+    of the next step drawn in-kernel).  The launch counts cover both."""
+    from repro_torch.core.mixing import metropolis_from_mask
+    from repro_torch.core.pdsgd import lambda_key_table
+    from repro_torch.core.privacy import agent_key, sample_B
+    steps = 7
+    extra = DROPOUT_FLAGS
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
+                                        extra)
+    hist = _step_records(res)
+    losses = [r["loss"] for r in hist]
+    state = res["state"]
+    X = state.flat
+    m, width = X.shape
+    mixing = train.build_mixing(_path_args(train, steps, extra))
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(len(hist) == steps and state.step == steps, "steps run")
+    check(_finite_flat(torch, X), "non-finite parameters")
+    check(counts.get("obfuscate_update_krng", 0) == steps
+          and counts.get("masked_gossip_update", 0) == steps
+          and counts.get("gossip_update", 0) == 0,
+          f"dropout-path launches {counts}")
+    ms_step = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1) \
+        * 1e3
+    # step `steps`'s update with its mask drawn in the kernel
+    k = steps
+    dev = X.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    G = torch.randn(X.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    G[:, state.layout.size:] = 0
+    key_k = prng.fold_in(prng.key(1), k)
+    mask_k = mixing.realize_mask(k)
+    support = (mask_k + torch.eye(m)).to(dev)
+    B = sample_B(agent_key(prng.fold_in(key_k, 2), k, 0), support)
+    lam = torch.tensor(0.01, device=dev)
+    X5, U5 = K.fused_pdsgd_flat(
+        metropolis_from_mask(mask_k).to(dev), B, X, G, lam,
+        keys=lambda_key_table(key_k, k, m, state.layout.n_leaves),
+        offsets=torch.tensor(state.layout.offsets, dtype=torch.int64),
+        mask_key=mixing.mask_key(k), mask_keep_prob=mixing.keep_prob,
+        mask_adj=mixing.mask_adj())
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    check(counts.get("masked_gossip_update_krng", 0) == 1,
+          f"dropout-path launches {counts}")
+    del G
+    edges = [int(mixing.realize_mask(i).sum()) // 2 for i in range(steps)]
+    emit({"phase": "dropout_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "agents": m, "topology": "ring",
+          "dropout": 0.25, "per_agent_batch": 2, "seq_len": 512,
+          "params_per_agent": state.layout.size, "width": width,
+          "losses": losses, "ms_per_step": ms_step,
+          "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
+          "max_memory_allocated": peak, "edges_per_step": edges,
+          "base_edges": int(mixing.base_mask.sum()) // 2,
+          "b_window": [{key: r[key] for key in r
+                        if key.startswith("b_window")} for r in hist],
+          "launches": counts})
+
+    # B5 vs the realized mask and vs B4, then both timed at this shape
+    adj = mixing.mask_adj().to(dev)
+    Y, mask5 = K.masked_gossip_update_krng(mixing.mask_key(k),
+                                           mixing.keep_prob, adj, B, X, U5)
+    torch.cuda.synchronize()
+    check(same_bits(torch, mask5.cpu(), mask_k),
+          "B5 main-path shape: exported mask differs from "
+          "MixingProcess.realize")
+    check(same_bits(torch, Y, X5), "B5 differs between two launches")
+    K.masked_gossip_update(mask5, B, X, U5, out=Y)
+    check(same_bits(torch, Y, X5),
+          "B5 main-path shape: output differs from B4 on its mask")
+    Wk = K.ref.metropolis_ref(mask5)
+    ulps = err4 = err5 = 0.0
+    for s, e in _chunks(width):
+        exact = Wk @ X[:, s:e].float() - B @ U5[:, s:e].float()
+        ulps = max(ulps, bf16_ulps(torch, Y[:, s:e], exact, gossip_scale(
+            Wk, B, X[:, s:e], U5[:, s:e])))
+        p4 = K.ref.masked_gossip_ref(mask5, B, X[:, s:e], U5[:, s:e])
+        err4 = max(err4, float((Y[:, s:e].float() - p4.float()).abs().max()))
+        p5, _ = K.ref.masked_gossip_krng_ref(mixing.mask_key(k),
+                                             mixing.keep_prob, adj, B,
+                                             X[:, s:e], U5[:, s:e])
+        err5 = max(err5, float((X5[:, s:e].float() - p5.float())
+                               .abs().max()))
+    check(ulps <= 1.0, f"B4 main-path shape: {ulps} bf16 ulps")
+    n = m * width
+    bound = bound_ms(n * 6, width * 4 * m * m)
+    b4 = {"ms": time_ms(torch, lambda: K.masked_gossip_update(
+              mask5, B, X, U5, out=Y), iters=10),
+          "max_abs_err": err4, "max_bf16_ulps_vs_f32": ulps,
+          "plain_ms": _plain_ms(torch, lambda s, e: K.ref.masked_gossip_ref(
+              mask5, B, X[:, s:e], U5[:, s:e]), width),
+          "bound_ms": bound[0], "bound_by": bound[1]}
+    Bb = B.bfloat16()
+    b4["library_ms"] = time_ms(
+        torch, lambda: metropolis_from_mask(mask5).bfloat16() @ X - Bb @ U5,
+        iters=5)
+    key5 = mixing.mask_key(k)
+    b5 = {"ms": time_ms(torch, lambda: K.masked_gossip_update_krng(
+              key5, mixing.keep_prob, adj, B, X, U5, out=Y), iters=10),
+          "max_abs_err": err5,
+          "plain_ms": _plain_ms(torch, lambda s, e:
+                                K.ref.masked_gossip_krng_ref(
+                                    key5, mixing.keep_prob, adj, B,
+                                    X[:, s:e], U5[:, s:e]), width),
+          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    emit({"phase": "dropout_path_kernels", "shape": [m, width],
+          "dtype": "bfloat16", "B4": b4, "B5": b5})
+    del X5, U5, Y
+    return {"masked_gossip_update": (counts, b4),
+            "masked_gossip_update_krng": (counts, b5)}
+
+
+FAULT_FLAGS = ("--fault-crash-rate", "0.2", "--fault-restart-rate", "0.5",
+               "--fault-corrupt-rate", "0.25", "--fault-corrupt-mode", "nan",
+               "--fault-guard-clip", "1e3", "--nan-policy", "skip")
+
+
+def fault_seed(train, steps: int):
+    """The first fault seed whose realization over ``steps`` steps has a
+    down agent and a corrupt sender, from FaultProcess.realize on the CPU:
+    ``(seed, faults)``."""
+    for seed in range(100):
+        faults = train.build_faults(_path_args(
+            train, steps, (*FAULT_FLAGS, "--fault-seed", str(seed))))
+        rows = [faults.realize(k) for k in range(steps)]
+        if (any(bool((a == 0).any()) for a, _ in rows)
+                and any(bool(c.any()) for _, c in rows)):
+            return seed, faults
+    raise AssertionError("no fault seed below 100 fires in the run")
+
+
+def phase_fault_path(torch, K, train, prng, cfg):
+    """The trainer with Markov crash/restart, nan-corrupt senders, guard
+    clip 1e3 and --nan-policy skip (B3 + B6 every step)."""
+    from repro_torch.core.pdsgd import lambda_key_table
+    from repro_torch.core.privacy import agent_key, sample_B
+    from repro_torch.faults import guarded_gossip_mix, realize_coupling
+    steps = 6
+    seed, faults = fault_seed(train, steps)
+    extra = (*FAULT_FLAGS, "--fault-seed", str(seed))
+    realized = [{"down": int((faults.alive_at(k) == 0).sum()),
+                 "corrupt": int(faults.realize(k)[1].sum()),
+                 "rejoin": int(faults.rejoin_mask(k).sum())}
+                for k in range(steps)]
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
+                                        extra)
+    hist = _step_records(res)
+    losses = [r["loss"] for r in hist]
+    totals = res["fault_totals"]
+    state = res["state"]
+    X = state.flat
+    m, width = X.shape
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(len(hist) == steps and state.step == steps, "steps run")
+    check(_finite_flat(torch, X), "non-finite parameters")
+    check(totals.get("fault_down", 0) > 0 and totals.get("fault_corrupt", 0)
+          > 0, f"fault path had no down agent or no corrupt sender: {totals}")
+    check(counts.get("obfuscate_update_krng", 0) == steps
+          and counts.get("guarded_gossip_update", 0) == steps
+          and counts.get("masked_gossip_update", 0) == 0
+          and counts.get("gossip_update", 0) == 0,
+          f"fault-path launches {counts}")
+    ms_step = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1) \
+        * 1e3
+    emit({"phase": "fault_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "agents": m, "topology": "ring",
+          "flags": list(extra), "fault_seed": seed, "realized": realized,
+          "fault_totals": totals, "losses": losses, "ms_per_step": ms_step,
+          "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
+          "max_memory_allocated": peak, "launches": counts})
+
+    # B6 at this shape, on the realization of a step with a corrupt sender
+    # (and a down agent, where one step has both)
+    k = max(range(steps), key=lambda i: (realized[i]["corrupt"] > 0,
+                                         realized[i]["down"] > 0, -i))
+    dev = X.device
+    mixing = train.build_mixing(_path_args(train, steps, extra))
+    W, support, mask, alive, corrupt = realize_coupling(mixing, faults, k,
+                                                        dev)
+    key_k = prng.fold_in(prng.key(1), k)
+    B = sample_B(agent_key(prng.fold_in(key_k, 2), k, 0), support)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    V = torch.randn(X.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    V[:, state.layout.size:] = 0
+    K.obfuscate_update_krng(
+        X, V, lambda_key_table(key_k, k, m, state.layout.n_leaves),
+        torch.tensor(state.layout.offsets, dtype=torch.int64),
+        torch.tensor(0.01, device=dev), 0.0, -1.0, out=V)
+    Y = K.guarded_gossip_update(mask, B, X, V, clip=1e3, corrupt=corrupt,
+                                mode="nan", scale=1e4)
+    cdev = corrupt.to(dev)
+    err = ulps = 0.0
+    for s, e in _chunks(width):
+        x, v = X[:, s:e], V[:, s:e]
+        XT = K.ref.poison_transmit(x, cdev, "nan", 1e4)
+        UT = K.ref.poison_transmit(v, cdev, "nan", 1e4)
+        want = K.ref.guarded_gossip_ref(mask, B, x, v, XT, UT, 1e3)
+        exact = K.ref.guarded_gossip_ref(mask, B, x.float(), v.float(),
+                                         XT.float(), UT.float(), 1e3)
+        e1, u1 = guarded_check(torch, K, Y[:, s:e], want, exact, mask, B, x,
+                               v, XT, UT, 1e3,
+                               f"main-path shape, columns {s}:{e}")
+        err, ulps = max(err, e1), max(ulps, u1)
+    n = m * width
+    bound = bound_ms(n * 6, width * 7 * m * m)
+
+    def plain(s, e):
+        x, v = X[:, s:e], V[:, s:e]
+        K.ref.guarded_gossip_ref(
+            mask, B, x, v, K.ref.poison_transmit(x, cdev, "nan", 1e4),
+            K.ref.poison_transmit(v, cdev, "nan", 1e4), 1e3)
+
+    b6 = {"ms": time_ms(torch, lambda: K.guarded_gossip_update(
+              mask, B, X, V, clip=1e3, corrupt=corrupt, mode="nan",
+              scale=1e4, out=Y), iters=10),
+          "max_abs_err": err, "max_bf16_ulps_vs_f32": ulps,
+          "plain_ms": _plain_ms(torch, plain, width),
+          "library_ms": _plain_ms(torch, lambda s, e: guarded_gossip_mix(
+              W, B, X[:, s:e], V[:, s:e], cdev, mode="nan", scale=1e4,
+              clip=1e3), width),
+          "bound_ms": bound[0], "bound_by": bound[1],
+          "step": k, "corrupt": corrupt.tolist(), "alive": alive.tolist()}
+    emit({"phase": "fault_path_kernels", "shape": [m, width],
+          "dtype": "bfloat16", "B6": b6})
+    del V, Y
+    return {"guarded_gossip_update": (counts, b6)}
 
 
 def phase_bits_path(torch, K, train, prng, cfg):
@@ -396,13 +842,8 @@ def phase_bits_path(torch, K, train, prng, cfg):
     b1 = {"ms": time_ms(torch, lambda: K.obfuscate_update(
               X, G, bits, lam, 0.0, -1.0, out=V), iters=10),
           "max_abs_err": 0.0}
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    for s, e in _chunks(width):
-        K.ref.obfuscate_ref(X[:, s:e], G[:, s:e], bits[:, s:e], lam, 0.0,
-                            -1.0)
-    torch.cuda.synchronize()
-    b1["plain_ms"] = (time.perf_counter() - t) * 1e3
+    b1["plain_ms"] = _plain_ms(torch, lambda s, e: K.ref.obfuscate_ref(
+        X[:, s:e], G[:, s:e], bits[:, s:e], lam, 0.0, -1.0), width)
 
     def library():
         # the same expression in as few torch eager ops as it goes
@@ -418,16 +859,14 @@ def phase_bits_path(torch, K, train, prng, cfg):
     return {"obfuscate_update": (counts, b1)}
 
 
-def phase_profile(torch, train, cfg, steps: int = 4):
-    """Device time by kernel over main-path steps 1..steps-1 (step 0 warms
-    up), from a torch.profiler trace of run_training; each step is the
-    range ``train_step_<k>``.  Writes the full table to
-    chiprun_out/profile_main_path.json."""
+def phase_profile(torch, train, cfg, path: str = "main_path", extra=(),
+                  steps: int = 4):
+    """Device time by kernel over steps 1..steps-1 (step 0 warms up) of a
+    path (``extra``: its flags), from a torch.profiler trace of
+    run_training; each step is the range ``train_step_<k>``.  Writes the
+    full table to chiprun_out/profile_<path>.json."""
     from torch.profiler import ProfilerActivity, profile
-    args = train.build_parser().parse_args(
-        ["--agents", "4", "--topology", "ring", "--per-agent-batch", "2",
-         "--seq-len", "512", "--steps", str(steps), "--log-every", "1",
-         "--device", "cuda"])
+    args = _path_args(train, steps, extra)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         train.run_training(args, cfg=cfg)
@@ -475,11 +914,11 @@ def phase_profile(torch, train, cfg, steps: int = 4):
                 sorted(self_ms.items(), key=lambda kv: -kv[1])[:15]]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_main_path.json").write_text(json.dumps(
+    (out / f"profile_{path}.json").write_text(json.dumps(
         {"steps": n, "window_ms": window_ms, "busy_ms": busy,
          "kernels": table, "host_ranges_ms_per_step": ranges,
          "host_ops": host_top}, indent=1))
-    emit({"phase": "profile", "steps_profiled": n,
+    emit({"phase": "profile", "path": path, "steps_profiled": n,
           "step_ms": window_ms / n, "device_busy_ms_per_step": busy / n,
           "idle_share": 1.0 - busy / window_ms,
           "host_ranges_ms_per_step": ranges, "host_top": host_top[:8],
@@ -493,6 +932,12 @@ SOURCES = {
                               "src/repro/kernels/obfuscate.py:153"),
     "gossip_update": ("src/repro_torch/csrc/gossip.cu",
                       "src/repro/kernels/gossip.py:78"),
+    "masked_gossip_update": ("src/repro_torch/csrc/gossip.cu",
+                             "src/repro/kernels/gossip.py:151"),
+    "masked_gossip_update_krng": ("src/repro_torch/csrc/gossip.cu",
+                                  "src/repro/kernels/gossip.py:228"),
+    "guarded_gossip_update": ("src/repro_torch/csrc/gossip.cu",
+                              "src/repro/kernels/gossip.py:316"),
 }
 
 
@@ -501,7 +946,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile main-path steps with torch.profiler")
+                    help="also profile main-, dropout- and fault-path steps "
+                         "with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -521,18 +967,29 @@ def main(argv=None) -> int:
 
     smi = phase_device(torch, build)
     phase_kernels(torch, K, prng)
+    phase_kernels_coupled(torch, K)
     rows = {}
     if not opts.quick:
         phase_step_parity(torch, train)
         full = get_config("stablelm-3b")
-        rows.update(phase_main_path(
-            torch, K, train, prng,
-            dataclasses.replace(full, num_layers=MAIN_LAYERS)))
+        main_cfg = dataclasses.replace(full, num_layers=MAIN_LAYERS)
+        rows.update(phase_main_path(torch, K, train, prng, main_cfg))
         torch.cuda.empty_cache()
         if opts.profile:
-            phase_profile(torch, train, dataclasses.replace(
-                full, num_layers=MAIN_LAYERS))
+            phase_profile(torch, train, main_cfg)
             torch.cuda.empty_cache()
+        rows.update(phase_dropout_path(torch, K, train, prng, main_cfg))
+        torch.cuda.empty_cache()
+        rows.update(phase_fault_path(torch, K, train, prng, main_cfg))
+        torch.cuda.empty_cache()
+        if opts.profile:
+            for path, extra in (
+                    ("dropout_path", DROPOUT_FLAGS),
+                    ("fault_path", (*FAULT_FLAGS, "--fault-seed",
+                                    str(fault_seed(train, 6)[0])))):
+                gc.collect()
+                phase_profile(torch, train, main_cfg, path, extra)
+                torch.cuda.empty_cache()
         rows.update(phase_bits_path(
             torch, K, train, prng,
             dataclasses.replace(full, num_layers=BITS_PATH_LAYERS)))

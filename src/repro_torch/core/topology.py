@@ -6,8 +6,9 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["Topology", "ring", "paper_fig1", "metropolis_weights",
-           "spectral_gap", "make_topology"]
+__all__ = ["Topology", "ring", "torus2d", "complete", "star", "erdos_renyi",
+           "paper_fig1", "metropolis_weights", "spectral_gap",
+           "make_topology"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,6 +80,58 @@ def ring(m: int) -> np.ndarray:
     return _with_self_loops(adj)
 
 
+def torus2d(rows: int, cols: int) -> np.ndarray:
+    """2D torus of rows*cols agents (degenerates to a ring when rows == 1)."""
+    m = rows * cols
+    adj = np.zeros((m, m), dtype=bool)
+    for r in range(rows):
+        for c in range(cols):
+            i = r * cols + c
+            if cols > 1:
+                adj[i, r * cols + (c + 1) % cols] = True
+                adj[i, r * cols + (c - 1) % cols] = True
+            if rows > 1:
+                adj[i, ((r + 1) % rows) * cols + c] = True
+                adj[i, ((r - 1) % rows) * cols + c] = True
+    return _with_self_loops(adj)
+
+
+def complete(m: int) -> np.ndarray:
+    return np.ones((m, m), dtype=bool)
+
+
+def star(m: int) -> np.ndarray:
+    adj = np.zeros((m, m), dtype=bool)
+    adj[0, :] = True
+    adj[:, 0] = True
+    return _with_self_loops(adj)
+
+
+def erdos_renyi(m: int, p: float, seed: int = 0) -> np.ndarray:
+    """Random connected G(m, p) graph from ``np.random.default_rng(seed)``
+    (redrawn until connected), the reference's draw for draw."""
+    rng = np.random.default_rng(seed)
+    for _ in range(1000):
+        upper = rng.random((m, m)) < p
+        adj = _with_self_loops(np.triu(upper, 1))
+        if _connected(adj):
+            return adj
+    raise RuntimeError("could not sample a connected Erdos-Renyi graph")
+
+
+def _connected(adj: np.ndarray) -> bool:
+    m = adj.shape[0]
+    seen = {0}
+    frontier = [0]
+    while frontier:
+        i = frontier.pop()
+        for j in np.flatnonzero(adj[i]):
+            if j not in seen:
+                seen.add(int(j))
+                frontier.append(int(j))
+    return len(seen) == m
+
+
 def paper_fig1() -> np.ndarray:
     """The 5-agent graph of the paper's Fig. 1: the cycle C5 plus the
     chord (0, 2)."""
@@ -88,15 +141,22 @@ def paper_fig1() -> np.ndarray:
 
 
 _BUILDERS = {
-    "ring": lambda m: ring(m),
-    "paper_fig1": lambda m: paper_fig1(),
+    "ring": lambda m, **kw: ring(m),
+    "complete": lambda m, **kw: complete(m),
+    "star": lambda m, **kw: star(m),
+    "erdos": lambda m, **kw: erdos_renyi(m, kw.get("p", 0.4),
+                                         kw.get("seed", 0)),
+    "paper_fig1": lambda m, **kw: paper_fig1(),
+    "torus": lambda m, **kw: torus2d(kw["rows"], m // kw["rows"]),
 }
 
 
-def make_topology(name: str, m: int) -> Topology:
+def make_topology(name: str, m: int, **kwargs) -> Topology:
+    """``kwargs``: ``p`` and ``seed`` for ``erdos``, ``rows`` for
+    ``torus``; the other graphs ignore them."""
     if name not in _BUILDERS:
         raise KeyError(f"unknown topology {name!r}; have {sorted(_BUILDERS)}")
-    adj = _BUILDERS[name](m)
+    adj = _BUILDERS[name](m, **kwargs)
     top = Topology(name=name, adjacency=adj, weights=metropolis_weights(adj))
     top.validate()
     return top

@@ -26,7 +26,7 @@
 //
 // In-kernel randomness.  The TPU kernel re-seeds the TPU's own generator per
 // tile, a stream no other device reproduces.  Here the kernel runs
-// threefry2x32 exactly as jax.random.bits does under
+// threefry2x32 (threefry.cuh) exactly as jax.random.bits does under
 // jax_threefry_partitionable: row a, column c of leaf l (columns
 // [off[l], off[l+1]) of every row) is
 //     x0 ^ x1 of threefry2x32(key[a, l], (hi(c - off[l]), lo(c - off[l]))),
@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "threefry.cuh"
 
 namespace {
 
@@ -80,36 +82,6 @@ __device__ __forceinline__ float obf_math(float x, float g, uint32_t bits,
   float lam = __fmul_rn(lam2, u01);
   return __fsub_rn(__fmul_rn(w_self, x), __fmul_rn(b_self, __fmul_rn(lam, g)));
 }
-
-__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) {
-  return __funnelshift_l(v, v, r);
-}
-
-#define TF_ROUND(r) \
-  x0 += x1;         \
-  x1 = rotl(x1, r); \
-  x1 ^= x0;
-
-// Threefry-2x32, 20 rounds (jax _threefry2x32_lowering, unrolled form).
-__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
-                                                  uint32_t x0, uint32_t x1) {
-  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
-  x0 += k0;
-  x1 += k1;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k1; x1 += k2 + 1u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k2; x1 += k0 + 2u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k0; x1 += k1 + 3u;
-  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
-  x0 += k1; x1 += k2 + 4u;
-  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
-  x0 += k2; x1 += k0 + 5u;
-  return x0 ^ x1;
-}
-
-#undef TF_ROUND
 
 // scal = [lam_bar, w_self, b_self] in device memory: the step never has to
 // bring lam_bar to the host.  x and g carry no __restrict__: the step writes

@@ -1,10 +1,10 @@
 """Build and load the hand-written CUDA kernels in ``repro_torch/csrc``.
 
 Each ``csrc/<name>.cu`` is compiled at first use by ``nvcc`` for ``sm_90a``
-into ``build/kernels/lib<name>-<hash>.so`` (the hash is of the source, so an
-edited source never loads a stale library) and loaded with ctypes; the
-sources expose plain C functions, so no PyTorch header is compiled and a
-build takes seconds.  `build_all` starts one ``nvcc`` per source in
+into ``build/kernels/lib<name>-<hash>.so`` (the hash is of the source and
+the shared headers ``csrc/*.cuh``, so an edited source never loads a stale
+library) and loaded with ctypes; the sources expose plain C functions, so
+no PyTorch header is compiled and a build takes seconds.  `build_all` starts one ``nvcc`` per source in
 parallel.  Set ``REPRO_TORCH_BUILD_DIR`` to build elsewhere.
 
 Every kernel wrapper counts its launches in `launch_counts` (one per launch
@@ -38,6 +38,7 @@ launch_counts: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _VOIDP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_UINT, _FLOAT = ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
     "obfuscate": {
         "obfuscate_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
@@ -48,6 +49,14 @@ _SIGNATURES = {
     "gossip": {
         "gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
                           _LL, _VOIDP],
+        "masked_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                 _VOIDP, _INT, _LL, _VOIDP],
+        "masked_gossip_update_krng": [_INT, _UINT, _UINT, _FLOAT, _VOIDP,
+                                      _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                      _INT, _LL, _VOIDP],
+        "guarded_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                  _VOIDP, _VOIDP, _VOIDP, _INT, _FLOAT,
+                                  _FLOAT, _INT, _VOIDP, _INT, _LL, _VOIDP],
     },
 }
 
@@ -73,7 +82,10 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # every source may include any header: hash them all
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()
     return build_dir() / f"lib{name}-{digest[:12]}.so"
 
 

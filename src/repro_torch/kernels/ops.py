@@ -2,7 +2,8 @@
 ``repro.kernels.ops.fused_pdsgd_tree``, concat layout):
 
     u  = Lambda ∘ g        (obfuscate kernel, w_self = 0, b_self = -1)
-    x' = W X - B U         (gossip kernel)
+    x' = W X - B U         (a gossip kernel: static W, an edge mask, a mask
+                            drawn in-kernel, or the guarded fault path)
 
 The reference flattens each agent's leaves, concatenates them in tree
 order and pads the columns to a multiple of 512 on every step.  The port
@@ -19,7 +20,9 @@ import math
 import torch
 
 from ..core.privacy import tree_leaves, tree_paths, tree_unflatten
-from .gossip import gossip_update
+from .build import to_device
+from .gossip import (gossip_update, guarded_gossip_update,
+                     masked_gossip_update, masked_gossip_update_krng)
 from .obfuscate import obfuscate_update, obfuscate_update_krng
 
 __all__ = ["FlatLayout", "fused_pdsgd_flat", "fused_pdsgd_tree", "PAD"]
@@ -89,26 +92,69 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                      keys: torch.Tensor | None = None,
                      offsets: torch.Tensor | None = None,
                      bits: torch.Tensor | None = None,
-                     in_place: bool = False):
+                     in_place: bool = False,
+                     mask: torch.Tensor | None = None,
+                     mask_key: torch.Tensor | None = None,
+                     mask_keep_prob=None,
+                     mask_adj: torch.Tensor | None = None,
+                     corrupt: torch.Tensor | None = None,
+                     corrupt_mode: str = "nan",
+                     corrupt_scale: float = 1e4,
+                     guard_clip: float | None = 1e3):
     """Eq. (4) on flat (m, width) buffers.  Returns ``(x', u)``.
 
     With ``keys`` (m, n_leaves, 2) and ``offsets`` the obfuscate stage
     draws Lambda in the kernel (`obfuscate_update_krng`); with ``bits``
     (m, width) uint32 it reads them (`obfuscate_update`).  ``in_place``
-    writes u over G and x' over X — safe because both kernels read every
-    element they write before writing it — which is how the training step
+    writes u over G and x' over X — safe because every kernel reads each
+    element it writes before writing it — which is how the training step
     runs (no (m, width) buffer is allocated per step).
+
+    The gossip stage, as the reference routes it (``ops.py:159-207``):
+
+    * ``corrupt`` (an (m,) 0/1 vector of corrupt senders) -> the guarded
+      kernel over ``mask``, the transmits poisoned by ``corrupt_mode``/
+      ``corrupt_scale`` and each link guarded at ``guard_clip`` (None: no
+      guard).  Needs ``mask``;
+    * ``mask_key`` (a (2,) threefry key) -> the mask drawn in the kernel
+      with ``mask_keep_prob`` (required) over the off-diagonal adjacency
+      ``mask_adj`` (None: the complete graph); ``mask`` is ignored;
+    * ``mask`` -> W_k computed on chip from the edge mask (``W`` ignored);
+    * otherwise W X - B U with the given W.
     """
     if (keys is None) == (bits is None):
         raise ValueError("pass exactly one of keys (in-kernel Lambda) or "
                          "bits")
+    if mask_key is not None and mask_keep_prob is None:
+        raise ValueError("mask_key needs mask_keep_prob (the per-edge keep "
+                         "probability, 1 - dropout rate)")
+    if mask_key is not None and corrupt is not None:
+        raise ValueError("in-kernel mask draw does not compose with corrupt "
+                         "injection; pass the realized mask")
+    if corrupt is not None and mask is None:
+        raise ValueError("corrupt injection needs the realized edge mask; "
+                         "compose faults through faults.realize_coupling")
     u_out = G if in_place else None
     if keys is not None:
         U = obfuscate_update_krng(X, G, keys, offsets, lam_bar, 0.0, -1.0,
                                   out=u_out)
     else:
         U = obfuscate_update(X, G, bits, lam_bar, 0.0, -1.0, out=u_out)
-    out = gossip_update(W, B, X, U, out=X if in_place else None)
+    x_out = X if in_place else None
+    if corrupt is not None:
+        out = guarded_gossip_update(mask, B, X, U, clip=guard_clip,
+                                    corrupt=corrupt, mode=corrupt_mode,
+                                    scale=corrupt_scale, out=x_out)
+    elif mask_key is not None:
+        m = X.shape[0]
+        adj = mask_adj if mask_adj is not None else 1.0 - torch.eye(m)
+        out, _ = masked_gossip_update_krng(mask_key, mask_keep_prob,
+                                           to_device(adj, X.device), B, X,
+                                           U, out=x_out)
+    elif mask is not None:
+        out = masked_gossip_update(mask, B, X, U, out=x_out)
+    else:
+        out = gossip_update(W, B, X, U, out=x_out)
     return out, U
 
 

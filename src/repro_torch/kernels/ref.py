@@ -12,7 +12,12 @@ import torch
 
 from ..core import prng
 
-__all__ = ["obfuscate_ref", "obfuscate_krng_ref", "gossip_ref"]
+__all__ = ["obfuscate_ref", "obfuscate_krng_ref", "gossip_ref",
+           "metropolis_ref", "masked_gossip_ref", "mask_from_bits",
+           "masked_gossip_krng_ref", "poison_transmit", "guarded_gossip_ref",
+           "CORRUPT_MODES"]
+
+CORRUPT_MODES = ("nan", "inf", "scale")
 
 
 def _f32(v, device) -> torch.Tensor:
@@ -41,3 +46,96 @@ def gossip_ref(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
     """x' = W X - B U over the leading agent dim, accumulated in f32."""
     out = W.float() @ X.float() - B.float() @ U.float()
     return out.to(X.dtype)
+
+
+def metropolis_ref(mask: torch.Tensor) -> torch.Tensor:
+    """The Metropolis weights of an off-diagonal 0/1 edge mask, rounded as
+    the masked kernels round them on chip: w_ij = mask_ij / (1 +
+    max(deg_i, deg_j)) (one correctly rounded division), w_ii = 1 - the
+    row's sum taken in ascending j, the order of the reference's
+    ``metropolis_from_mask``, so W_k is its bit for bit.
+    ``core.mixing.metropolis_from_mask`` is this function."""
+    mask = mask.float()
+    deg = mask.sum(dim=1)
+    w = mask / (1.0 + torch.maximum(deg[:, None], deg[None, :]))
+    total = w[:, 0].clone()
+    for j in range(1, w.shape[1]):
+        total = total + w[:, j]
+    return w + torch.diag(1.0 - total)
+
+
+def masked_gossip_ref(mask: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
+                      U: torch.Tensor) -> torch.Tensor:
+    """x' = metropolis(mask) X - B U, accumulated in f32."""
+    return gossip_ref(metropolis_ref(mask), B, X, U)
+
+
+def mask_from_bits(bits: torch.Tensor, keep_prob,
+                   adj: torch.Tensor) -> torch.Tensor:
+    """The symmetric off-diagonal edge mask from (m, m) uint32 draws: one
+    U[0, 1) per undirected edge by the mantissa trick ((bits >> 9) |
+    0x3F800000, minus 1), the strict upper triangle kept where u <
+    keep_prob (compared in f32), mirrored, gated by ``adj``."""
+    u = prng.bits_to_uniform(bits)
+    keep_prob = _f32(keep_prob, u.device)
+    keep = torch.triu(u < keep_prob, diagonal=1).float()
+    return (keep + keep.T) * adj.float().to(u.device)
+
+
+def masked_gossip_krng_ref(key: torch.Tensor, keep_prob, adj: torch.Tensor,
+                           B: torch.Tensor, X: torch.Tensor,
+                           U: torch.Tensor):
+    """`masked_gossip_ref` on the mask drawn from ``prng.bits(key, (m,
+    m))``: ``(out, mask)``."""
+    m = X.shape[0]
+    bits = prng.bits(key.to(torch.int64).cpu(), (m, m)).to(X.device)
+    mask = mask_from_bits(bits, keep_prob, adj.to(X.device))
+    return masked_gossip_ref(mask, B, X, U), mask
+
+
+def poison_transmit(x: torch.Tensor, corrupt: torch.Tensor, mode: str,
+                    scale) -> torch.Tensor:
+    """The transmit buffer of an (m, ...) buffer: the rows of corrupt
+    senders (``corrupt[j] > 0``) become nan, +inf, or ``x * scale`` with
+    the product taken in x's dtype (the scale rounded to it first, the
+    product rounded to it after).  The guarded kernel forms the same
+    values in registers."""
+    c = (corrupt > 0).to(x.device).reshape((-1,) + (1,) * (x.dim() - 1))
+    if mode == "nan":
+        bad = torch.full_like(x, float("nan"))
+    elif mode == "inf":
+        bad = torch.full_like(x, float("inf"))
+    elif mode == "scale":
+        bad = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+    else:
+        raise ValueError(f"unknown corrupt mode {mode!r}; have "
+                         f"{CORRUPT_MODES}")
+    return torch.where(c, bad, x)
+
+
+def guarded_gossip_ref(mask: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
+                       U: torch.Tensor, XT: torch.Tensor, UT: torch.Tensor,
+                       clip) -> torch.Tensor:
+    """Gossip with a per-link finite guard, in f32:
+
+        x'_i = (w_ii x_i - b_ii u_i)
+               + sum_j guard(w_ij xt_j - b_ij ut_j)   (w, b off-diagonal)
+
+    with guard(v) = where(isfinite(v), clip(v, -clip, clip), 0) (``clip``
+    None: no guard).  X, U are the agents' own buffers (self terms only);
+    XT, UT what they transmit.  The sum over j runs over every j, the zero
+    diagonal and non-neighbours included, as the reference's does: with
+    no guard, a non-finite transmit reaches every receiver (0 * nan)."""
+    m = X.shape[0]
+    w = metropolis_ref(mask)
+    eye = torch.eye(m, device=w.device)
+    w_diag, b_diag = torch.diagonal(w), torch.diagonal(B.float())
+    w_off, b_off = w * (1.0 - eye), B.float() * (1.0 - eye)
+    x, u = X.float(), U.float()
+    self_term = w_diag[:, None] * x - b_diag[:, None] * u
+    v = (w_off[:, :, None] * XT.float()[None]
+         - b_off[:, :, None] * UT.float()[None])
+    if clip is not None:
+        v = torch.where(torch.isfinite(v), torch.clamp(v, -clip, clip),
+                        torch.zeros_like(v))
+    return (self_term + v.sum(dim=1)).to(X.dtype)

@@ -14,6 +14,10 @@ Tolerances:
   against the kernel too).
 * gossip (B2): rtol 1e-6 / atol 1e-6 in f32 — the sums run in another
   order.
+* on the card (tests marked ``gpu``): B4 and B5 to B2's tolerance (f32
+  rtol/atol 1e-5), B4's on-chip W_k and B5's mask bitwise; B6's
+  non-finite positions exact and its finite entries within 1e-5 (1 + S),
+  S the summed magnitude of the terms (clipped links can cancel).
 """
 import jax
 import jax.numpy as jnp
@@ -32,8 +36,11 @@ from repro.models import build_model as jax_build
 from repro_torch.core import prng
 from repro_torch.core.pdsgd import lambda_key_table, pdsgd_update
 from repro_torch.convert import params_from_numpy
-from repro_torch.kernels import (FlatLayout, fused_pdsgd_tree, gossip_update,
-                                 launch_counts, obfuscate_update,
+from repro_torch.kernels import (FlatLayout, fused_pdsgd_flat,
+                                 fused_pdsgd_tree, gossip_update,
+                                 guarded_gossip_update, launch_counts,
+                                 masked_gossip_update,
+                                 masked_gossip_update_krng, obfuscate_update,
                                  obfuscate_update_krng, ref,
                                  reset_launch_counts)
 
@@ -231,19 +238,78 @@ def test_wrappers_take_plain_version_only_on_cpu():
     reset_launch_counts()
     x = torch.zeros(2, 512)
     bits = torch.zeros(2, 512, dtype=torch.uint32)
+    mask = torch.tensor([[0.0, 1.0], [1.0, 0.0]])
     obfuscate_update(x, x, bits, 0.1, 0.0, -1.0)
     gossip_update(torch.eye(2), torch.eye(2), x, x)
+    masked_gossip_update(mask, torch.eye(2), x, x)
+    masked_gossip_update_krng(prng.key(1), 0.5, mask, torch.eye(2), x, x)
+    guarded_gossip_update(mask, torch.eye(2), x, x, clip=1e3,
+                          corrupt=torch.tensor([1.0, 0.0]))
+    guarded_gossip_update(mask, torch.eye(2), x, x, x, x, None)
     assert sum(launch_counts.values()) == 0
     meta = torch.empty(2, 512, device="meta")
+    meta_mm = torch.eye(2, device="meta")
     with pytest.raises(ValueError):
         obfuscate_update(meta, meta, torch.empty(2, 512, dtype=torch.uint32,
                                                  device="meta"),
                          0.1, 0.0, -1.0)
     with pytest.raises(ValueError):
-        gossip_update(torch.eye(2, device="meta"),
-                      torch.eye(2, device="meta"), meta, meta)
+        gossip_update(meta_mm, meta_mm, meta, meta)
+    with pytest.raises(ValueError):
+        masked_gossip_update(meta_mm, meta_mm, meta, meta)
+    with pytest.raises(ValueError):
+        masked_gossip_update_krng(prng.key(1), 0.5, meta_mm, meta_mm, meta,
+                                  meta)
+    with pytest.raises(ValueError):
+        guarded_gossip_update(meta_mm, meta_mm, meta, meta, clip=1e3,
+                              corrupt=torch.zeros(2))
     with pytest.raises(ValueError):
         obfuscate_update(x, x[:, :256], bits, 0.1, 0.0, -1.0)
+    with pytest.raises(ValueError):
+        guarded_gossip_update(mask, torch.eye(2), x, x, x, None, 1e3)
+    with pytest.raises(ValueError):
+        guarded_gossip_update(mask, torch.eye(2), x, x, clip=1e3,
+                              mode="zero")
+
+
+def test_fused_flat_routes_the_coupling_and_keeps_the_refusals():
+    """`fused_pdsgd_flat` picks the gossip kernel as the reference's
+    ``fused_pdsgd_tree`` does: mask -> B4, mask_key -> B5 (the same mask
+    drawn in-kernel), corrupt -> B6; the reference's refusals stand."""
+    from repro_torch.core.mixing import make_mixing
+    from repro_torch.core.topology import make_topology
+    m, n = 5, 1024
+    proc = make_mixing(make_topology("ring", m), rate=0.4, seed=2)
+    X = torch.from_numpy(RNG.normal(size=(m, n)).astype(np.float32))
+    G = torch.from_numpy(RNG.normal(size=(m, n)).astype(np.float32))
+    B = torch.from_numpy(RNG.dirichlet(np.ones(m), m).T.astype(np.float32))
+    bits = torch.from_numpy(_bits((m, n)).astype(np.int64)).to(torch.uint32)
+    W, _, mask = proc.realize(3)
+    U = obfuscate_update(X, G, bits, 0.05, 0.0, -1.0)
+    masked, _ = fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits, mask=mask)
+    assert torch.equal(masked, ref.masked_gossip_ref(mask, B, X, U))
+    drawn, _ = fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits,
+                                mask_key=proc.mask_key(3),
+                                mask_keep_prob=proc.keep_prob,
+                                mask_adj=proc.mask_adj())
+    assert torch.equal(drawn, masked)
+    corrupt = torch.tensor([0.0, 1.0, 0.0, 0.0, 0.0])
+    guarded, _ = fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits, mask=mask,
+                                  corrupt=corrupt, corrupt_mode="scale",
+                                  corrupt_scale=20.0, guard_clip=None)
+    want = ref.guarded_gossip_ref(
+        mask, B, X, U, ref.poison_transmit(X, corrupt, "scale", 20.0),
+        ref.poison_transmit(U, corrupt, "scale", 20.0), None)
+    assert torch.equal(guarded, want)
+    with pytest.raises(ValueError, match="mask_keep_prob"):
+        fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits,
+                         mask_key=proc.mask_key(3))
+    with pytest.raises(ValueError, match="does not compose"):
+        fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits,
+                         mask_key=proc.mask_key(3), mask_keep_prob=0.6,
+                         mask=mask, corrupt=corrupt)
+    with pytest.raises(ValueError, match="realized edge mask"):
+        fused_pdsgd_flat(W, B, X, G, 0.05, bits=bits, corrupt=corrupt)
 
 
 def _need_cuda():
@@ -282,3 +348,88 @@ def test_cuda_gossip_kernel_vs_plain(m):
     got = gossip_update(W.to(dev), B.to(dev), X.to(dev), U.to(dev)).cpu()
     torch.testing.assert_close(got, ref.gossip_ref(W, B, X, U), rtol=1e-5,
                                atol=1e-5)
+
+
+def _rand_mask(m, gen):
+    keep = torch.triu((torch.rand(m, m, generator=gen) < 0.6).float(),
+                      diagonal=1)
+    mask = keep + keep.T
+    mask[0, :] = mask[:, 0] = 0.0  # a down agent's row
+    return mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 5, 32])
+def test_cuda_masked_gossip_kernels_vs_plain(m):
+    """B4 to B2's tolerance with W_k bitwise; B5's mask bitwise the
+    process's realized mask and its output bitwise B4's on it."""
+    _need_cuda()
+    from repro_torch.core.mixing import make_mixing
+    from repro_torch.core.topology import make_topology
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(m)
+    mask = _rand_mask(m, gen)
+    B = torch.rand(m, m, generator=gen) * (mask + torch.eye(m))
+    B = B / B.sum(0)
+    X, U = torch.randn(m, 4096, generator=gen), torch.randn(m, 4096,
+                                                            generator=gen)
+    got = masked_gossip_update(mask.to(dev), B.to(dev), X.to(dev),
+                               U.to(dev)).cpu()
+    torch.testing.assert_close(got, ref.masked_gossip_ref(mask, B, X, U),
+                               rtol=1e-5, atol=1e-5)
+    eye_x = torch.zeros(m, 64)
+    eye_x[:, :m] = torch.eye(m)
+    w = masked_gossip_update(mask.to(dev), B.to(dev), eye_x.to(dev),
+                             torch.zeros(m, 64, device=dev)).cpu()
+    assert torch.equal(w[:, :m].contiguous().view(torch.int32),
+                       ref.metropolis_ref(mask).view(torch.int32))
+    for proc in (make_mixing(make_topology("ring", m), rate=0.3, seed=1),
+                 make_mixing(make_topology("ring", m), resample_every=2,
+                             seed=2)):
+        for step in range(4):
+            out, drawn = masked_gossip_update_krng(
+                proc.mask_key(step), proc.keep_prob,
+                proc.mask_adj().to(dev), B.to(dev), X.to(dev), U.to(dev))
+            assert torch.equal(drawn.cpu(), proc.realize_mask(step))
+            assert torch.equal(out, masked_gossip_update(
+                drawn, B.to(dev), X.to(dev), U.to(dev)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 5, 32])
+@pytest.mark.parametrize("mode", ["nan", "inf", "scale"])
+@pytest.mark.parametrize("clip", [1e3, None])
+def test_cuda_guarded_gossip_kernel_vs_plain(m, mode, clip):
+    _need_cuda()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(7 * m)
+    mask = _rand_mask(m, gen)
+    B = torch.rand(m, m, generator=gen) * (mask + torch.eye(m))
+    B = B / B.sum(0)
+    X, U = torch.randn(m, 2048, generator=gen), torch.randn(m, 2048,
+                                                            generator=gen)
+    corrupt = torch.zeros(m)
+    corrupt[1] = corrupt[m - 1] = 1.0
+    XT = ref.poison_transmit(X, corrupt, mode, 1e4)
+    UT = ref.poison_transmit(U, corrupt, mode, 1e4)
+    want = ref.guarded_gossip_ref(mask, B, X, U, XT, UT, clip)
+    got = guarded_gossip_update(mask.to(dev), B.to(dev), X.to(dev),
+                                U.to(dev), clip=clip, corrupt=corrupt,
+                                mode=mode, scale=1e4).cpu()
+    staged = guarded_gossip_update(mask.to(dev), B.to(dev), X.to(dev),
+                                   U.to(dev), XT.to(dev), UT.to(dev),
+                                   clip).cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.equal(got.nan_to_num(0.0), staged.nan_to_num(0.0))
+    w = ref.metropolis_ref(mask)
+    eye = torch.eye(m)
+    v = ((w * (1 - eye))[:, :, None] * XT[None]
+         - (B * (1 - eye))[:, :, None] * UT[None])
+    if clip is not None:
+        v = v.clamp(-clip, clip)
+    scale = ((torch.diagonal(w)[:, None] * X).abs()
+             + (torch.diagonal(B)[:, None] * U).abs()
+             + v.abs().nan_to_num(0.0, 0.0, 0.0).sum(1))
+    fin = torch.isfinite(want)
+    assert bool(((got - want).abs() <= 1e-5 * (1 + scale))[fin].all())
