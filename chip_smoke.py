@@ -7,7 +7,8 @@ point, and reports what ran.
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # main-, dropout- and fault-path steps
+                                     # main-, dropout-, fault- and ring-path
+                                     # steps
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -27,9 +28,21 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   fault_path  the same model with Markov crash/restart, nan-corrupt
               senders, guard clip 1e3 and --nan-policy skip (B3 + B6), 6
               steps; B6 timed and checked at that path's shapes
+  kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
+              ring_obfuscate_gossip_krng bitwise against their plain
+              versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
+              (4, 2) torus: capture, a dropped direction, a planted nan, B9's
+              bits and B9 == B8 on them
+  ring_path   the main path's model and flags with --kernel-layout ring (B9
+              only, one launch a step), 1 warm-up + 6 timed steps, then one
+              torus_gossip_pdsgd(None, ..., fused=True) on its buffers (B7);
+              B9 and B7 checked and timed there, and the ring update held
+              against the concat update (B3 + B2) on the same draws
   bits_path   the same entry point with kernel_rng=False (Lambda bits drawn
               outside the kernel, the reference's HBM-bits route) at depth
               2: B1 + B2, B1 timed and checked at that path's shapes
+  ring_bits_path  the bits path with --kernel-layout ring: B8 every step,
+              checked and timed at that path's shapes
   kernels     every kernel with its launches, error, times and bound
 Then the card's name and power limit, then the result line.
 
@@ -387,6 +400,108 @@ def phase_kernels_coupled(torch, K):
               "B5_out": "bitwise B4 on its mask",
               "B6": "nan/inf positions exact; finite: f32 1e-5 (1 + S), "
                     "bf16 1 bf16 ulp + 1e-6 S, S = sum of |terms|"},
+          "results": out})
+
+
+RING_TORI = ((2, 1), (4, 1), (5, 1), (32, 1), (4, 2))
+
+
+def phase_kernels_ring(torch, K, prng):
+    """B7, B8 and B9 bitwise against their plain versions on the card, f32
+    and bf16, on rings of m = 2, 4, 5, 32 (ndirs 1, 2, 2, 2) and the (4, 2)
+    torus (ndirs 3): the capture streams, the output with capture off, a
+    dropped direction's v exactly 0, a nan planted in one sender's g at
+    the plain version's positions, B9's exported bits = `prng.leaf_bits`
+    and B9 = B8 on them."""
+    from repro_torch.dist import collectives as C
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    cols = 1 << 20
+    sizes = [300_003, 5, 524_288, 77, 99_999, 1]
+    offsets = torch.tensor([0, *itertools.accumulate(sizes)],
+                           dtype=torch.int64)
+    out = {}
+    for n_data, n_pod in RING_TORI:
+        m = n_data * n_pod
+        P = C.perm_stack(n_data, n_pod)
+        src = C.source_table(n_data, n_pod)
+        Pd = P.to(dev)
+        nd = P.shape[0]
+        w = torch.rand(m, 1 + nd, generator=g, device=dev)
+        b = C.mask_b_draws(torch.rand(m, 1 + nd, generator=g, device=dev),
+                           torch.ones(m, nd, device=dev))
+        # direction 0 dropped: its weight folded into the self term, b
+        # renormalized onto the other directions
+        keep = torch.ones(m, nd, device=dev)
+        keep[:, 0] = 0.0
+        b_drop = C.mask_b_draws(b, keep)
+        w_drop = w.clone()
+        w_drop[:, 0] += w_drop[:, 1]
+        w_drop[:, 1] = 0.0
+        keys = torch.stack([prng.split(prng.fold_in(prng.key(m), a),
+                                       len(sizes)) for a in range(m)])
+        bits = prng.leaf_bits(keys.to(dev), offsets, m, cols)
+        rec = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            X = torch.randn(m, cols, generator=g, device=dev).to(dtype)
+            U = torch.randn(m, cols, generator=g, device=dev).to(dtype)
+            G = torch.randn(m, cols, generator=g, device=dev).to(dtype)
+            what = f"{n_data}x{n_pod} {str(dtype)[6:]}"
+            # B7
+            o7, v7 = K.ring_gossip_update(w, b, P, X, U, capture=True)
+            p7 = K.ref.ring_gossip_ref(w, b, Pd, X, U)
+            check(same_bits(torch, o7, p7[0]) and same_bits(torch, v7, p7[1]),
+                  f"B7 {what}: differs from the plain version")
+            check(same_bits(torch, K.ring_gossip_update(w, b, src, X, U), o7),
+                  f"B7 {what}: capture changes the output")
+            od, vd = K.ring_gossip_update(w_drop, b_drop, src, X, U,
+                                          capture=True)
+            check(bool((vd[0] == 0).all()) and bool((vd[1:] != 0).any()
+                                                     or nd == 1),
+                  f"B7 {what}: a dropped direction's v is not exactly 0")
+            check(same_bits(torch, od, K.ref.ring_gossip_ref(
+                w_drop, b_drop, Pd, X, U)[0]),
+                f"B7 {what}: dropped direction differs from the plain "
+                f"version")
+            # B8, with a nan planted in one sender's g
+            o8, v8, u8 = K.ring_obfuscate_gossip(w, b, src, X, G, bits, 0.05,
+                                                 capture=True)
+            p8 = K.ref.ring_obfuscate_gossip_ref(w, b, Pd, X, G, bits, 0.05)
+            check(all(same_bits(torch, a, c) for a, c in zip((o8, v8, u8),
+                                                             p8)),
+                  f"B8 {what}: differs from the plain version")
+            check(same_bits(torch, K.ring_obfuscate_gossip(
+                w, b, P, X, G, bits, 0.05), o8),
+                f"B8 {what}: capture changes the output")
+            Gn = G.clone()
+            Gn[m - 1, 4099] = float("nan")
+            on = K.ring_obfuscate_gossip(w, b, src, X, Gn, bits, 0.05)
+            pn = K.ref.ring_obfuscate_gossip_ref(w, b, Pd, X, Gn, bits,
+                                                 0.05)[0]
+            check(same_values(torch, on.float(), pn.float())
+                  and bool(torch.isnan(on[:, 4099]).all()),
+                  f"B8 {what}: a planted nan reaches other positions than "
+                  f"in the plain version")
+            # B9: its bits are leaf_bits, its output B8's on them
+            o9, v9, u9, b9 = K.ring_obfuscate_gossip_krng(
+                w, b, src, X, G, keys, offsets, 0.05, capture=True,
+                export_bits=True)
+            check(torch.equal(b9, bits), f"B9 {what}: bits differ from "
+                                         f"prng.leaf_bits")
+            check(all(same_bits(torch, a, c) for a, c in zip(
+                (o9, v9, u9), (o8, v8, u8))),
+                f"B9 {what}: differs from B8 on its bits")
+            check(same_bits(torch, K.ring_obfuscate_gossip_krng(
+                w, b, src, X, G, keys, offsets, 0.05), o8),
+                f"B9 {what}: capture changes the output")
+            rec[str(dtype)[6:]] = {"bitwise": True, "nan_positions": int(
+                torch.isnan(on).sum())}
+        out[f"{n_data}x{n_pod}"] = {"m": m, "ndirs": nd, **rec}
+    emit({"phase": "kernel_ring", "cols": cols, "leaf_sizes": sizes,
+          "tolerances": {"B7": "bitwise", "B8": "bitwise (nan positions "
+                         "exact)", "B9": "bitwise, bits = prng.leaf_bits, "
+                         "= B8 on its bits"},
           "results": out})
 
 
@@ -808,6 +923,209 @@ def phase_fault_path(torch, K, train, prng, cfg):
     return {"guarded_gossip_update": (counts, b6)}
 
 
+RING_FLAGS = ("--kernel-layout", "ring")
+
+
+def phase_ring_path(torch, K, train, prng, cfg):
+    """The trainer with --kernel-layout ring (B9 once a step, no B3 or B2),
+    then one torus_gossip_pdsgd(None, ..., fused=True) on its buffers (B7);
+    the launch counts cover both.  Then B9 and B7 against their plain
+    versions at this shape, timed, and one step's ring update against the
+    concat update (B3 + B2) on the same draws."""
+    from repro_torch.core.pdsgd import lambda_key_table
+    from repro_torch.core.privacy import agent_key, sample_B
+    from repro_torch.dist import collectives as C
+    steps = 7
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
+                                        RING_FLAGS)
+    hist = _step_records(res)
+    losses = [r["loss"] for r in hist]
+    state = res["state"]
+    X = state.flat
+    m, width = X.shape
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"ring-path losses do not fall: {losses}")
+    check(len(hist) == steps and state.step == steps, "steps run")
+    check(_finite_flat(torch, X), "non-finite parameters")
+    check(counts.get("ring_obfuscate_gossip_krng", 0) == steps
+          and counts.get("obfuscate_update_krng", 0) == 0
+          and counts.get("gossip_update", 0) == 0,
+          f"ring-path launches {counts}")
+    ms_step = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1) \
+        * 1e3
+    # step `steps`'s draws, on this path's buffer
+    k = steps
+    dev = X.device
+    mixing = train.build_mixing(_path_args(train, steps, RING_FLAGS))
+    W, support, _ = mixing.realize(k, dev)
+    key_k = prng.fold_in(prng.key(1), k)
+    B = sample_B(agent_key(prng.fold_in(key_k, 2), k, 0), support)
+    tabs = C.directional_weights(W, m, 1)
+    w_tab = torch.cat([tabs["w_self"][:, None], tabs["w_dir"]], dim=1)
+    b_tab = C.rows_from_dense(B, m, 1)
+    src, P = C.source_table(m, 1), C.perm_stack(m, 1).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    G = torch.randn(X.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    G[:, state.layout.size:] = 0
+    # B7 as the single-device torus gossip runs it, u given (here G)
+    Y7 = C.torus_gossip_pdsgd(None, X, G, b_tab, W=W, fused=True)
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    check(counts.get("ring_gossip_update", 0) == 1,
+          f"ring-path launches {counts}")
+    emit({"phase": "ring_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+          "agents": m, "topology": "ring", "flags": list(RING_FLAGS),
+          "dtype": cfg.dtype, "per_agent_batch": 2, "seq_len": 512,
+          "params_per_agent": state.layout.size, "width": width,
+          "losses": losses, "ms_per_step": ms_step,
+          "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
+          "max_memory_allocated": peak, "launches": counts})
+
+    n = m * width
+    # B7 against its plain version, then timed
+    for s, e in _chunks(width):
+        check(same_bits(torch, Y7[:, s:e], K.ref.ring_gossip_ref(
+            w_tab, b_tab, P, X[:, s:e], G[:, s:e])[0]),
+            f"B7 ring-path shape differs at columns {s}:{e}")
+    del Y7
+    Y = torch.empty_like(X)
+    b7 = {"ms": time_ms(torch, lambda: K.ring_gossip_update(
+              w_tab, b_tab, src, X, G, out=Y), iters=10),
+          "max_abs_err": 0.0,
+          "plain_ms": _plain_ms(torch, lambda s, e: K.ref.ring_gossip_ref(
+              w_tab, b_tab, P, X[:, s:e], G[:, s:e]), width)}
+    Wd, Bd = C.dense_coupling(b_tab, m, 1, W=W)
+    Wb, Bb = Wd.bfloat16(), Bd.bfloat16()
+    b7["library_ms"] = time_ms(torch, lambda: Wb @ X - Bb @ G, iters=5)
+    nd = P.shape[0]
+    b7["bound_ms"], b7["bound_by"] = bound_ms(n * 6, n * (3 + 4 * nd))
+
+    # one step's update, ring (B9) and concat (B3 + B2) on the same draws:
+    # each within one bf16 ulp of the f32 result of its own u (the ring
+    # keeps u in f32, the concat path rounds it to bf16 over G)
+    keys = lambda_key_table(key_k, k, m, state.layout.n_leaves)
+    offsets = torch.tensor(state.layout.offsets, dtype=torch.int64)
+    lam = torch.tensor(0.01, device=dev)
+    Xr = X.clone()
+    K.ring_pdsgd_flat(w_tab, b_tab, src, Xr, G, lam, keys=keys,
+                      offsets=offsets, in_place=True)
+    Xc, Gc = X.clone(), G.clone()
+    K.fused_pdsgd_flat(W, B, Xc, Gc, lam, keys=keys, offsets=offsets,
+                       in_place=True)
+    kd = keys.to(dev)
+    ulps_r = ulps_c = ring_vs_concat = 0.0
+    for s, e in _chunks(width):
+        bits = prng.leaf_bits(kd, offsets, m, width, start=s, stop=e)
+        po, _, pu = K.ref.ring_obfuscate_gossip_ref(
+            w_tab, b_tab, P, X[:, s:e], G[:, s:e], bits, lam)
+        check(same_bits(torch, Xr[:, s:e], po),
+              f"B9 ring-path shape differs at columns {s}:{e}")
+        x = X[:, s:e].float()
+        exact_r = W @ x - B @ pu
+        ulps_r = max(ulps_r, bf16_ulps(torch, Xr[:, s:e], exact_r,
+                                       W @ x.abs() + B @ pu.abs()))
+        uc = Gc[:, s:e].float()
+        exact_c = W @ x - B @ uc
+        ulps_c = max(ulps_c, bf16_ulps(torch, Xc[:, s:e], exact_c,
+                                       W @ x.abs() + B @ uc.abs()))
+        ring_vs_concat = max(ring_vs_concat, float(
+            (Xr[:, s:e].float() - Xc[:, s:e].float()).abs().max()))
+    check(ulps_r <= 1.0 and ulps_c <= 1.0,
+          f"ring {ulps_r} / concat {ulps_c} bf16 ulps from the f32 result")
+    del Xc, Gc
+    b9 = {"ms": time_ms(torch, lambda: K.ring_obfuscate_gossip_krng(
+              w_tab, b_tab, src, X, G, keys, offsets, lam, out=Xr),
+              iters=5),
+          "max_abs_err": 0.0,
+          "plain_ms": _plain_ms(torch, lambda s, e:
+                                K.ref.ring_obfuscate_gossip_ref(
+                                    w_tab, b_tab, P, X[:, s:e], G[:, s:e],
+                                    prng.leaf_bits(kd, offsets, m, width,
+                                                   start=s, stop=e), lam),
+                                width),
+          "library_ms": None}
+    b9["bound_ms"], b9["bound_by"] = bound_ms(n * 6, n * (6 + 4 * nd))
+    emit({"phase": "ring_path_kernels", "shape": [m, width],
+          "dtype": "bfloat16", "B9": b9, "B7": b7,
+          "ring_vs_concat": {"ring_max_bf16_ulps_vs_f32": ulps_r,
+                             "concat_max_bf16_ulps_vs_f32": ulps_c,
+                             "max_abs_diff": ring_vs_concat}})
+    del G, Xr, Y
+    return {"ring_obfuscate_gossip_krng": (counts, b9),
+            "ring_gossip_update": (counts, b7)}
+
+
+def phase_ring_bits_path(torch, K, train, prng, cfg):
+    """The bits path with --kernel-layout ring: B8 every step (no B1, B2);
+    B8 checked and timed at that path's shape."""
+    from repro_torch.core.pdsgd import per_agent_bits
+    from repro_torch.core.privacy import agent_key, sample_B
+    from repro_torch.dist import collectives as C
+    steps = 2
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, False,
+                                        RING_FLAGS)
+    hist = res["history"]
+    state = res["state"]
+    X = state.flat
+    m, width = X.shape
+    check(all(math.isfinite(r["loss"]) for r in hist), "ring bits losses")
+    check(_finite_flat(torch, X), "ring bits path non-finite parameters")
+    check(counts.get("ring_obfuscate_gossip", 0) == steps
+          and counts.get("obfuscate_update", 0) == 0
+          and counts.get("gossip_update", 0) == 0,
+          f"ring bits path launches {counts}")
+    emit({"phase": "ring_bits_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "agents": m,
+          "losses": [r["loss"] for r in hist], "run_wall_s": wall,
+          "max_memory_allocated": peak, "launches": counts})
+    k, dev = steps, X.device
+    mixing = train.build_mixing(_path_args(train, steps, RING_FLAGS))
+    W, support, _ = mixing.realize(k, dev)
+    key_k = prng.fold_in(prng.key(1), k)
+    B = sample_B(agent_key(prng.fold_in(key_k, 2), k, 0), support)
+    tabs = C.directional_weights(W, m, 1)
+    w_tab = torch.cat([tabs["w_self"][:, None], tabs["w_dir"]], dim=1)
+    b_tab = C.rows_from_dense(B, m, 1)
+    src, P = C.source_table(m, 1), C.perm_stack(m, 1).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    G = torch.randn(X.shape, generator=gen, device=dev, dtype=torch.bfloat16)
+    bits = per_agent_bits(key_k, k, state.layout, m, device=dev)
+    lam = torch.tensor(0.01, device=dev)
+    Y = K.ring_obfuscate_gossip(w_tab, b_tab, src, X, G, bits, lam)
+    for s, e in _chunks(width):
+        check(same_bits(torch, Y[:, s:e], K.ref.ring_obfuscate_gossip_ref(
+            w_tab, b_tab, P, X[:, s:e], G[:, s:e], bits[:, s:e], lam)[0]),
+            f"B8 ring-bits-path shape differs at columns {s}:{e}")
+    n = m * width
+    nd = P.shape[0]
+    b8 = {"ms": time_ms(torch, lambda: K.ring_obfuscate_gossip(
+              w_tab, b_tab, src, X, G, bits, lam, out=Y), iters=10),
+          "max_abs_err": 0.0,
+          "plain_ms": _plain_ms(torch, lambda s, e:
+                                K.ref.ring_obfuscate_gossip_ref(
+                                    w_tab, b_tab, P, X[:, s:e], G[:, s:e],
+                                    bits[:, s:e], lam), width)}
+    del Y
+    Wd, Bd = C.dense_coupling(b_tab, m, 1, W=W)
+
+    def library():
+        # the same update as eager torch ops on the whole buffer
+        u01 = ((bits.view(torch.int32) >> 9) & 0x7FFFFF
+               | 0x3F800000).view(torch.float32) - 1.0
+        u = (2.0 * lam * u01).mul_(G.float())
+        return torch.addmm(Wd @ X.float(), Bd, u, alpha=-1.0).bfloat16()
+
+    b8["library_ms"] = time_ms(torch, library, iters=3, warmup=1)
+    b8["bound_ms"], b8["bound_by"] = bound_ms(n * 10, n * (6 + 4 * nd))
+    emit({"phase": "ring_bits_path_kernels", "shape": [m, width],
+          "dtype": "bfloat16", "B8": b8})
+    del G, bits
+    return {"ring_obfuscate_gossip": (counts, b8)}
+
+
 def phase_bits_path(torch, K, train, prng, cfg):
     steps = 2
     res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, False)
@@ -938,6 +1256,12 @@ SOURCES = {
                                   "src/repro/kernels/gossip.py:228"),
     "guarded_gossip_update": ("src/repro_torch/csrc/gossip.cu",
                               "src/repro/kernels/gossip.py:316"),
+    "ring_gossip_update": ("src/repro_torch/csrc/ring.cu",
+                           "src/repro/kernels/gossip.py:446"),
+    "ring_obfuscate_gossip": ("src/repro_torch/csrc/ring.cu",
+                              "src/repro/kernels/gossip.py:506"),
+    "ring_obfuscate_gossip_krng": ("src/repro_torch/csrc/ring.cu",
+                                   "src/repro/kernels/gossip.py:598"),
 }
 
 
@@ -946,8 +1270,8 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile main-, dropout- and fault-path steps "
-                         "with torch.profiler")
+                    help="also profile main-, dropout-, fault- and ring-path "
+                         "steps with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -968,6 +1292,7 @@ def main(argv=None) -> int:
     smi = phase_device(torch, build)
     phase_kernels(torch, K, prng)
     phase_kernels_coupled(torch, K)
+    phase_kernels_ring(torch, K, prng)
     rows = {}
     if not opts.quick:
         phase_step_parity(torch, train)
@@ -982,17 +1307,21 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows.update(phase_fault_path(torch, K, train, prng, main_cfg))
         torch.cuda.empty_cache()
+        rows.update(phase_ring_path(torch, K, train, prng, main_cfg))
+        torch.cuda.empty_cache()
         if opts.profile:
             for path, extra in (
                     ("dropout_path", DROPOUT_FLAGS),
                     ("fault_path", (*FAULT_FLAGS, "--fault-seed",
-                                    str(fault_seed(train, 6)[0])))):
+                                    str(fault_seed(train, 6)[0]))),
+                    ("ring_path", RING_FLAGS)):
                 gc.collect()
                 phase_profile(torch, train, main_cfg, path, extra)
                 torch.cuda.empty_cache()
-        rows.update(phase_bits_path(
-            torch, K, train, prng,
-            dataclasses.replace(full, num_layers=BITS_PATH_LAYERS)))
+        bits_cfg = dataclasses.replace(full, num_layers=BITS_PATH_LAYERS)
+        rows.update(phase_bits_path(torch, K, train, prng, bits_cfg))
+        torch.cuda.empty_cache()
+        rows.update(phase_ring_bits_path(torch, K, train, prng, bits_cfg))
         kernels = []
         for name, (counts, r) in rows.items():
             src, replaces = SOURCES[name]

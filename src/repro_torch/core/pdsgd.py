@@ -4,8 +4,8 @@
 
 (counterpart of ``repro.core.pdsgd``; the ``pdsgd`` algorithm over a static
 or time-varying mixing process, with agent faults, sentinels and
-trimmed-mean aggregation — the baselines, observers and clipping come
-later).
+trimmed-mean aggregation, in the concat or the ring kernel layout — the
+baselines, observers and clipping come later).
 
 State layout.  All m agents' parameters live in ONE flat (m, width) buffer,
 each row the agent's leaves concatenated in tree order and zero-padded to
@@ -29,12 +29,13 @@ from typing import Any, Callable
 
 import torch
 
+from ..dist import collectives as C
 from ..faults.inject import (guarded_gossip_mix, neighbor_avg_warmstart,
                              trimmed_mean_mix)
 from ..faults.process import FaultProcess, realize_coupling
 from ..kernels.build import to_device
 from ..kernels.obfuscate import obfuscate_update, obfuscate_update_krng
-from ..kernels.ops import FlatLayout, fused_pdsgd_flat
+from ..kernels.ops import FlatLayout, fused_pdsgd_flat, ring_pdsgd_flat
 from . import prng
 from .mixing import MixingProcess, as_process
 from .privacy import (agent_key, obfuscated_gradient, sample_B, tree_leaves,
@@ -45,6 +46,17 @@ from .topology import Topology
 __all__ = ["DecentralizedState", "init_state", "consensus_error",
            "lambda_key_table", "per_agent_bits", "gossip_mix",
            "pdsgd_update", "obfuscate_flat", "make_decentralized_step"]
+
+_LAYOUTS = ("concat", "ring")
+_RING_CORRUPT = ("kernel_layout='ring' does not carry corrupt-link "
+                 "injection; the guarded fault path stays dense")
+
+
+def _check_layout(kernel_layout: str) -> None:
+    if kernel_layout not in _LAYOUTS:
+        raise ValueError(f"unknown kernel_layout {kernel_layout!r}; have "
+                         f"{_LAYOUTS} (the leafwise layout of sharded "
+                         f"agents is not ported yet)")
 
 
 @dataclasses.dataclass
@@ -151,7 +163,9 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                  mask: torch.Tensor | None = None,
                  corrupt: torch.Tensor | None = None,
                  corrupt_mode: str = "nan", corrupt_scale: float = 1e4,
-                 guard_clip: float | None = 1e3) -> torch.Tensor:
+                 guard_clip: float | None = 1e3,
+                 kernel_layout: str = "concat",
+                 torus_shape: tuple[int, int] | None = None) -> torch.Tensor:
     """One iteration of Eq. (4) on flat (m, width) buffers; returns x'.
 
     ``W``/``support`` are this step's realized coupling and its support
@@ -170,14 +184,42 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     the mask, or the guarded one).  ``in_place`` overwrites G with u and X
     with x'.
 
+    ``kernel_layout="ring"`` runs the whole update as ONE kernel from
+    per-direction tables: the realized W_k and B^k are split by
+    `dist.collectives.directional_weights` / `rows_from_dense` over the
+    ``torus_shape`` = (n_data, n_pod) torus (default (m, 1), one ring,
+    which must hold the coupling's support), and
+    `kernels.ops.ring_pdsgd_flat` draws Lambda, obfuscates and exchanges
+    each direction's message in one pass.  ``mask`` is subsumed: a
+    dropped link is a zero entry of W_k and B^k, hence a zero table slot
+    and an exactly-zero message.  ``corrupt`` is refused (the guarded
+    fault path stays dense).
+
     ``eager=True`` is the reference's unfused formula (its
-    ``use_pallas=False`` branch): per agent `privacy.obfuscated_gradient`
-    over the leaves, then per leaf `gossip_mix`, or
-    `faults.inject.guarded_gossip_mix` when ``corrupt`` is given.  It
-    realizes the same Lambda^k and B^k; it is the port-internal oracle
-    the tests hold the fused branch against, and writes a new buffer.
+    ``use_pallas=False`` branch, whatever the layout): per agent
+    `privacy.obfuscated_gradient` over the leaves, then per leaf
+    `gossip_mix`, or `faults.inject.guarded_gossip_mix` when ``corrupt``
+    is given.  It realizes the same Lambda^k and B^k; it is the
+    port-internal oracle the tests hold the fused branch against, and
+    writes a new buffer.
     """
+    _check_layout(kernel_layout)
     B = sample_B(agent_key(prng.fold_in(key, 2), step, 0), support)
+    if kernel_layout == "ring" and not eager:
+        if corrupt is not None:
+            raise ValueError(_RING_CORRUPT)
+        m = X.shape[0]
+        n_data, n_pod = torus_shape if torus_shape is not None else (m, 1)
+        if n_data * n_pod != m:
+            raise ValueError(
+                f"torus_shape {n_pod}x{n_data} does not hold m={m} agents")
+        tabs = C.directional_weights(W, n_data, n_pod)
+        w_tab = torch.cat([tabs["w_self"][:, None], tabs["w_dir"]], dim=1)
+        b_rows = C.rows_from_dense(B, n_data, n_pod)
+        return ring_pdsgd_flat(
+            w_tab, b_rows, C.source_table(n_data, n_pod), X, G, lam_bar,
+            **_lambda_source(key, step, layout, X, kernel_rng),
+            in_place=in_place)
     if eager:
         u_rows = _obfuscated_rows(G, layout, key, step, lam_bar)
         out = torch.zeros_like(X)
@@ -289,7 +331,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                             faults: FaultProcess | None = None,
                             nan_policy: str = "off",
                             aggregation: str = "gossip", trim: int = 1,
-                            eager: bool = False):
+                            eager: bool = False,
+                            kernel_layout: str = "concat",
+                            torus_shape: tuple[int, int] | None = None):
     """``step(state, batch, key) -> (state, aux)`` for PDSGD.
 
     ``loss_fn(params_i, batch_i)`` is ONE agent's scalar loss; batch leaves
@@ -299,7 +343,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     input state's buffer, which the step has updated in place.
     ``kernel_rng`` picks how the obfuscate kernel gets Lambda's bits (see
     `pdsgd_update`); ``eager=True`` runs the unfused formula instead of
-    the kernels (the tests' oracle).
+    the kernels (the tests' oracle).  ``kernel_layout``/``torus_shape``
+    pick the update's layout (`pdsgd_update`): ``"ring"`` runs it as one
+    ring kernel per step.
 
     ``topology`` may be a `MixingProcess`: the step realizes W_k from the
     absolute step each iteration, and a time-varying one routes the
@@ -332,6 +378,7 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     if aggregation not in ("gossip", "trimmed_mean"):
         raise ValueError(f"unknown aggregation {aggregation!r}; "
                          f"have ('gossip', 'trimmed_mean')")
+    _check_layout(kernel_layout)
     process = as_process(topology)
     if faults is not None and faults.is_inert:
         faults = None  # the rate-0 path IS the fault-free path
@@ -346,6 +393,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             f"trim must satisfy 1 <= trim and m - 2*trim >= 1; "
             f"got trim={trim}, m={m}")
     corrupting = faults is not None and faults.has_corruption
+    if corrupting and kernel_layout == "ring" and not eager \
+            and aggregation == "gossip":
+        raise ValueError(_RING_CORRUPT)
     rejoining = (faults is not None and faults.has_crash
                  and not faults.is_failstop)
 
@@ -402,7 +452,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                     else "nan",
                     corrupt_scale=faults.corrupt_scale if corrupting
                     else 1e4,
-                    guard_clip=faults.guard_clip if corrupting else 1e3)
+                    guard_clip=faults.guard_clip if corrupting else 1e3,
+                    kernel_layout=kernel_layout, torus_shape=torus_shape)
                 if out is not X:
                     X.copy_(out)
                 del out

@@ -6,12 +6,17 @@ tensors to its kernel (``csrc/*.cu``, built at first use by `build`).
 from . import ref
 from .build import build_all, launch_counts, reset_launch_counts
 from .gossip import (gossip_update, guarded_gossip_update,
-                     masked_gossip_update, masked_gossip_update_krng)
+                     masked_gossip_update, masked_gossip_update_krng,
+                     ring_gossip_update, ring_obfuscate_gossip,
+                     ring_obfuscate_gossip_krng)
 from .obfuscate import obfuscate_update, obfuscate_update_krng
-from .ops import FlatLayout, fused_pdsgd_flat, fused_pdsgd_tree
+from .ops import (FlatLayout, fused_pdsgd_flat, fused_pdsgd_tree,
+                  ring_pdsgd_flat, ring_pdsgd_tree)
 
 __all__ = ["ref", "build_all", "launch_counts", "reset_launch_counts",
            "gossip_update", "masked_gossip_update",
            "masked_gossip_update_krng", "guarded_gossip_update",
-           "obfuscate_update", "obfuscate_update_krng",
-           "FlatLayout", "fused_pdsgd_flat", "fused_pdsgd_tree"]
+           "ring_gossip_update", "ring_obfuscate_gossip",
+           "ring_obfuscate_gossip_krng", "obfuscate_update",
+           "obfuscate_update_krng", "FlatLayout", "fused_pdsgd_flat",
+           "fused_pdsgd_tree", "ring_pdsgd_flat", "ring_pdsgd_tree"]

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "library", "launch_counts", "dtype_code",
            "to_device"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("obfuscate", "gossip")
+SOURCES = ("obfuscate", "gossip", "ring")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -57,6 +57,17 @@ _SIGNATURES = {
         "guarded_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP, _VOIDP, _INT, _FLOAT,
                                   _FLOAT, _INT, _VOIDP, _INT, _LL, _VOIDP],
+    },
+    "ring": {
+        "ring_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
+                               _VOIDP, _VOIDP, _VOIDP, _INT, _LL, _VOIDP],
+        "ring_obfuscate_gossip": [_INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,
+                                  _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                  _VOIDP, _INT, _LL, _VOIDP],
+        "ring_obfuscate_gossip_krng": [_INT, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                       _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                       _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                       _INT, _LL, _VOIDP],
     },
 }
 

@@ -5,6 +5,9 @@
     x' = W X - B U         (a gossip kernel: static W, an edge mask, a mask
                             drawn in-kernel, or the guarded fault path)
 
+and of ``ring_pdsgd_tree`` (the ring layout): both in ONE kernel from the
+per-direction tables, u never stored.
+
 The reference flattens each agent's leaves, concatenates them in tree
 order and pads the columns to a multiple of 512 on every step.  The port
 keeps the agents' parameters as views into one such (m, D_pad) buffer
@@ -22,10 +25,12 @@ import torch
 from ..core.privacy import tree_leaves, tree_paths, tree_unflatten
 from .build import to_device
 from .gossip import (gossip_update, guarded_gossip_update,
-                     masked_gossip_update, masked_gossip_update_krng)
+                     masked_gossip_update, masked_gossip_update_krng,
+                     ring_obfuscate_gossip, ring_obfuscate_gossip_krng)
 from .obfuscate import obfuscate_update, obfuscate_update_krng
 
-__all__ = ["FlatLayout", "fused_pdsgd_flat", "fused_pdsgd_tree", "PAD"]
+__all__ = ["FlatLayout", "fused_pdsgd_flat", "fused_pdsgd_tree",
+           "ring_pdsgd_flat", "ring_pdsgd_tree", "PAD"]
 
 PAD = 512
 
@@ -173,3 +178,64 @@ def fused_pdsgd_tree(W, B, x_tree, g_tree, lam_bar, *, keys):
                               offsets=offsets)
     D = layout.size
     return layout.tree(out), {"x": X[:, :D].float(), "u": U[:, :D].float()}
+
+
+def ring_pdsgd_flat(w_tab: torch.Tensor, b_tab: torch.Tensor,
+                    perms: torch.Tensor, X: torch.Tensor, G: torch.Tensor,
+                    lam_bar, *, keys: torch.Tensor | None = None,
+                    offsets: torch.Tensor | None = None,
+                    bits: torch.Tensor | None = None,
+                    in_place: bool = False, observe: bool = False):
+    """Eq. (4) on flat (m, width) buffers through ONE ring kernel: Lambda
+    drawn in it from ``keys``/``offsets`` (`ring_obfuscate_gossip_krng`) or
+    read from ``bits`` (`ring_obfuscate_gossip`), the obfuscation and the
+    per-direction exchange of the tables ``w_tab``/``b_tab`` (m, 1 + ndirs)
+    over the shifts ``perms``.  A dropped link is a zero table slot and
+    sends an exactly-zero v.  ``in_place`` writes x' over X (the kernel
+    reads every row of a column before it writes one); G is only read.
+
+    Returns x', or with ``observe`` ``(x', {"x", "u", "v"})``: the f32
+    input x (copied before an in-place write), the kernel's own u (m,
+    width) and v (ndirs, m, width), the wire messages sender-major."""
+    if (keys is None) == (bits is None):
+        raise ValueError("pass exactly one of keys (in-kernel Lambda) or "
+                         "bits")
+    x_obs = X.to(torch.float32, copy=True) if observe else None
+    out = X if in_place else None
+    if keys is not None:
+        res = ring_obfuscate_gossip_krng(w_tab, b_tab, perms, X, G, keys,
+                                         offsets, lam_bar, capture=observe,
+                                         out=out)
+    else:
+        res = ring_obfuscate_gossip(w_tab, b_tab, perms, X, G, bits, lam_bar,
+                                    capture=observe, out=out)
+    if not observe:
+        return res
+    x_new, v, u = res
+    return x_new, {"x": x_obs, "u": u, "v": v}
+
+
+def ring_pdsgd_tree(w_tab, b_tab, perms, x_tree, g_tree, lam_bar, *,
+                    keys: torch.Tensor | None = None, bits_tree=None,
+                    observe: bool = False):
+    """Tree-level form of `ring_pdsgd_flat` (leaves with a leading (m,)
+    agent axis): flattens into fresh padded buffers, Lambda from ``keys``
+    (m, n_leaves, 2) or from ``bits_tree`` (uint32 leaves shaped like the
+    gradients).  Returns x'_tree, or ``(x'_tree, {"x", "u", "v"})`` with
+    the padding stripped, like the reference's ``observe=True`` flats."""
+    m = tree_leaves(x_tree)[0].shape[0]
+    layout = FlatLayout.of(tree_unflatten(
+        x_tree, [l[0] for l in tree_leaves(x_tree)]))
+    X = layout.flatten(x_tree, m)
+    G = layout.flatten(g_tree, m)
+    bits = layout.flatten(bits_tree, m) if bits_tree is not None else None
+    res = ring_pdsgd_flat(w_tab, b_tab, perms, X, G, lam_bar, keys=keys,
+                          offsets=torch.tensor(layout.offsets,
+                                               dtype=torch.int64),
+                          bits=bits, in_place=True, observe=observe)
+    if not observe:
+        return layout.tree(res)
+    out, flats = res
+    D = layout.size
+    return layout.tree(out), {"x": flats["x"][:, :D], "u": flats["u"][:, :D],
+                              "v": flats["v"][:, :, :D]}

@@ -15,7 +15,8 @@ from ..core import prng
 __all__ = ["obfuscate_ref", "obfuscate_krng_ref", "gossip_ref",
            "metropolis_ref", "masked_gossip_ref", "mask_from_bits",
            "masked_gossip_krng_ref", "poison_transmit", "guarded_gossip_ref",
-           "CORRUPT_MODES"]
+           "ring_gossip_ref", "ring_obfuscate_gossip_ref",
+           "ring_obfuscate_gossip_krng_ref", "CORRUPT_MODES"]
 
 CORRUPT_MODES = ("nan", "inf", "scale")
 
@@ -139,3 +140,51 @@ def guarded_gossip_ref(mask: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         v = torch.where(torch.isfinite(v), torch.clamp(v, -clip, clip),
                         torch.zeros_like(v))
     return (self_term + v.sum(dim=1)).to(X.dtype)
+
+
+def ring_gossip_ref(w_tab: torch.Tensor, b_tab: torch.Tensor,
+                    perms: torch.Tensor, X: torch.Tensor, U: torch.Tensor):
+    """x' = W X - B U from the ring layout's direction tables, as the
+    reference's staged ring computes it, in f32:
+
+        out = w[:, 0] x - b[:, 0] u                  (self term)
+        v_d = w[:, 1 + d] x - b[:, 1 + d] u          (every direction)
+        out = out + perms[d] @ v_d                   (d in order)
+
+    ``w_tab``/``b_tab``: (m, 1 + ndirs); ``perms``: (ndirs, m, m) 0/1,
+    row i selecting the sender agent i receives from.  The 0/1 product is
+    a matrix product, so a non-finite v_d in a column reaches every
+    receiver of that column (0 * nan = nan).  Returns ``(out, v)``: out in
+    X's dtype, v the (ndirs, m, n) f32 messages, sender-major."""
+    x, u = X.float(), U.float()
+    w, b = w_tab.float(), b_tab.float()
+    perms = perms.float().to(x.device)
+    out = w[:, 0:1] * x - b[:, 0:1] * u
+    vs = [w[:, d + 1:d + 2] * x - b[:, d + 1:d + 2] * u
+          for d in range(perms.shape[0])]
+    for d, v in enumerate(vs):
+        out = out + perms[d] @ v
+    v = torch.stack(vs) if vs else x.new_zeros((0,) + tuple(x.shape))
+    return out.to(X.dtype), v
+
+
+def ring_obfuscate_gossip_ref(w_tab, b_tab, perms, X: torch.Tensor,
+                              G: torch.Tensor, bits: torch.Tensor, lam_bar):
+    """u = (2 lam_bar) U(bits) ∘ g in f32 (`obfuscate_ref`'s mantissa
+    rule), then `ring_gossip_ref`: ``(out, v, u)``."""
+    lam = (2.0 * _f32(lam_bar, X.device)) * prng.bits_to_uniform(bits)
+    u = lam * G.float()
+    out, v = ring_gossip_ref(w_tab, b_tab, perms, X, u)
+    return out, v, u
+
+
+def ring_obfuscate_gossip_krng_ref(w_tab, b_tab, perms, X: torch.Tensor,
+                                   G: torch.Tensor, keys: torch.Tensor,
+                                   offsets, lam_bar):
+    """`ring_obfuscate_gossip_ref` on the bits the in-kernel generator
+    draws (`prng.leaf_bits` of the (m, n_leaves, 2) key table):
+    ``(out, v, u, bits)``."""
+    m, n = X.shape
+    bits = prng.leaf_bits(keys.to(X.device), offsets, m, n)
+    return (*ring_obfuscate_gossip_ref(w_tab, b_tab, perms, X, G, bits,
+                                       lam_bar), bits)

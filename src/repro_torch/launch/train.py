@@ -4,6 +4,7 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch stablelm-3b-smoke --agents 4 --steps 50 --device cpu \
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
+        [--kernel-layout ring]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
@@ -12,7 +13,9 @@ flags (and the same initial weights, `run_training(init_params=...)`)
 walk the reference's trajectory (the reference's default algorithm,
 pdsgd, and its eager loop, ``--unroll-k 1``).  The time-varying topology
 (``--topology-*``), agent faults (``--fault-*``) and the ``--nan-policy``
-sentinels are the reference's flags.  The other algorithms, checkpoints,
+sentinels are the reference's flags, and so is ``--kernel-layout ring``
+(the whole update as one ring kernel; needs ``--topology ring``).  The
+leafwise layout of sharded agents, the other algorithms, checkpoints,
 resume, rollback, prefetch, the scanned loop and the privacy audit are not
 ported yet.
 """
@@ -94,6 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="isfinite sentinels on loss and updated state: "
                         "'warn' counts non-finite steps, 'skip' also holds "
                         "the last finite state")
+    p.add_argument("--kernel-layout", default="auto",
+                   choices=["auto", "concat", "ring"],
+                   help="fused update layout: auto = concat (obfuscate "
+                        "kernel, then gossip kernel); 'ring' = Lambda-draw, "
+                        "obfuscate and the per-direction exchange in one "
+                        "kernel (requires --topology ring)")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--per-agent-batch", type=int, default=2)
     p.add_argument("--seq-len", type=int, default=64)
@@ -153,13 +162,27 @@ def run_training(args, cfg=None, init_params=None,
         raise RuntimeError("--device cuda but no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
     cfg = cfg if cfg is not None else get_config(args.arch)
+    kernel_layout = "concat" if args.kernel_layout == "auto" \
+        else args.kernel_layout
+    if kernel_layout == "ring":
+        # the ring tables need the coupling's support inside the (m, 1)
+        # ring's adjacency; other graphs keep the concat layout
+        if args.topology != "ring":
+            raise SystemExit("--kernel-layout ring requires "
+                             "--topology ring")
+        if args.fault_corrupt_rate > 0.0:
+            raise SystemExit("--kernel-layout ring does not carry "
+                             "corrupt-link injection; drop "
+                             "--fault-corrupt-rate or use --kernel-layout "
+                             "concat")
     bundle = build_model(cfg)
     mixing = build_mixing(args)
     faults = build_faults(args)
     sched = warmup_harmonic(args.lr, hold=args.warmup_hold)
     step = make_decentralized_step(bundle.loss_fn, mixing, sched,
                                    kernel_rng=kernel_rng, faults=faults,
-                                   nan_policy=args.nan_policy)
+                                   nan_policy=args.nan_policy,
+                                   kernel_layout=kernel_layout)
     b_window = args.b_window
     if b_window is None:
         b_window = 8 if not mixing.is_static else 0

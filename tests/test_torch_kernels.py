@@ -17,7 +17,9 @@ Tolerances:
 * on the card (tests marked ``gpu``): B4 and B5 to B2's tolerance (f32
   rtol/atol 1e-5), B4's on-chip W_k and B5's mask bitwise; B6's
   non-finite positions exact and its finite entries within 1e-5 (1 + S),
-  S the summed magnitude of the terms (clipped links can cancel).
+  S the summed magnitude of the terms (clipped links can cancel); the
+  ring kernels B7, B8, B9 bitwise against their plain versions on the
+  card (nan positions exact), B9's bits bitwise `prng.leaf_bits`.
 """
 import jax
 import jax.numpy as jnp
@@ -433,3 +435,57 @@ def test_cuda_guarded_gossip_kernel_vs_plain(m, mode, clip):
              + v.abs().nan_to_num(0.0, 0.0, 0.0).sum(1))
     fin = torch.isfinite(want)
     assert bool(((got - want).abs() <= 1e-5 * (1 + scale))[fin].all())
+
+
+def _same_values(a, b):
+    """Bitwise equal, nan exactly where the other has nan (payloads
+    aside)."""
+    return (torch.equal(torch.isnan(a), torch.isnan(b))
+            and torch.equal(a.nan_to_num(0.0).view(torch.uint8),
+                            b.nan_to_num(0.0).view(torch.uint8)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [2, 4, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype):
+    """B7, B8 and B9 against their plain versions on the card: outputs,
+    captured v and u bitwise, capture not changing the output, a nan
+    planted in one sender's g at the plain version's positions, and B9
+    equal to B8 on its exported bits."""
+    _need_cuda()
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import (ring_gossip_update, ring_obfuscate_gossip,
+                                     ring_obfuscate_gossip_krng)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(m)
+    perms = C.perm_stack(m, 1)
+    nd = perms.shape[0]
+    w = torch.rand(m, 1 + nd, generator=gen).to(dev)
+    b = torch.rand(m, 1 + nd, generator=gen).to(dev)
+    _, offsets, cols, keys = _ragged_layout(m)
+    X = torch.randn(m, cols, generator=gen).to(dtype).to(dev)
+    U = torch.randn(m, cols, generator=gen).to(dtype).to(dev)
+    G = torch.randn(m, cols, generator=gen).to(dtype)
+    G[m - 1, 300] = float("nan")
+    G = G.to(dev)
+    out, v = ring_gossip_update(w, b, perms, X, U, capture=True)
+    po, pv = ref.ring_gossip_ref(w, b, perms.to(dev), X, U)
+    assert torch.equal(out.view(torch.uint8), po.view(torch.uint8))
+    assert torch.equal(v.view(torch.uint8), pv.view(torch.uint8))
+    assert torch.equal(ring_gossip_update(w, b, perms, X, U), out)
+    bits = prng.leaf_bits(keys.to(dev), offsets, m, cols)
+    o8, v8, u8 = ring_obfuscate_gossip(w, b, perms, X, G, bits, 0.05,
+                                       capture=True)
+    p8 = ref.ring_obfuscate_gossip_ref(w, b, perms.to(dev), X, G, bits, 0.05)
+    assert bool(torch.isnan(o8[:, 300]).all())
+    for a, c in zip((o8, v8, u8), p8):
+        assert _same_values(a, c)
+    assert _same_values(ring_obfuscate_gossip(w, b, perms, X, G, bits, 0.05),
+                        o8)
+    o9, v9, u9, b9 = ring_obfuscate_gossip_krng(
+        w, b, perms, X, G, keys, offsets, 0.05, capture=True,
+        export_bits=True)
+    assert torch.equal(b9, bits)
+    for a, c in zip((o9, v9, u9), (o8, v8, u8)):
+        assert _same_values(a, c)
