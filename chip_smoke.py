@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: builds the hand-written kernels, holds each against its plain
-PyTorch version, trains stablelm-3b at full width through the port's entry
-point, and reports what ran.
+PyTorch version, trains stablelm-3b at full width and serves it at full
+width and depth through the port's entry points, and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # main-, dropout-, fault- and ring-path
-                                     # steps
+                                     # steps and of the serve path's
+                                     # prefills and decode chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -28,6 +29,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   fault_path  the same model with Markov crash/restart, nan-corrupt
               senders, guard clip 1e3 and --nan-policy skip (B3 + B6), 6
               steps; B6 timed and checked at that path's shapes
+  kernel_attention  B10 flash_attention against ref.flash_attention_ref,
+              f32 and bf16, S in {1, 7, 128, 130, 2000} x hd in {8, 16, 32,
+              40, 64, 80, 128} x (causal, causal + window 256, non-causal,
+              non-causal + window 100); timed at the serve path's (1, 2000,
+              32, 80) bf16 causal with its plain version and
+              scaled_dot_product_attention (library, timed only)
   kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
               ring_obfuscate_gossip_krng bitwise against their plain
               versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
@@ -43,21 +50,39 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               2: B1 + B2, B1 timed and checked at that path's shapes
   ring_bits_path  the bits path with --kernel-layout ring: B8 every step,
               checked and timed at that path's shapes
+  serve_parity  stablelm-3b-smoke f32, 4 requests on 2 slots, greedy,
+              through launch/serve.run_serving on the card (B10) and on the
+              CPU (naive attention), same weights: equal token streams,
+              prefill logits within 1e-4
+  serve_path  launch/serve with --arch stablelm-3b --slots 8 --requests 16
+              --prompt-len 2000 --gen-tokens 64 --decode-chunk 8
+              --parity-check: full width and depth, bf16, B10 32 times a
+              prefill; the engine's streams equal the sequential decode's,
+              or diverge only at or after a near tie (a top-2 margin of the
+              sequential logits below the measured batched-vs-B=1 logit
+              spread), the spread and a layer-by-layer trace of the two
+              residual streams then printed in bf16 and in f32
   kernels     every kernel with its launches, error, times and bound
 Then the card's name and power limit, then the result line.
 
-Bounds: bytes each kernel must move (inputs read once, outputs written
-once) over 3.35e12 B/s, or its float operations over 67e12 FLOP/s (f32
-outside the tensor cores), whichever is larger (H100 SXM data sheet).
+Bounds: B1-B9 (elementwise and m <= 32 mixing): bytes each kernel must
+move (inputs read once, outputs written once) over 3.35e12 B/s, or its
+float operations over 67e12 FLOP/s (f32 outside the tensor cores),
+whichever is larger.  B10 (matmul-shaped): its bytes over 3.35e12 B/s or
+its FLOPs over the unmasked (query, key) pairs, 4 hd per pair, over
+989e12 FLOP/s (dense bf16 tensor cores), whichever is larger; its f32
+CUDA-core bound (67e12) is printed beside it.  (H100 SXM data sheet.)
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import gc
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -66,6 +91,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 MAIN_LAYERS = 8
 # record_function ranges of core/pdsgd.py's step
 STEP_RANGES = ("coupling", "held_state", "agent_grads", "pdsgd_update",
@@ -503,6 +529,121 @@ def phase_kernels_ring(torch, K, prng):
                          "exact)", "B9": "bitwise, bits = prng.leaf_bits, "
                          "= B8 on its bits"},
           "results": out})
+
+
+ATTN_SEQS = (1, 7, 128, 130, 2000)
+# 8 and 40: hd padded to a multiple of 16 on the tensor-core path
+ATTN_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128)
+# (causal, window): the three modes the serve path and the reference's
+# sweep use, and a non-causal window (tiles whose rows are all masked)
+ATTN_MODES = ((True, None), (True, 256), (False, None), (False, 100))
+# the serve path's prefill attention: (1, prompt 2000, 32 heads, 80) bf16
+SERVE_ATTN_SHAPE = (1, 2000, 32, 80)
+
+
+def attn_tolerance(torch, dtype, S: int) -> float:
+    """B10 against its plain version: the reference's sweep tolerance
+    (tests/test_kernels.py:31), atol = rtol = 2e-6 in f32 (1e-5 at S =
+    2000, where the sums run over 2000 keys in another order) and 2e-2 in
+    bf16 (the plain version rounds its logits to bf16, the kernel keeps
+    its scores in f32)."""
+    if dtype == torch.float32:
+        return 1e-5 if S >= 2000 else 2e-6
+    return 2e-2
+
+
+def attn_bound(B: int, S: int, H: int, hd: int, elem: int, causal: bool,
+               window):
+    """(bytes, FLOPs) B10 must move and do: q, k, v read once and o written
+    once; 4 hd FLOPs (q.k and p.v) per unmasked (query, key) pair."""
+    pairs = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window else 0
+        hi = i + 1 if causal else S
+        pairs += hi - lo
+    return 4 * B * S * H * hd * elem, 4 * hd * H * B * pairs
+
+
+def phase_kernel_attention(torch, K):
+    """B10 flash_attention against ref.flash_attention_ref, f32 and bf16,
+    over S x hd x mode; then timed at the serve path's shape with its plain
+    version and scaled_dot_product_attention (the library call, timed only),
+    and B10's and models.common.attention's bf16 error against f32 on the
+    same bf16 inputs."""
+    from repro_torch.models.common import attention
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    worst = {}
+    n_cases = 0
+    for S, hd, (causal, window), dtype in itertools.product(
+            ATTN_SEQS, ATTN_HEAD_DIMS, ATTN_MODES,
+            (torch.float32, torch.bfloat16)):
+        B, H = 2, 2
+        q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = K.flash_attention(q, k, v, causal=causal, window=window)
+        want = K.ref.flash_attention_ref(q, k, v, causal=causal,
+                                         window=window)
+        torch.cuda.synchronize()
+        tol = attn_tolerance(torch, dtype, S)
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        what = (f"B10 {str(dtype)[6:]} S={S} hd={hd} causal={causal} "
+                f"window={window}")
+        check(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        check(ratio <= 1.0, f"{what}: max abs {float(diff.max())}, "
+                            f"{ratio} of the tolerance")
+        key = str(dtype)[6:]
+        w = worst.setdefault(key, {"max_abs_err": 0.0, "max_tol_ratio": 0.0})
+        w["max_abs_err"] = max(w["max_abs_err"], float(diff.max()))
+        w["max_tol_ratio"] = max(w["max_tol_ratio"], ratio)
+        if S == 2000:
+            w["max_abs_err_S2000"] = max(w.get("max_abs_err_S2000", 0.0),
+                                         float(diff.max()))
+        n_cases += 1
+    # the serve path's shape
+    B, S, H, hd = SERVE_ATTN_SHAPE
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev)
+               .bfloat16() for _ in range(3))
+    got = K.flash_attention(q, k, v, causal=True)
+    want = K.ref.flash_attention_ref(q, k, v, causal=True)
+    exact = K.ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                      causal=True)
+    naive = attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2),
+          f"B10 serve shape: max abs {err}")
+    vs_f32 = {"B10": float((got.float() - exact).abs().max()),
+              "attention": float((naive.float() - exact).abs().max()),
+              "ref": float((want.float() - exact).abs().max())}
+    row = {"ms": time_ms(torch, lambda: K.flash_attention(q, k, v,
+                                                          causal=True),
+                         iters=20),
+           "max_abs_err": err}
+    row["plain_ms"] = time_ms(torch, lambda: K.ref.flash_attention_ref(
+        q, k, v, causal=True), iters=5)
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    row["library_ms"] = time_ms(torch, lambda: sdpa(qh, kh, vh,
+                                                    is_causal=True),
+                                iters=20)
+    nbytes, flops = attn_bound(B, S, H, hd, 2, True, None)
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_TC_FLOPS * 1e3
+    row["bound_ms"], row["bound_by"] = (by, "bytes") if by >= op else (
+        op, "operations")
+    row["bound_f32_cuda_cores_ms"] = flops / F32_FLOPS * 1e3
+    emit({"phase": "kernel_attention", "cases": n_cases,
+          "seqs": ATTN_SEQS, "head_dims": ATTN_HEAD_DIMS,
+          "modes": [list(m) for m in ATTN_MODES],
+          "tolerance": "allclose atol = rtol = 2e-6 f32 (1e-5 at S=2000), "
+                       "2e-2 bf16, vs ref.flash_attention_ref",
+          "results": worst, "serve_shape": list(SERVE_ATTN_SHAPE),
+          "serve_shape_bf16_max_abs_err_vs_f32": vs_f32,
+          "serve_shape_flops": flops, "serve_shape_bytes": nbytes,
+          "B10": row})
+    return row
 
 
 def phase_step_parity(torch, train):
@@ -1243,6 +1384,332 @@ def phase_profile(torch, train, cfg, path: str = "main_path", extra=(),
           "top": table[:12]})
 
 
+SERVE_RANGES = ("serve_prefill", "serve_chunk")
+
+
+def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24):
+    """Device time by kernel in the serve path's steady prefills and decode
+    chunks (SERVE_PATH_ARGS with ``requests`` requests of ``gen`` tokens,
+    no parity check), from a torch.profiler trace of run_serving: the
+    engine names each prefill ``serve_prefill`` and each chunk
+    ``serve_chunk``; the first of each (the warm-up request's) is left
+    out.  Both end in a device sync, so the kernels that start inside a
+    range are its own.  Writes chiprun_out/profile_serve_path.json."""
+    from torch.profiler import ProfilerActivity, profile
+    argv = [a for a in SERVE_PATH_ARGS if a != "--parity-check"]
+    argv[argv.index("--requests") + 1] = str(requests)
+    argv[argv.index("--gen-tokens") + 1] = str(gen)
+    args = serve.build_parser().parse_args(argv)
+    gc.collect()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve.run_serving(args)
+    torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sorted((e for e in events
+                      if e.device_type == torch.autograd.DeviceType.CUDA
+                      and e.name not in SERVE_RANGES),
+                     key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kernels]
+    out, table = {}, {}
+    for name in SERVE_RANGES:
+        ranges = sorted((e.time_range.start, e.time_range.end)
+                        for e in events if e.name == name
+                        and e.device_type == torch.autograd.DeviceType.CPU)
+        ranges = ranges[1:]
+        window = busy = 0.0
+        by_name: dict[str, float] = {}
+        for lo, hi in ranges:
+            window += (hi - lo) / 1e3
+            i = bisect.bisect_left(starts, lo)
+            while i < len(kernels) and starts[i] <= hi:
+                e = kernels[i]
+                dur = (e.time_range.end - e.time_range.start) / 1e3
+                by_name[e.name] = by_name.get(e.name, 0.0) + dur
+                busy += dur
+                i += 1
+        n = max(len(ranges), 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])
+        table[name] = [{"kernel": k[:120], "ms_each": v / n,
+                        "share_of_device": v / max(busy, 1e-9)}
+                       for k, v in top]
+        out[name] = {"count": len(ranges), "ms_each": window / n,
+                     "device_busy_ms_each": busy / n,
+                     "idle_share": 1.0 - busy / max(window, 1e-9),
+                     "top": table[name][:10]}
+    path = ROOT / "chiprun_out"
+    path.mkdir(exist_ok=True)
+    (path / "profile_serve_path.json").write_text(json.dumps(
+        {"args": argv, "ranges": out, "kernels": table}, indent=1))
+    emit({"phase": "profile", "path": "serve_path", "args": argv, **out})
+
+
+SERVE_PATH_ARGS = ("--arch", "stablelm-3b", "--slots", "8", "--requests",
+                   "16", "--prompt-len", "2000", "--gen-tokens", "64",
+                   "--decode-chunk", "8", "--parity-check")
+
+
+def phase_serve_parity(torch, serve):
+    """stablelm-3b-smoke in f32, 4 requests on 2 slots, greedy, through
+    run_serving on the card (prefill attention through B10) and on the CPU
+    (the naive attention), same weights: equal token streams, both
+    --parity-check ok, and every prompt's prefill logits within atol =
+    rtol = 1e-4 (the f32 conditioning of the smoke model's sharp attention,
+    tests/test_torch_serve.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    cfg = get_config("stablelm-3b-smoke")
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    p0 = build_model(cfg).init(gen, "cpu")
+    flags = ["--arch", cfg.name, "--slots", "2", "--requests", "4",
+             "--prompt-len", "37", "--gen-tokens", "12", "--decode-chunk",
+             "4", "--parity-check"]
+    reset_launch_counts()
+    gpu = serve.run_serving(serve.build_parser().parse_args(
+        flags + ["--device", "cuda"]), init_params=p0)
+    torch.cuda.synchronize()
+    b10 = launch_counts["flash_attention"]
+    cpu = serve.run_serving(serve.build_parser().parse_args(
+        flags + ["--device", "cpu"]), init_params=p0)
+    streams = [{c.req_id: c.tokens for c in run["completions"]}
+               for run in (gpu, cpu)]
+    check(streams[0] == streams[1], f"serve_parity streams {streams}")
+    check(gpu["result"]["parity"] == "ok" and cpu["result"]["parity"] == "ok",
+          "serve_parity --parity-check")
+    max_err = 0.0
+    with torch.no_grad():
+        for r in gpu["requests"]:
+            tok = torch.as_tensor(r.tokens)[None]
+            a = gpu["bundle"].prefill_fn(gpu["params"], {"tokens": tok.cuda()})
+            b = cpu["bundle"].prefill_fn(cpu["params"], {"tokens": tok})
+            a, b = a["logits"].cpu(), b["logits"]
+            max_err = max(max_err, float((a - b).abs().max()))
+            check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+                  f"serve_parity prefill logits of request {r.req_id}")
+    # prefills: warm-up + 4 requests + 4 sequential, 2 layers each
+    check(b10 == cfg.num_layers * 9, f"serve_parity B10 launches {b10}")
+    emit({"phase": "serve_parity", "arch": cfg.name, "dtype": "float32",
+          "slots": 2, "requests": 4, "tokens_gpu": streams[0],
+          "streams_equal": True, "prefill_logits_max_abs_err": max_err,
+          "flash_attention_launches_gpu": b10,
+          "tolerance": "tokens equal; prefill logits atol = rtol = 1e-4"})
+
+
+def decode_logit_spread(torch, ctx, args, steps: int = 8):
+    """(max, per step) of the max |logit difference| between a batched decode step (all slots at
+    once, as the engine decodes) and the same rows decoded one at a time
+    (B = 1, as the sequential reference decodes), over ``steps`` greedy
+    steps of the path's first ``slots`` prompts, both fed the B = 1
+    stream's tokens."""
+    from repro_torch.serve import make_layout, write_slot
+    bundle, params = ctx["bundle"], ctx["params"]
+    reqs = ctx["requests"][:args.slots]
+    V = bundle.cfg.vocab_size
+    cap = args.prompt_len + args.gen_tokens
+    layout, one = make_layout(bundle, len(reqs), cap), make_layout(bundle, 1,
+                                                                   cap)
+    slab, singles, toks = layout.init("cuda"), [], []
+    for s, r in enumerate(reqs):
+        out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
+            r.tokens)[None].cuda()})
+        write_slot(layout, slab, out["cache"], s)
+        singles.append(write_slot(one, one.init("cuda"), out["cache"], 0))
+        toks.append(int(out["logits"][0, :V].float().argmax()))
+    pos = torch.tensor([len(r.tokens) for r in reqs], dtype=torch.int32,
+                       device="cuda")
+    per_step = []
+    for t in range(steps):
+        cur = torch.tensor(toks, dtype=torch.int32, device="cuda")
+        batched = bundle.decode_fn(params, cur, slab, pos)["logits"]
+        worst = 0.0
+        for s in range(len(reqs)):
+            row = bundle.decode_fn(params, cur[s:s + 1], singles[s],
+                                   int(pos[s]))["logits"][0]
+            worst = max(worst, float((batched[s, :V].float()
+                                      - row[:V].float()).abs().max()))
+            toks[s] = int(row[:V].float().argmax())
+        per_step.append(worst)
+        pos = pos + 1
+    return max(per_step), per_step
+
+
+def decode_layer_growth(torch, ctx, args, slots: int = 4) -> list[float]:
+    """Where a batched decode step leaves the B = 1 one: after each layer,
+    the max |residual stream difference| between the path's first
+    ``slots`` prompts decoded together (per-slot positions) and each
+    decoded alone (scalar position), from the same prefill caches and
+    tokens."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.common import (decode_cache_valid,
+                                           decode_positions, rope_tables_at)
+    from repro_torch.serve import make_layout, write_slot
+    bundle, params = ctx["bundle"], ctx["params"]
+    cfg = bundle.cfg
+    reqs = ctx["requests"][:slots]
+    cap = args.prompt_len + args.gen_tokens
+    layout, one = make_layout(bundle, len(reqs), cap), make_layout(bundle, 1,
+                                                                   cap)
+    slab, singles, toks = layout.init("cuda"), [], []
+    for s, r in enumerate(reqs):
+        out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
+            r.tokens)[None].cuda()})
+        write_slot(layout, slab, out["cache"], s)
+        singles.append(write_slot(one, one.init("cuda"), out["cache"], 0))
+        toks.append(int(out["logits"][0, :cfg.vocab_size].float().argmax()))
+    cur = torch.tensor(toks, dtype=torch.int32, device="cuda")
+    pos = torch.full((len(reqs),), args.prompt_len, dtype=torch.int32,
+                     device="cuda")
+    p0 = torch.tensor(args.prompt_len, device="cuda")
+    C = slab["k"].shape[2]
+
+    def tables(at, n):
+        return decode_cache_valid(at, C), rope_tables_at(
+            decode_positions(at, n), cfg.head_dim, cfg.rotary_frac,
+            cfg.rope_theta)
+
+    (valid_b, rope_b), (valid_1, rope_1) = tables(pos, len(reqs)), tables(
+        p0, 1)
+    x_b = params["embed"][cur.long()][:, None, :]
+    x_1 = [params["embed"][cur[s:s + 1].long()][:, None, :]
+           for s in range(len(reqs))]
+    growth = []
+    for i, p in enumerate(tf._layers(params)):
+        x_b = tf._layer_decode(p, x_b, slab["k"][i], slab["v"][i], pos,
+                               rope_b, cfg, valid_b)
+        for s in range(len(reqs)):
+            x_1[s] = tf._layer_decode(p, x_1[s], singles[s]["k"][i],
+                                      singles[s]["v"][i], p0, rope_1, cfg,
+                                      valid_1)
+        growth.append(max(float((x_b[s] - x_1[s][0]).float().abs().max())
+                          for s in range(len(reqs))))
+    return growth
+
+
+def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
+    """Where the engine's stream leaves the sequential one: the first
+    diverging position and the sequential logits' top-2 margin there.  A
+    divergence is allowed only at or after the first position whose margin
+    is below ``spread`` (a near tie that the batched and B = 1 products
+    may order differently); raises otherwise."""
+    from repro_torch.core import prng
+    from repro_torch.serve import sequential_decode
+    bundle, params = ctx["bundle"], ctx["params"]
+    V = bundle.cfg.vocab_size
+    got = {c.req_id: c.tokens for c in ctx["completions"]}
+    found = []
+    for r in ctx["requests"]:
+        rows: list = []
+        seq = sequential_decode(
+            bundle, params, {"tokens": torch.as_tensor(r.tokens)[None]
+                             .cuda()}, r.req_id, r.max_new_tokens,
+            base_key=prng.key(args.seed),
+            max_seq_len=args.prompt_len + args.gen_tokens, logits_out=rows)
+        eng = got[r.req_id]
+        if eng == seq:
+            continue
+        p = next((j for j, (a, b) in enumerate(zip(eng, seq)) if a != b),
+                 min(len(eng), len(seq)))
+        margins = [float(t[0] - t[1]) for t in
+                   (torch.topk(x[:V], 2).values for x in rows[:p + 1])]
+        first_near_tie = next((j for j, m in enumerate(margins)
+                               if m < spread), None)
+        found.append({"req": r.req_id, "first_diverging_pos": p,
+                      "margin_there": margins[-1],
+                      "first_near_tie_pos": first_near_tie,
+                      "min_margin_to_there": min(margins)})
+        check(first_near_tie is not None,
+              f"serve_path req {r.req_id}: streams diverge at {p} with no "
+              f"top-2 margin below the spread {spread} up to there "
+              f"(margins {margins[-3:]})")
+    return found
+
+
+def phase_serve_path(torch, K, serve):
+    """`python -m repro_torch.launch.serve` with SERVE_PATH_ARGS: stablelm-3b
+    at full width and depth, bf16, 16 requests of 2000-token prompts on 8
+    slots, 64 tokens each in chunks of 8, every prefill attention through
+    B10 (32 launches a prefill), then --parity-check: the engine's streams
+    against the sequential B = 1 decode, equal or within the margin
+    rule."""
+    from repro_torch.models import build_model
+    args = serve.build_parser().parse_args(list(SERVE_PATH_ARGS))
+    gc.collect()
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() < 1 << 30,
+          f"{torch.cuda.memory_allocated()} B still allocated before a path")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx = serve.run_serving(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    res = ctx["result"]
+    cfg = ctx["bundle"].cfg
+    check(cfg.num_layers == 32 and cfg.d_model == 2560, "full stablelm-3b")
+    check(res["completed"] == 16 and res["generated_tokens"] == 16 * 64,
+          f"served {res['completed']} / {res['generated_tokens']}")
+    # prefills: the warm-up request, 16 admissions, and the sequential
+    # re-decodes of --parity-check, which stops at the first mismatching
+    # request (as the reference's does)
+    checked = 16 if res["parity"] == "ok" else 1 + int(re.match(
+        r"mismatch req (\d+)", res["parity"]).group(1))
+    prefills = 1 + 16 + checked
+    check(counts.get("flash_attention", 0) == cfg.num_layers * prefills,
+          f"serve_path launches {counts} for {prefills} prefills")
+    eng = ctx.pop("engine")
+    del eng
+    divergence, spread, per_step, spread_f32 = [], None, None, None
+    growth = growth_f32 = None
+    if res["parity"] != "ok":
+        gc.collect()
+        with torch.no_grad():
+            spread, per_step = decode_logit_spread(torch, ctx, args)
+            divergence = margin_rule(torch, ctx, args, spread)
+            # why the streams part: the batched and B = 1 residual streams
+            # after each layer of one decode step, in bf16 and with the
+            # same weights in f32 (a fault of the batched path would show
+            # as a jump at one layer; rounding grows layer by layer)
+            growth = decode_layer_growth(torch, ctx, args)
+            cfg32 = dataclasses.replace(cfg, dtype="float32")
+            ctx32 = {"bundle": build_model(cfg32),
+                     "params": {k: v.float() if k != "layers" else
+                                {n: t.float() for n, t in v.items()}
+                                for k, v in ctx["params"].items()},
+                     "requests": ctx["requests"]}
+            spread_f32 = decode_logit_spread(torch, ctx32, args, steps=2)
+            growth_f32 = decode_layer_growth(torch, ctx32, args)
+            del ctx32
+        # the first token comes from the B = 1 prefill in both: exact
+        check(all(d["first_diverging_pos"] > 0 for d in divergence),
+              "serve_path: a first token differs from the sequential one")
+    emit({"phase": "serve_path", "entry_point": res,
+          "steady_prefill_ms": res["steady_prefill_ms"],
+          "steady_chunk_ms": res["steady_chunk_ms"],
+          "ms_per_decode_step": res["steady_chunk_ms"] / args.decode_chunk,
+          "ms_per_token": 1e3 / res["tokens_per_s"],
+          "tokens_per_s": res["tokens_per_s"],
+          "ttft_p50_ms": res["ttft_p50_ms"],
+          "latency_p50_ms": res["latency_p50_ms"],
+          "latency_p99_ms": res["latency_p99_ms"],
+          "max_memory_allocated": peak, "run_wall_s": wall,
+          "flash_attention_launches": counts.get("flash_attention", 0),
+          "prefills": prefills, "parity": res["parity"],
+          "decode_logit_spread": spread,
+          "decode_logit_spread_per_step": per_step,
+          "decode_logit_spread_f32_per_step": (spread_f32[1] if spread_f32
+                                               else None),
+          "decode_layer_growth_bf16": growth,
+          "decode_layer_growth_f32": growth_f32,
+          "divergence": divergence,
+          "launches": counts})
+    del ctx
+    return {"flash_attention": counts}
+
+
 SOURCES = {
     "obfuscate_update": ("src/repro_torch/csrc/obfuscate.cu",
                          "src/repro/kernels/obfuscate.py:85"),
@@ -1262,6 +1729,8 @@ SOURCES = {
                               "src/repro/kernels/gossip.py:506"),
     "ring_obfuscate_gossip_krng": ("src/repro_torch/csrc/ring.cu",
                                    "src/repro/kernels/gossip.py:598"),
+    "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:100"),
 }
 
 
@@ -1271,7 +1740,7 @@ def main(argv=None) -> int:
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile main-, dropout-, fault- and ring-path "
-                         "steps with torch.profiler")
+                         "steps and the serve path with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -1287,12 +1756,13 @@ def main(argv=None) -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import prng
     from repro_torch.kernels import build
-    from repro_torch.launch import train
+    from repro_torch.launch import serve, train
 
     smi = phase_device(torch, build)
     phase_kernels(torch, K, prng)
     phase_kernels_coupled(torch, K)
     phase_kernels_ring(torch, K, prng)
+    b10 = phase_kernel_attention(torch, K)
     rows = {}
     if not opts.quick:
         phase_step_parity(torch, train)
@@ -1322,6 +1792,16 @@ def main(argv=None) -> int:
         rows.update(phase_bits_path(torch, K, train, prng, bits_cfg))
         torch.cuda.empty_cache()
         rows.update(phase_ring_bits_path(torch, K, train, prng, bits_cfg))
+        torch.cuda.empty_cache()
+        phase_serve_parity(torch, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        counts = phase_serve_path(torch, K, serve)["flash_attention"]
+        rows["flash_attention"] = (counts, b10)
+        if opts.profile:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve)
         kernels = []
         for name, (counts, r) in rows.items():
             src, replaces = SOURCES[name]

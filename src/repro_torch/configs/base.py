@@ -24,9 +24,14 @@ class ArchConfig:
     rotary_frac: float = 1.0
     rope_theta: float = 10000.0
     attn_window: int | None = None
+    # how a windowed model caches for decode: "window" keeps a ring of
+    # attn_window positions, "full_kv" every position
+    long_context_mode: Literal["window", "full_kv"] = "window"
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     mlp: Literal["swiglu", "gelu"] = "swiglu"
     tie_embeddings: bool = True
+    # modality embeddings ahead of the prompt; 0 for the dense family
+    num_prefix_embeds: int = 0
     dtype: str = "bfloat16"
     source: str = ""
 

@@ -15,7 +15,10 @@ port needs in plain torch integer ops:
   row-major flat index i of ``shape``;
 * ``uniform``         = the mantissa trick on ``bits``:
   bitcast((bits >> 9) | 0x3F800000) - 1;
-* ``exponential``     = -log1p(-uniform).
+* ``exponential``     = -log1p(-uniform);
+* ``randint``         = jax's two-draw modulus rule for int32;
+* ``gumbel``          = -log(-log(uniform(tiny, 1))), jax's default "low"
+  mode, and ``categorical`` = argmax(logits + gumbel), first index on ties.
 
 All arithmetic runs in int64 masked to 32 bits, so it is exact on any
 device.  ``bits`` returns ``torch.uint32``; the helpers below convert.
@@ -25,7 +28,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["key", "fold_in", "split", "bits", "uniform", "exponential",
-           "threefry2x32", "bits_to_uniform", "leaf_bits", "MASK32"]
+           "randint", "gumbel", "categorical", "threefry2x32",
+           "bits_to_uniform", "leaf_bits", "MASK32"]
 
 MASK32 = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -82,13 +86,19 @@ def split(k: torch.Tensor, num: int) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def _bits_batched(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``bits(key, (n,))`` for every key of a (..., 2) table at once:
+    (..., n) int64 holding uint32 values."""
+    hi, lo = _counters(n, keys.device)
+    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], hi, lo)
+    return y0 ^ y1
+
+
 def _bits64(k: torch.Tensor, shape) -> torch.Tensor:
     n = 1
     for s in shape:
         n *= int(s)
-    hi, lo = _counters(n, k.device)
-    y0, y1 = threefry2x32(k[0], k[1], hi, lo)
-    return (y0 ^ y1).reshape(tuple(shape))
+    return _bits_batched(k, n).reshape(tuple(shape))
 
 
 def bits(k: torch.Tensor, shape) -> torch.Tensor:
@@ -112,6 +122,43 @@ def exponential(k: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.exponential(k, shape, float32)`` = -log1p(-u).  The
     transcendental may differ from XLA's by an ulp or two."""
     return -torch.log1p(-uniform(k, shape))
+
+
+def randint(k: torch.Tensor, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` for int32, bit for
+    bit (``jax._src.random._randint``): two draws from ``split(k)``, the
+    high one folded in by ``2^32 mod span``, all in uint32 arithmetic that
+    wraps.  Returns an int32 tensor on ``k``'s device."""
+    span = maxval - minval if maxval > minval else 1
+    if not 1 <= span <= 2**31 - 1:
+        raise ValueError(f"randint span {span} out of the int32 range")
+    k1, k2 = split(k, 2)
+    hi, lo = _bits64(k1, shape), _bits64(k2, shape)
+    mult = ((2**16 % span) ** 2 & MASK32) % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    off = (off & MASK32) % span
+    return (off + minval).to(torch.int32)
+
+
+_TINY = torch.finfo(torch.float32).tiny
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), float32)`` (mode "low") for every key
+    of a (..., 2) table: (..., n) float32.  The uniform on [tiny, 1) is the
+    mantissa draw plus tiny, as jax forms it (never below tiny, so jax's
+    max with tiny changes nothing); the two logs may differ from XLA's by
+    an ulp."""
+    u = bits_to_uniform(_bits_batched(keys.to(torch.int64), n)) + _TINY
+    return -torch.log(-torch.log(u))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis, one key
+    (..., 2) per row of ``logits`` (..., V): the argmax of logits + gumbel
+    noise, the first index on ties (int64)."""
+    g = gumbel(keys, logits.shape[-1])
+    return torch.argmax(g + logits, dim=-1)
 
 
 def leaf_bits(keys: torch.Tensor, offsets, rows: int, cols: int,

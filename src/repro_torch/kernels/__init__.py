@@ -5,6 +5,7 @@ tensors to its kernel (``csrc/*.cu``, built at first use by `build`).
 """
 from . import ref
 from .build import build_all, launch_counts, reset_launch_counts
+from .flash_attention import flash_attention
 from .gossip import (gossip_update, guarded_gossip_update,
                      masked_gossip_update, masked_gossip_update_krng,
                      ring_gossip_update, ring_obfuscate_gossip,
@@ -19,4 +20,5 @@ __all__ = ["ref", "build_all", "launch_counts", "reset_launch_counts",
            "ring_gossip_update", "ring_obfuscate_gossip",
            "ring_obfuscate_gossip_krng", "obfuscate_update",
            "obfuscate_update_krng", "FlatLayout", "fused_pdsgd_flat",
-           "fused_pdsgd_tree", "ring_pdsgd_flat", "ring_pdsgd_tree"]
+           "fused_pdsgd_tree", "ring_pdsgd_flat", "ring_pdsgd_tree",
+           "flash_attention"]

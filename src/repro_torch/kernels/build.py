@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "library", "launch_counts", "dtype_code",
            "to_device"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("obfuscate", "gossip", "ring")
+SOURCES = ("obfuscate", "gossip", "ring", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -68,6 +68,10 @@ _SIGNATURES = {
                                        _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
                                        _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                        _INT, _LL, _VOIDP],
+    },
+    "flash_attention": {
+        "flash_attention_fwd": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                _INT, _INT, _INT, _INT, _INT, _VOIDP],
     },
 }
 

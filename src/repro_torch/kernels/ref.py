@@ -8,6 +8,8 @@ obfuscate kernels bitwise comparable.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import prng
@@ -16,7 +18,8 @@ __all__ = ["obfuscate_ref", "obfuscate_krng_ref", "gossip_ref",
            "metropolis_ref", "masked_gossip_ref", "mask_from_bits",
            "masked_gossip_krng_ref", "poison_transmit", "guarded_gossip_ref",
            "ring_gossip_ref", "ring_obfuscate_gossip_ref",
-           "ring_obfuscate_gossip_krng_ref", "CORRUPT_MODES"]
+           "ring_obfuscate_gossip_krng_ref", "flash_attention_ref",
+           "CORRUPT_MODES"]
 
 CORRUPT_MODES = ("nan", "inf", "scale")
 
@@ -188,3 +191,26 @@ def ring_obfuscate_gossip_krng_ref(w_tab, b_tab, perms, X: torch.Tensor,
     bits = prng.leaf_bits(keys.to(X.device), offsets, m, n)
     return (*ring_obfuscate_gossip_ref(w_tab, b_tab, perms, X, G, bits,
                                        lam_bar), bits)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        window: int | None = None) -> torch.Tensor:
+    """Causal / sliding-window attention, scores materialized (the
+    reference's ``ref.flash_attention_ref``).  q, k, v: (B, S, H, hd) with
+    equal head counts.  Logits in q's dtype, then f32 with the 1/sqrt(hd)
+    scale; masked logits -inf; softmax in f32; probabilities cast to q's
+    dtype before the product with v."""
+    S = q.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)

@@ -20,7 +20,13 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 class ModelBundle:
     cfg: ArchConfig
     param_defs: Any
-    loss_fn: Callable  # (params, batch) -> scalar
+    loss_fn: Callable     # (params, batch) -> scalar
+    prefill_fn: Callable  # (params, batch) -> {logits, cache, pos}
+    decode_fn: Callable   # (params, token, cache, pos) -> {logits, cache,
+                          # pos}; pos a scalar (lockstep batch) or (B,)
+                          # (per-slot continuous batching); cache in place
+    cache_spec: Callable  # (batch, seq_len) -> {name: (shape, logical,
+                          # dtype|None)}
 
     @property
     def dtype(self) -> torch.dtype:
@@ -38,4 +44,10 @@ def build_model(cfg: ArchConfig) -> ModelBundle:
                        "is")
     return ModelBundle(
         cfg=cfg, param_defs=transformer.param_defs(cfg),
-        loss_fn=lambda params, batch: transformer.loss_fn(params, batch, cfg))
+        loss_fn=lambda params, batch: transformer.loss_fn(params, batch, cfg),
+        prefill_fn=lambda params, batch: transformer.forward_prefill(
+            params, batch, cfg),
+        decode_fn=lambda params, token, cache, pos: transformer.forward_decode(
+            params, token, cache, pos, cfg),
+        cache_spec=lambda batch, seq_len: transformer.cache_spec(
+            cfg, batch, seq_len))

@@ -1,6 +1,7 @@
 """Shared model machinery (counterpart of ``repro.models.common``):
 parameter definitions, norms, rotary embeddings, naive causal GQA
-attention, SwiGLU and the padded-vocab cross-entropy.
+attention, ring-buffer decode attention, SwiGLU and the padded-vocab
+cross-entropy.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, hd), weights as the reference's einsum operands.  Every function
@@ -20,8 +21,9 @@ import torch.nn.functional as F
 from ..kernels.build import to_device
 
 __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
-           "rope_tables", "apply_rope", "attention", "swiglu",
-           "cross_entropy", "pad_vocab"]
+           "rope_tables", "rope_tables_at", "apply_rope", "attention",
+           "decode_attention", "ring_buffer_write", "decode_cache_valid",
+           "decode_positions", "swiglu", "cross_entropy", "pad_vocab"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,15 +84,26 @@ def rope_freqs(head_dim: int, rotary_frac: float, theta: float) -> np.ndarray:
     return inv.astype(np.float32)
 
 
+def rope_tables_at(positions: torch.Tensor, head_dim: int,
+                   rotary_frac: float,
+                   theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) at integer ``positions`` (..., seq), each (..., seq, 1,
+    rot_dim/2) f32: the angle ``positions * inv_freq`` in f32, then cos and
+    sin (the reference's ``apply_rope(x, positions, ...)``).  Decode gives
+    per-slot positions (B, 1).  The inverse frequencies reach the card
+    without a blocking copy."""
+    inv = to_device(torch.from_numpy(rope_freqs(head_dim, rotary_frac,
+                                                theta)), positions.device)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+
+
 def rope_tables(seq: int, head_dim: int, rotary_frac: float, theta: float,
                 device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(cos, sin) of positions 0..seq-1, each (seq, 1, rot_dim/2) f32 —
-    computed once per forward and shared by every layer's q and k.  The
-    inverse frequencies reach the card without a blocking copy."""
-    inv = to_device(torch.from_numpy(rope_freqs(head_dim, rotary_frac,
-                                                theta)), device)
-    ang = torch.arange(seq, device=device)[:, None].float() * inv
-    return torch.cos(ang)[:, None, :], torch.sin(ang)[:, None, :]
+    """`rope_tables_at` positions 0..seq-1: each (seq, 1, rot_dim/2),
+    computed once per forward and shared by every layer's q and k."""
+    return rope_tables_at(torch.arange(seq, device=device), head_dim,
+                          rotary_frac, theta)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -129,6 +142,69 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
+                     v_new: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor,
+                     cache_valid: torch.Tensor) -> torch.Tensor:
+    """One-token grouped attention against a (ring-buffer) KV cache.
+
+    q: (B, 1, H, hd); k_new/v_new: (B, 1, KV, hd); caches: (B, C, KV, hd);
+    cache_valid: (C,) or (B, C) bool.  The new token always attends to
+    itself."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd)
+    scale = 1.0 / math.sqrt(hd)
+    lc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    valid = (cache_valid[None, None, None, None, :] if cache_valid.dim() == 1
+             else cache_valid[:, None, None, None, :])
+    lc = torch.where(valid, lc, torch.full_like(lc, -1e30))
+    ls = torch.einsum("bqkgd,bskd->bkgqs", qg, k_new).float() * scale
+    probs = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1).to(q.dtype)
+    pc, ps = probs[..., :-1], probs[..., -1:]
+    out = torch.einsum("bkgqs,bskd->bqkgd", pc, v_cache)
+    out = out + torch.einsum("bkgqs,bskd->bqkgd", ps, v_new)
+    return out.reshape(B, 1, H, hd)
+
+
+def ring_buffer_write(cache: torch.Tensor, new: torch.Tensor,
+                      pos) -> torch.Tensor:
+    """Write (B, 1, ...) ``new`` into slot pos % C of (B, C, ...) ``cache``
+    IN PLACE and return ``cache`` (the reference returns a new array).
+
+    ``pos`` is a scalar (an int or a 0-d tensor: every row at the same
+    absolute position) or a (B,) integer tensor (continuous batching: each
+    row at its own position, written with ``index_put_`` on (arange(B),
+    pos % C)).  A tensor ``pos`` stays on the device: no host sync."""
+    C = cache.shape[1]
+    new = new.to(cache.dtype)
+    pos = torch.as_tensor(pos, device=cache.device)
+    if pos.dim() == 0:
+        return cache.index_copy_(1, (pos % C).reshape(1).long(), new)
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    return cache.index_put_((rows, (pos % C).long()), new[:, 0])
+
+
+def decode_cache_valid(pos, C: int) -> torch.Tensor:
+    """Ring-buffer validity mask for `decode_attention`: slots < min(pos, C)
+    hold real entries.  Scalar pos -> (C,); per-slot (B,) pos -> (B, C)."""
+    pos = torch.as_tensor(pos)
+    slots = torch.arange(C, device=pos.device)
+    if pos.dim() == 0:
+        return slots < torch.clamp_max(pos, C)
+    return slots[None, :] < torch.clamp_max(pos, C)[:, None]
+
+
+def decode_positions(pos, B: int) -> torch.Tensor:
+    """(B, 1) absolute rope positions of the decode token from a scalar or
+    per-slot (B,) ``pos``."""
+    pos = torch.as_tensor(pos)
+    if pos.dim() == 0:
+        return pos.reshape(1, 1).expand(B, 1).to(torch.int32)
+    return pos[:, None].to(torch.int32)
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,

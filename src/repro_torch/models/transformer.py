@@ -1,6 +1,7 @@
 """Decoder-only transformer LM, dense family (counterpart of
 ``repro.models.transformer``): ``param_defs``, ``forward_train`` and
-``loss_fn``.
+``loss_fn`` for training; ``forward_prefill``, ``forward_decode``,
+``cache_len_for`` and ``cache_spec`` for serving.
 
 Parameters are a nested dict with the reference's leaf names and shapes —
 layer weights stacked on a leading (L,) axis, e.g. ``layers/wq`` is
@@ -8,16 +9,27 @@ layer weights stacked on a leading (L,) axis, e.g. ``layers/wq`` is
 (`repro_torch.convert`).  The layers run in an unrolled Python loop with
 no recomputation (the reference's per-layer remat changes memory, not
 values).
+
+Prefill attention on a CUDA tensor runs the hand-written flash-attention
+kernel (B10, `kernels.flash_attention`); on the CPU, and in training
+(B10 is forward-only), the naive `attention`.  Decode writes each layer's
+new key and value into the caller's cache IN PLACE (the reference returns
+a new cache) and returns that same cache.
 """
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, cross_entropy,
-                     layer_norm, pad_vocab, rms_norm, rope_tables, swiglu)
+                     decode_attention, decode_cache_valid, decode_positions,
+                     layer_norm, pad_vocab, ring_buffer_write, rms_norm,
+                     rope_tables, rope_tables_at, swiglu)
 
-__all__ = ["param_defs", "forward_train", "loss_fn"]
+__all__ = ["param_defs", "forward_train", "loss_fn", "embed_tokens",
+           "unembed", "cache_len_for", "cache_spec", "forward_prefill",
+           "forward_decode"]
 
 
 def _norm_defs(L: int, d: int, cfg: ArchConfig, name: str) -> dict:
@@ -67,41 +79,155 @@ def _norm(x, gamma, beta, cfg: ArchConfig):
     return rms_norm(x, gamma)
 
 
-def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
-    """One layer; ``p`` holds this layer's slices of the stacked leaves,
-    ``rope`` the (cos, sin) tables of the sequence."""
-    h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
+def _qkv(p: dict, h: torch.Tensor, rope):
     q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
-    q = apply_rope(q, *rope)
-    k = apply_rope(k, *rope)
-    o = attention(q, k, v, causal=True, window=cfg.attn_window)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return apply_rope(q, *rope), apply_rope(k, *rope), v
+
+
+def _attn(q, k, v, window: int | None) -> torch.Tensor:
+    """Prefill attention: B10 on a CUDA tensor (equal head counts, as the
+    reference's kernel), `attention` on the CPU."""
+    if q.device.type != "cuda":
+        return attention(q, k, v, causal=True, window=window)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=True, window=window)
+
+
+def _mlp_block(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     h = _norm(x, p["mlp_norm_gamma"], p.get("mlp_norm_beta"), cfg)
     return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence logits (B, S, V_padded)."""
-    x = params["embed"][batch["tokens"].long()]
-    # One unbind per stacked leaf, not one index per layer: the backward of
-    # ``leaf[i]`` writes a zero tensor of the whole (L, ...) leaf per layer
-    # and adds them up; unbind's backward stacks the L slices once.
-    layers = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
-    rope = rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
-                       cfg.rope_theta, x.device)
-    for i in range(cfg.num_layers):
-        x = _layer_train({name: s[i] for name, s in layers.items()}, x,
-                         rope, cfg)
-    x = _norm(x, params["final_norm_gamma"], params.get("final_norm_beta"),
-              cfg)
+def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
+    """One layer; ``p`` holds this layer's slices of the stacked leaves,
+    ``rope`` the (cos, sin) tables of the sequence."""
+    h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
+    q, k, v = _qkv(p, h, rope)
+    o = attention(q, k, v, causal=True, window=cfg.attn_window)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return _mlp_block(p, x, cfg)
+
+
+def _layer_prefill(p: dict, x: torch.Tensor, rope, cfg: ArchConfig,
+                   cache_len: int):
+    """Like train (attention through `_attn`), and also the layer's KV
+    cache in ring layout: the last ``cache_len`` positions, absolute
+    position p at slot p % cache_len (as `ring_buffer_write` keeps it)."""
+    S = x.shape[1]
+    h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
+    q, k, v = _qkv(p, h, rope)
+    o = _attn(q, k, v, cfg.attn_window)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = _mlp_block(p, x, cfg)
+    if cache_len == S:
+        return x, k, v
+    shift = S % cache_len
+    return (x, torch.roll(k[:, -cache_len:], shift, dims=1),
+            torch.roll(v[:, -cache_len:], shift, dims=1))
+
+
+def _layer_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, pos: torch.Tensor, rope,
+                  cfg: ArchConfig, cache_valid: torch.Tensor):
+    h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
+    q, k, v = _qkv(p, h, rope)
+    o = decode_attention(q, k, v, k_cache, v_cache, cache_valid)
+    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = _mlp_block(p, x, cfg)
+    ring_buffer_write(k_cache, k, pos)
+    ring_buffer_write(v_cache, v, pos)
+    return x
+
+
+def _layers(params: dict) -> list[dict]:
+    """Per-layer views of the stacked leaves: one unbind per leaf (the
+    backward of ``leaf[i]`` would write a zero tensor of the whole (L, ...)
+    leaf per layer; unbind's stacks the L slices once)."""
+    sliced = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
+    L = len(next(iter(sliced.values())))
+    return [{name: s[i] for name, s in sliced.items()} for i in range(L)]
+
+
+def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    return params["embed"][batch["tokens"].long()]
+
+
+def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["unembed"])
+
+
+def _final_norm(params: dict, x: torch.Tensor, cfg: ArchConfig):
+    return _norm(x, params["final_norm_gamma"],
+                 params.get("final_norm_beta"), cfg)
+
+
+def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_padded)."""
+    x = embed_tokens(params, batch, cfg)
+    rope = rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
+                       cfg.rope_theta, x.device)
+    for p in _layers(params):
+        x = _layer_train(p, x, rope, cfg)
+    return unembed(params, _final_norm(params, x, cfg), cfg)
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     logits = forward_train(params, batch, cfg)
     return cross_entropy(logits, batch["labels"], cfg.vocab_size)
 
+
+def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:
+    if cfg.attn_window is not None and cfg.long_context_mode == "window":
+        return min(seq_len, cfg.attn_window)
+    return seq_len
+
+
+def cache_spec(cfg: ArchConfig, batch: int, seq_len: int) -> dict:
+    """(shape, logical, dtype|None) per cache leaf (None: the model's)."""
+    C = cache_len_for(cfg, seq_len)
+    shape = (cfg.num_layers, batch, C, cfg.num_kv_heads, cfg.head_dim)
+    logical = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": (shape, logical, None), "v": (shape, logical, None)}
+
+
+def forward_prefill(params: dict, batch: dict, cfg: ArchConfig) -> dict:
+    """Process a full prompt: ``{"logits": (B, V) of the last position,
+    "cache": {"k", "v"} each (L, B, C, KV, hd) in ring layout, "pos": S}``
+    (``pos`` a Python int)."""
+    x = embed_tokens(params, batch, cfg)
+    B, S, _ = x.shape
+    C = cache_len_for(cfg, S)
+    rope = rope_tables(S, cfg.head_dim, cfg.rotary_frac, cfg.rope_theta,
+                       x.device)
+    shape = (cfg.num_layers, B, C, cfg.num_kv_heads, cfg.head_dim)
+    cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
+             "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
+    for i, p in enumerate(_layers(params)):
+        x, cache["k"][i], cache["v"][i] = _layer_prefill(p, x, rope, cfg, C)
+    logits = unembed(params, _final_norm(params, x[:, -1:], cfg), cfg)
+    return {"logits": logits[:, 0], "cache": cache, "pos": S}
+
+
+def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos,
+                   cfg: ArchConfig) -> dict:
+    """One decode step: ``token`` (B,) ids, ``pos`` the absolute position
+    of ``token``: a scalar (the whole batch in lockstep) or (B,) integers
+    (per-slot positions, continuous batching).  Writes the new keys and
+    values into ``cache`` in place; returns ``{"logits": (B, V), "cache":
+    cache, "pos": pos + 1}``.  Nothing here waits for the device."""
+    x = params["embed"][token.long()][:, None, :]
+    B = x.shape[0]
+    C = cache["k"].shape[2]
+    pos = torch.as_tensor(pos, device=x.device)
+    cache_valid = decode_cache_valid(pos, C)
+    rope = rope_tables_at(decode_positions(pos, B), cfg.head_dim,
+                          cfg.rotary_frac, cfg.rope_theta)
+    for i, p in enumerate(_layers(params)):
+        x = _layer_decode(p, x, cache["k"][i], cache["v"][i], pos, rope,
+                          cfg, cache_valid)
+    logits = unembed(params, _final_norm(params, x, cfg), cfg)
+    return {"logits": logits[:, 0], "cache": cache, "pos": pos + 1}
