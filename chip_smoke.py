@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: builds the hand-written kernels, holds each against its plain
 PyTorch version, trains stablelm-3b at full width and serves it at full
-width and depth through the port's entry points, and reports what ran.
+width and depth, trains and serves xlstm-125m at full width and depth,
+all through the port's entry points, and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # main-, dropout-, fault- and ring-path
-                                     # steps and of the serve path's
-                                     # prefills and decode chunks
+                                     # main-, dropout-, fault-, ring- and
+                                     # xLSTM train-path steps and of both
+                                     # serve paths' prefills and decode
+                                     # chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -32,9 +34,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   kernel_attention  B10 flash_attention against ref.flash_attention_ref,
               f32 and bf16, S in {1, 7, 128, 130, 2000} x hd in {8, 16, 32,
               40, 64, 80, 128} x (causal, causal + window 256, non-causal,
-              non-causal + window 100); timed at the serve path's (1, 2000,
-              32, 80) bf16 causal with its plain version and
-              scaled_dot_product_attention (library, timed only)
+              non-causal + window 100); grouped-query prefill through
+              models.transformer._attn (k, v repeated to H heads for B10)
+              at granite-8b's H = 32, KV = 8, hd = 128, S in {130, 2000},
+              f32 and bf16, against the plain grouped attention; timed at
+              the serve path's (1, 2000, 32, 80) bf16 causal with its plain
+              version and scaled_dot_product_attention (library, timed
+              only)
+  kernel_ssd  B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref, f32 and
+              bf16 (bf16 held against f32 on the same inputs), over the
+              reference sweep, xlstm-125m's folded shapes (P in {384, 1},
+              N = 384, Q in {1, 7, 52, 64}) and zamba2-7b's (G, 64, 112,
+              64), N = 64; the autograd Function's gradients against
+              autograd through the plain version; timed at the xLSTM serve
+              prefill's (32, 64, 1, 384), N = 384, bf16 and f32
   kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
               ring_obfuscate_gossip_krng bitwise against their plain
               versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
@@ -57,13 +70,33 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   serve_path  launch/serve with --arch stablelm-3b --slots 8 --requests 16
               --prompt-len 2000 --gen-tokens 64 --decode-chunk 8
               --parity-check: full width and depth, bf16, B10 32 times a
-              prefill; the engine's streams equal the sequential decode's,
-              or diverge only at or after a near tie (a top-2 margin of the
-              sequential logits below the measured batched-vs-B=1 logit
-              spread), the spread and a layer-by-layer trace of the two
-              residual streams then printed in bf16 and in f32
+              prefill; gate: the engine's streams equal the same-width
+              oracle's exactly (below); --parity-check's M = 1 comparison
+              printed, and where it differs the batched-vs-B=1 logit
+              spread, the margin rule's record (the first near tie, a top-2
+              margin below the spread) and a layer-by-layer trace of the two
+              residual streams in bf16 and in f32
+  xlstm_step_parity  xlstm-125m-smoke f32, 4 agents, 2 steps: card vs CPU
+  xlstm_train_path  run_training --arch xlstm-125m, 12 blocks, d_model 768,
+              4 agents on a ring, bf16, PDSGD, per-agent batch 2, seq 128
+              (cut for the sLSTM's host loop), 1 warm-up + 3 timed steps:
+              B3 + B2 every step, B11 48 times a step
+  xlstm_serve_parity  xlstm-125m-smoke f32, 4 requests on 2 slots: card vs
+              CPU
+  xlstm_serve_path  launch/serve with --arch xlstm-125m --slots 8
+              --requests 16 --prompt-len 500 (cut for the sLSTM's host loop)
+              --gen-tokens 32 --decode-chunk 8 --parity-check: full width
+              and depth, bf16; B11 12 times a prefill and a decode step; the
+              same gate as serve_path
   kernels     every kernel with its launches, error, times and bound
 Then the card's name and power limit, then the result line.
+
+The serve paths' gate is a same-width oracle: each request decoded alone,
+its prefill paged into every row of a batch ``--slots`` rows wide and
+decoded there at per-row positions, so every product has the engine's
+shapes (M = slots); the engine's streams must equal it exactly.  The
+M = 1 sequential decode (--parity-check) rounds its products differently
+and is a diagnostic only.
 
 Bounds: B1-B9 (elementwise and m <= 32 mixing): bytes each kernel must
 move (inputs read once, outputs written once) over 3.35e12 B/s, or its
@@ -71,7 +104,12 @@ float operations over 67e12 FLOP/s (f32 outside the tensor cores),
 whichever is larger.  B10 (matmul-shaped): its bytes over 3.35e12 B/s or
 its FLOPs over the unmasked (query, key) pairs, 4 hd per pair, over
 989e12 FLOP/s (dense bf16 tensor cores), whichever is larger; its f32
-CUDA-core bound (67e12) is printed beside it.  (H100 SXM data sheet.)
+CUDA-core bound (67e12) is printed beside it.  B11: its bytes (x, Bm,
+Cm, dt, a_cum read once, y and the f32 states written once) over 3.35e12
+B/s or its f32 operations over 67e12 FLOP/s, whichever is larger: 2 N
+per causal (i, j) pair for the scores, 2 H P per pair for y, 2 Q H P N
+for the states, a chunk; its bf16 tensor-core bound (989e12) is printed
+beside it.  (H100 SXM data sheet.)
 """
 from __future__ import annotations
 
@@ -539,6 +577,10 @@ ATTN_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128)
 ATTN_MODES = ((True, None), (True, 256), (False, None), (False, 100))
 # the serve path's prefill attention: (1, prompt 2000, 32 heads, 80) bf16
 SERVE_ATTN_SHAPE = (1, 2000, 32, 80)
+# grouped-query prefill through models.transformer._attn: granite-8b's
+# heads (H = 32 query, KV = 8, hd = 128)
+GQA_HEADS = (32, 8, 128)
+GQA_SEQS = (130, 2000)
 
 
 def attn_tolerance(torch, dtype, S: int) -> float:
@@ -602,6 +644,29 @@ def phase_kernel_attention(torch, K):
             w["max_abs_err_S2000"] = max(w.get("max_abs_err_S2000", 0.0),
                                          float(diff.max()))
         n_cases += 1
+    # grouped-query prefill: _attn repeats k and v to H heads for B10;
+    # held against the plain grouped attention on the same inputs
+    from repro_torch.models.transformer import _attn
+    H, KV, hd = GQA_HEADS
+    gqa = {}
+    for S, dtype in itertools.product(GQA_SEQS,
+                                      (torch.float32, torch.bfloat16)):
+        q = torch.randn(1, S, H, hd, generator=g, device=dev).to(dtype)
+        k, v = (torch.randn(1, S, KV, hd, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        got = _attn(q, k, v, None)
+        want = attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = attn_tolerance(torch, dtype, S)
+        diff = (got.float() - want.float()).abs()
+        ratio = float((diff / (tol + tol * want.float().abs())).max())
+        what = f"GQA _attn {str(dtype)[6:]} S={S} H={H} KV={KV} hd={hd}"
+        check(got.shape == q.shape and bool(torch.isfinite(got).all()),
+              f"{what}: shape or non-finite")
+        check(ratio <= 1.0, f"{what}: max abs {float(diff.max())}, {ratio} "
+                            f"of the tolerance")
+        gqa[f"{str(dtype)[6:]} S={S}"] = {"max_abs_err": float(diff.max()),
+                                          "tol_ratio": ratio}
     # the serve path's shape
     B, S, H, hd = SERVE_ATTN_SHAPE
     q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev)
@@ -639,10 +704,168 @@ def phase_kernel_attention(torch, K):
           "modes": [list(m) for m in ATTN_MODES],
           "tolerance": "allclose atol = rtol = 2e-6 f32 (1e-5 at S=2000), "
                        "2e-2 bf16, vs ref.flash_attention_ref",
-          "results": worst, "serve_shape": list(SERVE_ATTN_SHAPE),
+          "results": worst, "gqa_heads": list(GQA_HEADS),
+          "gqa_vs_attention": gqa, "serve_shape": list(SERVE_ATTN_SHAPE),
           "serve_shape_bf16_max_abs_err_vs_f32": vs_f32,
           "serve_shape_flops": flops, "serve_shape_bytes": nbytes,
           "B10": row})
+    return row
+
+
+# B11 (G, Q, H, P, N): the reference sweep (tests/test_kernels.py:67-68);
+# xlstm-125m's mLSTM with its heads folded into G (H = 1, N = 384): the
+# memory (P = 384) and normalizer (P = 1) calls at Q = 1 (decode), 7 and
+# 52 (short prompts) and 64 (full chunks); zamba2-7b's native Mamba2 form
+# (112 heads, P = N = 64, B and C shared)
+SSD_SHAPES = ((2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
+              *((16, Q, 1, P, 384) for P in (384, 1) for Q in (1, 7, 52, 64)),
+              (4, 64, 112, 64, 64))
+# the xLSTM serve prefill's memory call: a 500-token prompt padded to 8
+# chunks of 64, 4 heads folded: G = 32, P = N = 384
+SSD_SERVE_SHAPE = (32, 64, 1, 384, 384)
+BF16_U = 2.0 ** -8  # bf16's unit roundoff
+
+
+def ssd_inputs(torch, shape, dtype, g, dev):
+    """x, dt, a_cum, Bm, Cm as the reference sweep draws them: dt = |z| / 2,
+    a_cum the within-chunk cumsum of dt A with A < 0."""
+    G, Q, H, P, N = shape
+    x = torch.randn(G, Q, H, P, generator=g, device=dev).to(dtype)
+    dt = torch.randn(G, Q, H, generator=g, device=dev).abs() * 0.5
+    A = -torch.randn(H, generator=g, device=dev).abs()
+    a_cum = torch.cumsum(dt * A, dim=1)
+    Bm, Cm = (torch.randn(G, Q, N, generator=g, device=dev).to(dtype)
+              for _ in range(2))
+    return x, dt, a_cum, Bm, Cm
+
+
+def ssd_bound(G: int, Q: int, H: int, P: int, N: int, elem: int):
+    """(bytes, FLOPs) B11 must move and do: x, Bm, Cm (elem bytes), dt and
+    a_cum (f32) read once, y (elem) and the f32 states written once; the
+    scores over the causal pairs 2 N Q(Q+1)/2 a chunk, y 2 H P Q(Q+1)/2,
+    the states 2 Q H P N."""
+    nbytes = (G * Q * H * P * elem * 2 + 2 * G * Q * N * elem
+              + 2 * G * Q * H * 4 + G * H * P * N * 4)
+    pairs = Q * (Q + 1) // 2
+    flops = G * (2 * N * pairs + 2 * H * P * pairs + 2 * Q * H * P * N)
+    return nbytes, flops
+
+
+def phase_kernel_ssd(torch, K):
+    """B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref over SSD_SHAPES,
+    f32 and bf16, each tolerance taken relative to ``mag``, the plain
+    version on |x|, |Bm|, |Cm| (the sum of the absolute terms): f32
+    |B11 - plain| <= 1e-5 (1 + mag); bf16 held against the f32 computation
+    on the same bf16 inputs (``exact``): B11's y within one bf16 rounding,
+    2^-8 |exact| + 1e-5 (1 + mag), its f32 states within 1e-5 (1 + mag);
+    the plain version's y within 2^-7 mag + 2^-8 |exact| + 1e-5 (1 + mag)
+    (it rounds the scores and the weights to bf16 too).  Then the autograd
+    Function's gradients (B11 forward, the plain version's backward)
+    against autograd through the plain version, f32, atol = rtol = 1e-6;
+    then B11 timed at the xLSTM serve prefill's memory call, bf16 (and f32,
+    the dtype of the blocks after the first), beside its plain version."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    plain = K.ref.ssd_intra_chunk_ref
+    worst: dict = {}
+    n_cases = 0
+
+    def ratio(err, bound):
+        return float((err / bound).max())
+
+    for shape, dtype in itertools.product(SSD_SHAPES,
+                                          (torch.float32, torch.bfloat16)):
+        x, dt, a_cum, Bm, Cm = ssd_inputs(torch, shape, dtype, g, dev)
+        y, s = K.ssd_intra_chunk(x, dt, a_cum, Bm, Cm)
+        y_p, s_p = plain(x, dt, a_cum, Bm, Cm)
+        ex_y, ex_s = plain(x.float(), dt, a_cum, Bm.float(), Cm.float())
+        mag_y, mag_s = plain(x.float().abs(), dt, a_cum, Bm.float().abs(),
+                             Cm.float().abs())
+        torch.cuda.synchronize()
+        what = f"B11 {str(dtype)[6:]} (G, Q, H, P, N) = {shape}"
+        check(y.shape == x.shape and y.dtype == dtype
+              and s.shape == (shape[0], shape[2], shape[3], shape[4])
+              and s.dtype == torch.float32, f"{what}: output shapes")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"{what}: non-finite")
+        tol_y, tol_s = 1e-5 * (1 + mag_y), 1e-5 * (1 + mag_s)
+        err_y = (y.float() - y_p.float()).abs()
+        err_s = (s - s_p).abs()
+        if dtype == torch.float32:
+            r = {"y": ratio(err_y, tol_y), "states": ratio(err_s, tol_s)}
+        else:
+            r = {"y_vs_f32": ratio((y.float() - ex_y).abs(),
+                                   BF16_U * ex_y.abs() + tol_y),
+                 "states_vs_f32": ratio((s - ex_s).abs(), tol_s),
+                 "plain_y_vs_f32": ratio(
+                     (y_p.float() - ex_y).abs(),
+                     2 * BF16_U * mag_y + BF16_U * ex_y.abs() + tol_y)}
+        check(max(r.values()) <= 1.0, f"{what}: {r} of the tolerance")
+        w = worst.setdefault(str(dtype)[6:], {"max_abs_err_y": 0.0,
+                                              "max_abs_err_states": 0.0})
+        w["max_abs_err_y"] = max(w["max_abs_err_y"], float(err_y.max()))
+        w["max_abs_err_states"] = max(w["max_abs_err_states"],
+                                      float(err_s.max()))
+        for k, v in r.items():
+            w[f"max_tol_ratio_{k}"] = max(w.get(f"max_tol_ratio_{k}", 0.0),
+                                          v)
+        n_cases += 1
+    # training: the Function's backward is autograd through the plain
+    # version recomputed from the saved inputs
+    grads_err = {}
+    for shape in ((4, 64, 1, 48, 48), (2, 64, 2, 8, 16)):
+        ins = ssd_inputs(torch, shape, torch.float32, g, dev)
+        gy = torch.randn(shape[:4], generator=g, device=dev)
+        gs = torch.randn((shape[0], shape[2], shape[3], shape[4]),
+                         generator=g, device=dev)
+        got, want = [], []
+        for fn, out in ((K.ssd_intra_chunk, got), (plain, want)):
+            leaves = [t.clone().requires_grad_() for t in ins]
+            out.extend(torch.autograd.grad(fn(*leaves), leaves, (gy, gs)))
+        torch.cuda.synchronize()
+        errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+        check(all(torch.allclose(a, b, atol=1e-6, rtol=1e-6)
+                  for a, b in zip(got, want)),
+              f"B11 gradients at {shape}: {errs}")
+        grads_err[str(shape)] = max(errs)
+    # timed at the serve prefill's memory call
+    G, Q, H, P, N = SSD_SERVE_SHAPE
+    x, dt, a_cum, Bm, Cm = ssd_inputs(torch, SSD_SERVE_SHAPE, torch.bfloat16,
+                                      g, dev)
+    y, s = K.ssd_intra_chunk(x, dt, a_cum, Bm, Cm)
+    y_p, s_p = plain(x, dt, a_cum, Bm, Cm)
+    torch.cuda.synchronize()
+    row = {"ms": time_ms(torch, lambda: K.ssd_intra_chunk(x, dt, a_cum, Bm,
+                                                          Cm), iters=50),
+           "max_abs_err": max(float((y.float() - y_p.float()).abs().max()),
+                              float((s - s_p).abs().max())),
+           "plain_ms": time_ms(torch, lambda: plain(x, dt, a_cum, Bm, Cm),
+                               iters=10),
+           "library_ms": None}
+    x32, B32, C32 = x.float(), Bm.float(), Cm.float()
+    row["ms_f32"] = time_ms(torch, lambda: K.ssd_intra_chunk(
+        x32, dt, a_cum, B32, C32), iters=50)
+    row["plain_ms_f32"] = time_ms(torch, lambda: plain(x32, dt, a_cum, B32,
+                                                       C32), iters=10)
+    nbytes, flops = ssd_bound(G, Q, H, P, N, 2)
+    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
+    row["bound_bf16_tensor_cores_ms"] = max(
+        nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS) * 1e3
+    nbytes32, _ = ssd_bound(G, Q, H, P, N, 4)
+    row["bound_f32_ms"] = bound_ms(nbytes32, flops)[0]
+    emit({"phase": "kernel_ssd", "cases": n_cases,
+          "shapes": [list(t) for t in SSD_SHAPES],
+          "tolerance": "relative to mag (plain version on |x|, |B|, |C|): "
+                       "f32 1e-5 (1 + mag); bf16 vs f32 on the same inputs: "
+                       "y 2^-8 |exact| + 1e-5 (1 + mag), states 1e-5 (1 + "
+                       "mag), plain y 2^-7 mag + 2^-8 |exact| + 1e-5 (1 + "
+                       "mag); gradients atol = rtol = 1e-6",
+          "results": worst, "grad_max_abs_err": grads_err,
+          "serve_shape": list(SSD_SERVE_SHAPE), "serve_shape_flops": flops,
+          "serve_shape_bytes": nbytes, "B11": row,
+          "library": "none: no single PyTorch call computes the SSD "
+                     "intra-chunk block"})
     return row
 
 
@@ -699,20 +922,20 @@ def _plain_ms(torch, fn, width: int) -> float:
     return (time.perf_counter() - t) * 1e3
 
 
-def _path_args(train, steps: int, extra=()):
+def _path_args(train, steps: int, extra=(), seq_len: int = 512):
     return train.build_parser().parse_args(
         ["--agents", "4", "--topology", "ring", "--per-agent-batch", "2",
-         "--seq-len", "512", "--steps", str(steps), "--log-every", "1",
-         "--lr", "0.4", "--warmup-hold", "200", "--seed", "0",
+         "--seq-len", str(seq_len), "--steps", str(steps), "--log-every",
+         "1", "--lr", "0.4", "--warmup-hold", "200", "--seed", "0",
          "--device", "cuda", *extra])
 
 
 def _run_path(torch, K, train, cfg, steps: int, kernel_rng: bool,
-              extra=()):
+              extra=(), seq_len: int = 512):
     """run_training with the launch counts set to 0 just before it.  The
     counts returned are read just after it.  Earlier phases' buffers are
     collected first, so the peak is this run's."""
-    args = _path_args(train, steps, extra)
+    args = _path_args(train, steps, extra, seq_len)
     gc.collect()
     torch.cuda.synchronize()
     check(torch.cuda.memory_allocated() < 1 << 30,
@@ -1319,13 +1542,13 @@ def phase_bits_path(torch, K, train, prng, cfg):
 
 
 def phase_profile(torch, train, cfg, path: str = "main_path", extra=(),
-                  steps: int = 4):
+                  steps: int = 4, seq_len: int = 512):
     """Device time by kernel over steps 1..steps-1 (step 0 warms up) of a
     path (``extra``: its flags), from a torch.profiler trace of
     run_training; each step is the range ``train_step_<k>``.  Writes the
     full table to chiprun_out/profile_<path>.json."""
     from torch.profiler import ProfilerActivity, profile
-    args = _path_args(train, steps, extra)
+    args = _path_args(train, steps, extra, seq_len)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         train.run_training(args, cfg=cfg)
@@ -1387,16 +1610,19 @@ def phase_profile(torch, train, cfg, path: str = "main_path", extra=(),
 SERVE_RANGES = ("serve_prefill", "serve_chunk")
 
 
-def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24):
-    """Device time by kernel in the serve path's steady prefills and decode
-    chunks (SERVE_PATH_ARGS with ``requests`` requests of ``gen`` tokens,
-    no parity check), from a torch.profiler trace of run_serving: the
-    engine names each prefill ``serve_prefill`` and each chunk
-    ``serve_chunk``; the first of each (the warm-up request's) is left
-    out.  Both end in a device sync, so the kernels that start inside a
-    range are its own.  Writes chiprun_out/profile_serve_path.json."""
+def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24,
+                        path_args=None, path: str = "serve_path"):
+    """Device time by kernel in a serve path's steady prefills and decode
+    chunks (``path_args``, default SERVE_PATH_ARGS, with ``requests``
+    requests of ``gen`` tokens, no parity check), from a torch.profiler
+    trace of run_serving: the engine names each prefill ``serve_prefill``
+    and each chunk ``serve_chunk``; the first of each (the warm-up
+    request's) is left out.  Both end in a device sync, so the kernels that
+    start inside a range are its own.  Writes
+    chiprun_out/profile_<path>.json."""
     from torch.profiler import ProfilerActivity, profile
-    argv = [a for a in SERVE_PATH_ARGS if a != "--parity-check"]
+    argv = [a for a in (path_args or SERVE_PATH_ARGS)
+            if a != "--parity-check"]
     argv[argv.index("--requests") + 1] = str(requests)
     argv[argv.index("--gen-tokens") + 1] = str(gen)
     args = serve.build_parser().parse_args(argv)
@@ -1437,29 +1663,38 @@ def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24):
                      "device_busy_ms_each": busy / n,
                      "idle_share": 1.0 - busy / max(window, 1e-9),
                      "top": table[name][:10]}
-    path = ROOT / "chiprun_out"
-    path.mkdir(exist_ok=True)
-    (path / "profile_serve_path.json").write_text(json.dumps(
+    path_dir = ROOT / "chiprun_out"
+    path_dir.mkdir(exist_ok=True)
+    (path_dir / f"profile_{path}.json").write_text(json.dumps(
         {"args": argv, "ranges": out, "kernels": table}, indent=1))
-    emit({"phase": "profile", "path": "serve_path", "args": argv, **out})
+    emit({"phase": "profile", "path": path, "args": argv, **out})
 
 
 SERVE_PATH_ARGS = ("--arch", "stablelm-3b", "--slots", "8", "--requests",
                    "16", "--prompt-len", "2000", "--gen-tokens", "64",
                    "--decode-chunk", "8", "--parity-check")
+# xlstm-125m at full width and depth: prompts of 500 (no multiple of 64,
+# so the dt = 0 padding runs), cut from stablelm's 2000 for the sLSTM's
+# host loop (a few ops a token and block); 16 requests on 8 slots
+XLSTM_SERVE_ARGS = ("--arch", "xlstm-125m", "--slots", "8", "--requests",
+                    "16", "--prompt-len", "500", "--gen-tokens", "32",
+                    "--decode-chunk", "8", "--parity-check")
+# xlstm-125m training: sequence 128, cut from the reference's train shapes
+# for the sLSTM's host loop (forward and backward, per token and agent)
+XLSTM_TRAIN_SEQ = 128
+XLSTM_TRAIN_STEPS = 4
 
 
-def phase_serve_parity(torch, serve):
-    """stablelm-3b-smoke in f32, 4 requests on 2 slots, greedy, through
-    run_serving on the card (prefill attention through B10) and on the CPU
-    (the naive attention), same weights: equal token streams, both
-    --parity-check ok, and every prompt's prefill logits within atol =
-    rtol = 1e-4 (the f32 conditioning of the smoke model's sharp attention,
-    tests/test_torch_serve.py)."""
+def _serve_parity(torch, serve, arch: str, kernel: str):
+    """``arch`` in f32, 4 requests on 2 slots, greedy, through run_serving
+    on the card (kernels) and on the CPU (plain versions), same weights:
+    equal token streams, both --parity-check ok, and every prompt's
+    prefill logits within atol = rtol = 1e-4.  Returns (config, card
+    streams, max logit error, launches of ``kernel`` on the card)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    cfg = get_config("stablelm-3b-smoke")
+    cfg = get_config(arch)
     gen = torch.Generator()
     gen.manual_seed(7)
     p0 = build_model(cfg).init(gen, "cpu")
@@ -1470,14 +1705,14 @@ def phase_serve_parity(torch, serve):
     gpu = serve.run_serving(serve.build_parser().parse_args(
         flags + ["--device", "cuda"]), init_params=p0)
     torch.cuda.synchronize()
-    b10 = launch_counts["flash_attention"]
+    launches = launch_counts[kernel]
     cpu = serve.run_serving(serve.build_parser().parse_args(
         flags + ["--device", "cpu"]), init_params=p0)
     streams = [{c.req_id: c.tokens for c in run["completions"]}
                for run in (gpu, cpu)]
-    check(streams[0] == streams[1], f"serve_parity streams {streams}")
+    check(streams[0] == streams[1], f"{arch} serve parity streams {streams}")
     check(gpu["result"]["parity"] == "ok" and cpu["result"]["parity"] == "ok",
-          "serve_parity --parity-check")
+          f"{arch} serve parity --parity-check")
     max_err = 0.0
     with torch.no_grad():
         for r in gpu["requests"]:
@@ -1487,22 +1722,50 @@ def phase_serve_parity(torch, serve):
             a, b = a["logits"].cpu(), b["logits"]
             max_err = max(max_err, float((a - b).abs().max()))
             check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
-                  f"serve_parity prefill logits of request {r.req_id}")
+                  f"{arch} serve parity prefill logits of request {r.req_id}")
+    return cfg, streams[0], max_err, launches
+
+
+def phase_serve_parity(torch, serve):
+    """stablelm-3b-smoke in f32 (`_serve_parity`): prefill attention through
+    B10 on the card, the naive attention on the CPU; the logits tolerance
+    is the f32 conditioning of the smoke model's sharp attention
+    (tests/test_torch_serve.py)."""
+    cfg, tokens, max_err, b10 = _serve_parity(torch, serve,
+                                              "stablelm-3b-smoke",
+                                              "flash_attention")
     # prefills: warm-up + 4 requests + 4 sequential, 2 layers each
     check(b10 == cfg.num_layers * 9, f"serve_parity B10 launches {b10}")
     emit({"phase": "serve_parity", "arch": cfg.name, "dtype": "float32",
-          "slots": 2, "requests": 4, "tokens_gpu": streams[0],
+          "slots": 2, "requests": 4, "tokens_gpu": tokens,
           "streams_equal": True, "prefill_logits_max_abs_err": max_err,
           "flash_attention_launches_gpu": b10,
           "tolerance": "tokens equal; prefill logits atol = rtol = 1e-4"})
 
 
+def phase_xlstm_serve_parity(torch, serve):
+    """xlstm-125m-smoke in f32 (`_serve_parity`): the mLSTM's SSD through
+    B11 on the card (prefill and every decode step), its plain version on
+    the CPU."""
+    cfg, tokens, max_err, b11 = _serve_parity(torch, serve,
+                                              "xlstm-125m-smoke",
+                                              "ssd_intra_chunk")
+    # at least the 9 prefills' two calls in the one mLSTM block
+    check(b11 >= 2 * 9, f"xlstm_serve_parity B11 launches {b11}")
+    emit({"phase": "xlstm_serve_parity", "arch": cfg.name,
+          "dtype": "float32", "slots": 2, "requests": 4,
+          "tokens_gpu": tokens, "streams_equal": True,
+          "prefill_logits_max_abs_err": max_err,
+          "ssd_intra_chunk_launches_gpu": b11,
+          "tolerance": "tokens equal; prefill logits atol = rtol = 1e-4"})
+
+
 def decode_logit_spread(torch, ctx, args, steps: int = 8):
-    """(max, per step) of the max |logit difference| between a batched decode step (all slots at
-    once, as the engine decodes) and the same rows decoded one at a time
-    (B = 1, as the sequential reference decodes), over ``steps`` greedy
-    steps of the path's first ``slots`` prompts, both fed the B = 1
-    stream's tokens."""
+    """(max, per step) of the max |logit difference| between a batched
+    decode step (all slots at once, as the engine decodes) and the same
+    rows decoded one at a time (B = 1, as the sequential reference
+    decodes), over ``steps`` greedy steps of the path's first ``slots``
+    prompts, both fed the B = 1 stream's tokens."""
     from repro_torch.serve import make_layout, write_slot
     bundle, params = ctx["bundle"], ctx["params"]
     reqs = ctx["requests"][:args.slots]
@@ -1588,11 +1851,11 @@ def decode_layer_growth(torch, ctx, args, slots: int = 4) -> list[float]:
 
 
 def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
-    """Where the engine's stream leaves the sequential one: the first
-    diverging position and the sequential logits' top-2 margin there.  A
-    divergence is allowed only at or after the first position whose margin
-    is below ``spread`` (a near tie that the batched and B = 1 products
-    may order differently); raises otherwise."""
+    """A diagnostic of the M = 1 comparison (not a gate): where the
+    engine's stream leaves the sequential B = 1 one, the first diverging
+    position, the sequential logits' top-2 margin there, and the first
+    position whose margin is below ``spread`` (a near tie that the batched
+    and B = 1 products may order differently), if any up to there."""
     from repro_torch.core import prng
     from repro_torch.serve import sequential_decode
     bundle, params = ctx["bundle"], ctx["params"]
@@ -1613,28 +1876,84 @@ def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
                  min(len(eng), len(seq)))
         margins = [float(t[0] - t[1]) for t in
                    (torch.topk(x[:V], 2).values for x in rows[:p + 1])]
-        first_near_tie = next((j for j, m in enumerate(margins)
-                               if m < spread), None)
         found.append({"req": r.req_id, "first_diverging_pos": p,
                       "margin_there": margins[-1],
-                      "first_near_tie_pos": first_near_tie,
+                      "first_near_tie_pos": next(
+                          (j for j, m in enumerate(margins) if m < spread),
+                          None),
                       "min_margin_to_there": min(margins)})
-        check(first_near_tie is not None,
-              f"serve_path req {r.req_id}: streams diverge at {p} with no "
-              f"top-2 margin below the spread {spread} up to there "
-              f"(margins {margins[-3:]})")
     return found
 
 
-def phase_serve_path(torch, K, serve):
-    """`python -m repro_torch.launch.serve` with SERVE_PATH_ARGS: stablelm-3b
-    at full width and depth, bf16, 16 requests of 2000-token prompts on 8
-    slots, 64 tokens each in chunks of 8, every prefill attention through
-    B10 (32 launches a prefill), then --parity-check: the engine's streams
-    against the sequential B = 1 decode, equal or within the margin
-    rule."""
-    from repro_torch.models import build_model
-    args = serve.build_parser().parse_args(list(SERVE_PATH_ARGS))
+def same_width_decode(torch, bundle, params, req, slots: int, cap: int,
+                      seed: int = 0, temperature: float = 0.0):
+    """The serve gate's oracle: ``req`` decoded alone, but in a batch
+    ``slots`` rows wide, so that every product has the engine's shapes.
+    Its B = 1 prefill is paged into every row of a ``slots``-row slab of
+    capacity ``cap`` (`write_slot`); each step decodes all rows at per-row
+    positions (`bundle.decode_fn`) with the same sampled token, drawn from
+    row 0's logits with the engine's (request, position) key.  Returns
+    (row 0's tokens, whether every row gave the same logits at every
+    step)."""
+    from repro_torch.core import prng
+    from repro_torch.serve import (make_layout, sample_token, sampling_key,
+                                   write_slot)
+    dev = params["embed"].device
+    V = bundle.cfg.vocab_size
+    out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
+        req.tokens)[None].to(dev)})
+    layout = make_layout(bundle, slots, cap)
+    slab = layout.init(dev)
+    for s in range(slots):
+        write_slot(layout, slab, out["cache"], s)
+    logits = out["logits"].float().expand(slots, -1)
+    p = int(out["pos"])
+    pos = torch.full((slots,), p, dtype=torch.int32, device=dev)
+    base = prng.key(seed).to(dev)
+    toks, rows_equal = [], True
+    while True:
+        key = sampling_key(base, req.req_id, p) if temperature > 0 else None
+        tok = int(sample_token(logits[0], key, temperature, V))
+        toks.append(tok)
+        if len(toks) >= req.max_new_tokens:
+            return toks, rows_equal
+        cur = torch.full((slots,), tok, dtype=torch.int32, device=dev)
+        logits = bundle.decode_fn(params, cur, slab, pos)["logits"].float()
+        rows_equal &= bool((logits == logits[0]).all())
+        pos, p = pos + 1, p + 1
+
+
+def same_width_gate(torch, ctx, args) -> dict:
+    """The engine's streams against `same_width_decode` for every request:
+    a record of the requests whose streams differ (with the first
+    diverging position); the caller fails the phase on any."""
+    bundle, params = ctx["bundle"], ctx["params"]
+    got = {c.req_id: c.tokens for c in ctx["completions"]}
+    cap = args.prompt_len + args.gen_tokens
+    mismatches, rows_equal = [], True
+    t0 = time.perf_counter()
+    for r in ctx["requests"]:
+        toks, equal = same_width_decode(torch, bundle, params, r, args.slots,
+                                        cap, args.seed, args.temperature)
+        rows_equal &= equal
+        eng = got[r.req_id]
+        if toks != eng:
+            p = next((j for j, (a, b) in enumerate(zip(eng, toks))
+                      if a != b), min(len(eng), len(toks)))
+            mismatches.append({"req": r.req_id, "first_diverging_pos": p,
+                               "engine": eng[p:p + 4],
+                               "oracle": toks[p:p + 4]})
+    return {"oracle": f"same-width decode, {args.slots} rows",
+            "requests": len(ctx["requests"]), "equal": not mismatches,
+            "mismatches": mismatches, "rows_equal_every_step": rows_equal,
+            "seconds": time.perf_counter() - t0}
+
+
+def _drive_serve(torch, K, serve, argv):
+    """run_serving on ``argv`` with the launch counts set to 0 just before
+    it and read just after it; earlier phases' buffers collected first, so
+    the peak is this run's."""
+    args = serve.build_parser().parse_args(list(argv))
     gc.collect()
     torch.cuda.synchronize()
     check(torch.cuda.memory_allocated() < 1 << 30,
@@ -1646,22 +1965,57 @@ def phase_serve_path(torch, K, serve):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    return args, ctx, counts, torch.cuda.max_memory_allocated(), wall
+
+
+def _checked(res) -> int:
+    """Requests --parity-check re-decoded sequentially: it stops at the
+    first mismatching request, as the reference's does."""
+    if res["parity"] == "ok":
+        return res["requests"]
+    return 1 + int(re.match(r"mismatch req (\d+)", res["parity"]).group(1))
+
+
+def _serve_record(phase: str, res, args, peak, wall, counts, gate) -> dict:
+    return {"phase": phase, "entry_point": res,
+            "steady_prefill_ms": res["steady_prefill_ms"],
+            "steady_chunk_ms": res["steady_chunk_ms"],
+            "ms_per_decode_step": res["steady_chunk_ms"] / args.decode_chunk,
+            "ms_per_token": 1e3 / res["tokens_per_s"],
+            "tokens_per_s": res["tokens_per_s"],
+            "ttft_p50_ms": res["ttft_p50_ms"],
+            "latency_p50_ms": res["latency_p50_ms"],
+            "latency_p99_ms": res["latency_p99_ms"],
+            "max_memory_allocated": peak, "run_wall_s": wall,
+            "gate": gate, "parity_m1": res["parity"], "launches": counts}
+
+
+def phase_serve_path(torch, K, serve):
+    """`python -m repro_torch.launch.serve` with SERVE_PATH_ARGS: stablelm-3b
+    at full width and depth, bf16, 16 requests of 2000-token prompts on 8
+    slots, 64 tokens each in chunks of 8, every prefill attention through
+    B10 (32 launches a prefill).  Gate: the engine's streams equal the
+    same-width oracle's exactly.  --parity-check's M = 1 sequential decode
+    is a diagnostic: where it differs, the batched-vs-B=1 logit spread,
+    the margin rule's record and a layer-by-layer trace of the two
+    residual streams, in bf16 and in f32, are printed."""
+    from repro_torch.models import build_model
+    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve,
+                                                 SERVE_PATH_ARGS)
     res = ctx["result"]
     cfg = ctx["bundle"].cfg
     check(cfg.num_layers == 32 and cfg.d_model == 2560, "full stablelm-3b")
     check(res["completed"] == 16 and res["generated_tokens"] == 16 * 64,
           f"served {res['completed']} / {res['generated_tokens']}")
     # prefills: the warm-up request, 16 admissions, and the sequential
-    # re-decodes of --parity-check, which stops at the first mismatching
-    # request (as the reference's does)
-    checked = 16 if res["parity"] == "ok" else 1 + int(re.match(
-        r"mismatch req (\d+)", res["parity"]).group(1))
-    prefills = 1 + 16 + checked
+    # re-decodes of --parity-check
+    prefills = 1 + 16 + _checked(res)
     check(counts.get("flash_attention", 0) == cfg.num_layers * prefills,
           f"serve_path launches {counts} for {prefills} prefills")
-    eng = ctx.pop("engine")
-    del eng
+    del ctx["engine"]
+    gc.collect()
+    with torch.no_grad():
+        gate = same_width_gate(torch, ctx, args)
     divergence, spread, per_step, spread_f32 = [], None, None, None
     growth = growth_f32 = None
     if res["parity"] != "ok":
@@ -1669,10 +2023,9 @@ def phase_serve_path(torch, K, serve):
         with torch.no_grad():
             spread, per_step = decode_logit_spread(torch, ctx, args)
             divergence = margin_rule(torch, ctx, args, spread)
-            # why the streams part: the batched and B = 1 residual streams
-            # after each layer of one decode step, in bf16 and with the
-            # same weights in f32 (a fault of the batched path would show
-            # as a jump at one layer; rounding grows layer by layer)
+            # why the M = 1 streams part: the batched and B = 1 residual
+            # streams after each layer of one decode step, in bf16 and with
+            # the same weights in f32
             growth = decode_layer_growth(torch, ctx, args)
             cfg32 = dataclasses.replace(cfg, dtype="float32")
             ctx32 = {"bundle": build_model(cfg32),
@@ -1683,31 +2036,161 @@ def phase_serve_path(torch, K, serve):
             spread_f32 = decode_logit_spread(torch, ctx32, args, steps=2)
             growth_f32 = decode_layer_growth(torch, ctx32, args)
             del ctx32
-        # the first token comes from the B = 1 prefill in both: exact
-        check(all(d["first_diverging_pos"] > 0 for d in divergence),
-              "serve_path: a first token differs from the sequential one")
-    emit({"phase": "serve_path", "entry_point": res,
-          "steady_prefill_ms": res["steady_prefill_ms"],
-          "steady_chunk_ms": res["steady_chunk_ms"],
-          "ms_per_decode_step": res["steady_chunk_ms"] / args.decode_chunk,
-          "ms_per_token": 1e3 / res["tokens_per_s"],
-          "tokens_per_s": res["tokens_per_s"],
-          "ttft_p50_ms": res["ttft_p50_ms"],
-          "latency_p50_ms": res["latency_p50_ms"],
-          "latency_p99_ms": res["latency_p99_ms"],
-          "max_memory_allocated": peak, "run_wall_s": wall,
-          "flash_attention_launches": counts.get("flash_attention", 0),
-          "prefills": prefills, "parity": res["parity"],
-          "decode_logit_spread": spread,
-          "decode_logit_spread_per_step": per_step,
-          "decode_logit_spread_f32_per_step": (spread_f32[1] if spread_f32
-                                               else None),
-          "decode_layer_growth_bf16": growth,
-          "decode_layer_growth_f32": growth_f32,
-          "divergence": divergence,
-          "launches": counts})
+    rec = _serve_record("serve_path", res, args, peak, wall, counts, gate)
+    rec.update({"flash_attention_launches": counts.get("flash_attention", 0),
+                "prefills": prefills, "parity": res["parity"],
+                "decode_logit_spread": spread,
+                "decode_logit_spread_per_step": per_step,
+                "decode_logit_spread_f32_per_step": (spread_f32[1]
+                                                     if spread_f32 else None),
+                "decode_layer_growth_bf16": growth,
+                "decode_layer_growth_f32": growth_f32,
+                "divergence_m1": divergence})
+    emit(rec)
+    check(gate["equal"], f"serve_path: the engine's streams differ from the "
+                         f"same-width oracle's: {gate['mismatches']}")
+    # the first token comes from the B = 1 prefill in both: exact
+    check(all(d["first_diverging_pos"] > 0 for d in divergence),
+          "serve_path: a first token differs from the sequential one")
     del ctx
     return {"flash_attention": counts}
+
+
+def phase_xlstm_serve_path(torch, K, serve):
+    """`python -m repro_torch.launch.serve` with XLSTM_SERVE_ARGS:
+    xlstm-125m at full width and depth (12 blocks), bf16, 16 requests of
+    500-token prompts on 8 slots, 32 tokens each in chunks of 8.  B11
+    twice in each of the 6 mLSTM blocks of every prefill (Q = 64, 8 chunks)
+    and every decode step (Q = 1); the launches are checked against the
+    prefills and decode steps the run made.  Gate: the engine's streams
+    equal the same-width oracle's exactly; --parity-check's M = 1
+    comparison and, where it differs, the logit spread and the margin
+    rule's record are printed."""
+    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve,
+                                                 XLSTM_SERVE_ARGS)
+    res = ctx["result"]
+    cfg = ctx["bundle"].cfg
+    n = args.requests
+    check(cfg.num_layers == 12 and cfg.d_model == 768
+          and cfg.family == "xlstm", "full xlstm-125m")
+    check(res["completed"] == n and res["generated_tokens"] == n
+          * args.gen_tokens,
+          f"served {res['completed']} / {res['generated_tokens']}")
+    checked = _checked(res)
+    prefills = 1 + n + checked
+    # decode steps: the warm-up's chunk and the timed chunks, then the
+    # sequential re-decodes (a token per step after the first)
+    steps = (args.decode_chunk * (1 + len(ctx["engine"].chunk_times))
+             + (args.gen_tokens - 1) * checked)
+    per_call = 2 * sum(1 for i in range(cfg.num_layers)
+                       if i % cfg.slstm_every != 1)
+    b11 = counts.get("ssd_intra_chunk", 0)
+    check(b11 == per_call * (prefills + steps),
+          f"xlstm_serve_path B11 launches {b11}, expected {per_call} x "
+          f"({prefills} prefills + {steps} decode steps)")
+    del ctx["engine"]
+    gc.collect()
+    with torch.no_grad():
+        gate = same_width_gate(torch, ctx, args)
+        spread, per_step, divergence = None, None, []
+        if res["parity"] != "ok":
+            spread, per_step = decode_logit_spread(torch, ctx, args)
+            divergence = margin_rule(torch, ctx, args, spread)
+    rec = _serve_record("xlstm_serve_path", res, args, peak, wall, counts,
+                        gate)
+    rec.update({"ssd_intra_chunk_launches": b11, "prefills": prefills,
+                "decode_steps": steps, "parity": res["parity"],
+                "decode_logit_spread": spread,
+                "decode_logit_spread_per_step": per_step,
+                "divergence_m1": divergence})
+    emit(rec)
+    check(gate["equal"], f"xlstm_serve_path: the engine's streams differ "
+                         f"from the same-width oracle's: "
+                         f"{gate['mismatches']}")
+    del ctx
+    return counts
+
+
+def phase_xlstm_step_parity(torch, K, train):
+    """2 steps of xlstm-125m-smoke (f32, one mLSTM and one sLSTM block)
+    through run_training on the card (B3 + B2, and B11 in each mLSTM
+    forward) and on the CPU (plain versions), same weights and batches;
+    seq 70 pads the scan to 128.  Tolerance: losses rtol 1e-5, params
+    atol = rtol = 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.privacy import tree_leaves
+    from repro_torch.models import build_model
+    cfg = get_config("xlstm-125m-smoke")
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    p0 = build_model(cfg).init(gen, "cpu")
+    flags = ["--arch", cfg.name, "--agents", "4", "--steps", "2",
+             "--log-every", "1", "--seq-len", "70", "--seed", "5"]
+    K.reset_launch_counts()
+    gpu = train.run_training(train.build_parser().parse_args(
+        flags + ["--device", "cuda"]), init_params=p0)
+    torch.cuda.synchronize()
+    counts = dict(K.launch_counts)
+    cpu = train.run_training(train.build_parser().parse_args(
+        flags + ["--device", "cpu"]), init_params=p0)
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(gpu["history"], cpu["history"]))
+    check(loss_rel <= 1e-5, f"xlstm_step_parity loss rel {loss_rel}")
+    max_abs = 0.0
+    for a, b in zip(tree_leaves(gpu["state"].params),
+                    tree_leaves(cpu["state"].params)):
+        a = a.cpu()
+        max_abs = max(max_abs, float((a - b).abs().max()))
+        check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+              f"xlstm_step_parity params, max abs {max_abs}")
+    # 2 steps x 4 agents x 1 mLSTM block x 2 calls
+    check(counts.get("ssd_intra_chunk", 0) == 16
+          and counts.get("obfuscate_update_krng", 0) == 2
+          and counts.get("gossip_update", 0) == 2,
+          f"xlstm_step_parity launches {counts}")
+    emit({"phase": "xlstm_step_parity", "arch": cfg.name,
+          "dtype": "float32", "agents": 4, "steps": 2, "seq_len": 70,
+          "losses_gpu": [r["loss"] for r in gpu["history"]],
+          "losses_cpu": [r["loss"] for r in cpu["history"]],
+          "max_loss_rel_err": loss_rel, "max_param_abs_err": max_abs,
+          "launches": counts,
+          "tolerance": "loss rtol 1e-5; params atol = rtol = 1e-4"})
+
+
+def phase_xlstm_train_path(torch, K, train, cfg):
+    """run_training --arch xlstm-125m at full width and depth (12 blocks,
+    d_model 768), 4 agents on a ring, bf16, PDSGD, per-agent batch 2,
+    seq XLSTM_TRAIN_SEQ, 1 warm-up + 3 timed steps: B3 + B2 every step, B11
+    in every mLSTM forward (4 agents x 6 blocks x 2 calls a step; its
+    backward is the plain version's autograd)."""
+    steps = XLSTM_TRAIN_STEPS
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
+                                        seq_len=XLSTM_TRAIN_SEQ)
+    hist = res["history"]
+    losses = [r["loss"] for r in hist]
+    state = res["state"]
+    m, width = state.flat.shape
+    n_m = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every != 1)
+    check(cfg.num_layers == 12 and cfg.d_model == 768, "full xlstm-125m")
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(len(hist) == steps and state.step == steps, "steps run")
+    check(state.flat.dtype == torch.bfloat16, "bf16 buffer")
+    check(_finite_flat(torch, state.flat), "non-finite parameters")
+    check(counts.get("obfuscate_update_krng", 0) == steps
+          and counts.get("gossip_update", 0) == steps
+          and counts.get("ssd_intra_chunk", 0) == m * n_m * 2 * steps,
+          f"xlstm_train_path launches {counts}")
+    ms_step = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1) \
+        * 1e3
+    emit({"phase": "xlstm_train_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+          "dtype": cfg.dtype, "agents": m, "topology": "ring",
+          "per_agent_batch": 2, "seq_len": XLSTM_TRAIN_SEQ,
+          "params_per_agent": state.layout.size, "width": width,
+          "losses": losses, "ms_per_step": ms_step,
+          "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
+          "max_memory_allocated": peak, "launches": counts})
+    return counts
 
 
 SOURCES = {
@@ -1731,6 +2214,8 @@ SOURCES = {
                                    "src/repro/kernels/gossip.py:598"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:100"),
+    "ssd_intra_chunk": ("src/repro_torch/csrc/ssm_scan.cu",
+                        "src/repro/kernels/ssm_scan.py:64"),
 }
 
 
@@ -1739,8 +2224,9 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile main-, dropout-, fault- and ring-path "
-                         "steps and the serve path with torch.profiler")
+                    help="also profile main-, dropout-, fault-, ring- and "
+                         "xLSTM train-path steps and both serve paths with "
+                         "torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -1763,6 +2249,7 @@ def main(argv=None) -> int:
     phase_kernels_coupled(torch, K)
     phase_kernels_ring(torch, K, prng)
     b10 = phase_kernel_attention(torch, K)
+    b11 = phase_kernel_ssd(torch, K)
     rows = {}
     if not opts.quick:
         phase_step_parity(torch, train)
@@ -1802,6 +2289,33 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             phase_profile_serve(torch, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_xlstm_step_parity(torch, K, train)
+        xlstm_cfg = get_config("xlstm-125m")
+        train_counts = phase_xlstm_train_path(torch, K, train, xlstm_cfg)
+        torch.cuda.empty_cache()
+        if opts.profile:
+            gc.collect()
+            # one profiled step and two requests: the profiler's events of
+            # the sLSTM loop's small ops take minutes to collect
+            phase_profile(torch, train, xlstm_cfg, "xlstm_train_path",
+                          steps=2, seq_len=XLSTM_TRAIN_SEQ)
+            torch.cuda.empty_cache()
+        phase_xlstm_serve_parity(torch, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve_counts = phase_xlstm_serve_path(torch, K, serve)
+        # B11's launches: the xLSTM train and serve paths' runs
+        rows["ssd_intra_chunk"] = ({"ssd_intra_chunk": sum(
+            c.get("ssd_intra_chunk", 0) for c in (train_counts,
+                                                  serve_counts))}, b11)
+        if opts.profile:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve, requests=2, gen=16,
+                                path_args=XLSTM_SERVE_ARGS,
+                                path="xlstm_serve_path")
         kernels = []
         for name, (counts, r) in rows.items():
             src, replaces = SOURCES[name]

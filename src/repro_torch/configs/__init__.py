@@ -6,7 +6,7 @@ import importlib
 
 from .base import ArchConfig, reduced_variant, tiny_variant
 
-_ARCHS = {"stablelm-3b": "stablelm_3b"}
+_ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m"}
 
 ARCH_NAMES = tuple(_ARCHS)
 

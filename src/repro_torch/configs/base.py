@@ -1,7 +1,7 @@
 """Architecture configuration (counterpart of ``repro.configs.base``; the
-fields the dense family uses).  Field names and the ``-smoke``/``-tiny``
-reductions equal the reference's, so a config resolves to the same
-shapes in both packages."""
+fields the dense and xLSTM families use).  Field names and the
+``-smoke``/``-tiny`` reductions equal the reference's, so a config
+resolves to the same shapes in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,7 @@ __all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense"]
+    family: Literal["dense", "xlstm"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -32,6 +32,8 @@ class ArchConfig:
     tie_embeddings: bool = True
     # modality embeddings ahead of the prompt; 0 for the dense family
     num_prefix_embeds: int = 0
+    # xLSTM: every slstm_every-th block (blocks 1, 3, ... for 2) is sLSTM
+    slstm_every: int = 2
     dtype: str = "bfloat16"
     source: str = ""
 

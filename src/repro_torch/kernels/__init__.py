@@ -11,6 +11,7 @@ from .gossip import (gossip_update, guarded_gossip_update,
                      ring_gossip_update, ring_obfuscate_gossip,
                      ring_obfuscate_gossip_krng)
 from .obfuscate import obfuscate_update, obfuscate_update_krng
+from .ssm_scan import ssd_intra_chunk
 from .ops import (FlatLayout, fused_pdsgd_flat, fused_pdsgd_tree,
                   ring_pdsgd_flat, ring_pdsgd_tree)
 
@@ -21,4 +22,4 @@ __all__ = ["ref", "build_all", "launch_counts", "reset_launch_counts",
            "ring_obfuscate_gossip_krng", "obfuscate_update",
            "obfuscate_update_krng", "FlatLayout", "fused_pdsgd_flat",
            "fused_pdsgd_tree", "ring_pdsgd_flat", "ring_pdsgd_tree",
-           "flash_attention"]
+           "flash_attention", "ssd_intra_chunk"]

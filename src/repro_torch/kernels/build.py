@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "library", "launch_counts", "dtype_code",
            "to_device"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("obfuscate", "gossip", "ring", "flash_attention")
+SOURCES = ("obfuscate", "gossip", "ring", "flash_attention", "ssm_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -72,6 +72,11 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
                                 _INT, _INT, _INT, _INT, _INT, _VOIDP],
+    },
+    "ssm_scan": {
+        "ssd_intra_chunk_fwd": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+                                _VOIDP, _VOIDP, _VOIDP, _LL, _INT, _INT,
+                                _INT, _INT, _VOIDP],
     },
 }
 

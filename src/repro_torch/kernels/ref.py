@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the hand-written kernels.
 
-The wrappers in `obfuscate` and `gossip` use these for tensors on the CPU;
+The kernel wrappers use these for tensors on the CPU;
 the tests and ``chip_smoke.py`` hold the CUDA kernels against them on the
 card.  They repeat the kernels' arithmetic operation for operation (each
 product and difference rounded once, in f32), which is what makes the
@@ -19,7 +19,7 @@ __all__ = ["obfuscate_ref", "obfuscate_krng_ref", "gossip_ref",
            "masked_gossip_krng_ref", "poison_transmit", "guarded_gossip_ref",
            "ring_gossip_ref", "ring_obfuscate_gossip_ref",
            "ring_obfuscate_gossip_krng_ref", "flash_attention_ref",
-           "CORRUPT_MODES"]
+           "ssd_intra_chunk_ref", "CORRUPT_MODES"]
 
 CORRUPT_MODES = ("nan", "inf", "scale")
 
@@ -214,3 +214,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor,
+                        a_cum: torch.Tensor, Bm: torch.Tensor,
+                        Cm: torch.Tensor):
+    """Intra-chunk SSD block (the reference's ``ref.ssd_intra_chunk_ref``):
+    x (G, Q, H, P); dt and a_cum (G, Q, H) f32, a_cum the inclusive cumsum
+    of the log-decay; Bm, Cm (G, Q, N).  Returns y_intra (G, Q, H, P) in
+    x's dtype and the chunk's state contribution (G, H, P, N) f32.  Scores
+    in x's dtype, the weights cast to x's dtype before the y product, as
+    the reference.  The causal mask is applied inside the exp (an
+    anti-causal exponent is positive and may overflow; its gradient would
+    then be 0 * inf), which leaves the forward values unchanged."""
+    Q = x.shape[1]
+    scores = torch.einsum("gin,gjn->gij", Cm, Bm)[..., None]  # (G,Q,Q,1)
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=x.device).tril()[None, :, :, None]
+    diff = a_cum[:, :, None, :] - a_cum[:, None, :, :]
+    Lmat = torch.where(causal, diff, float("-inf")).exp()
+    w = scores * Lmat * dt[:, None, :, :]
+    y = torch.einsum("gijh,gjhp->gihp", w.to(x.dtype), x)
+    decay_to_end = torch.exp(a_cum[:, -1:, :] - a_cum)  # (G,Q,H)
+    wx = x * (dt * decay_to_end)[..., None]
+    state = torch.einsum("gqn,gqhp->ghpn", Bm.to(wx.dtype), wx)
+    return y, state

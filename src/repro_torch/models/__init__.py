@@ -1,4 +1,4 @@
-"""Models (dense transformer family)."""
+"""Models (dense transformer and xLSTM families)."""
 from .build import ModelBundle, build_model
 
 __all__ = ["ModelBundle", "build_model"]

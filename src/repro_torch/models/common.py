@@ -23,7 +23,8 @@ from ..kernels.build import to_device
 __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
            "rope_tables", "rope_tables_at", "apply_rope", "attention",
            "decode_attention", "ring_buffer_write", "decode_cache_valid",
-           "decode_positions", "swiglu", "cross_entropy", "pad_vocab"]
+           "decode_positions", "swiglu", "cross_entropy", "pad_vocab",
+           "einsum_promoted"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,13 @@ def init_params(generator: torch.Generator, defs: Any, dtype: torch.dtype,
         return {k: init_params(generator, defs[k], dtype, device)
                 for k in sorted(defs)}
     return defs.materialize(generator, dtype, device)
+
+
+def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` in the operands' promoted dtype, jnp.einsum's rule:
+    an f32 activation times a bf16 weight computes in f32."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.einsum(eq, a.to(dt), b.to(dt))
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,

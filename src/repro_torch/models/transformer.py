@@ -24,8 +24,9 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, cross_entropy,
                      decode_attention, decode_cache_valid, decode_positions,
-                     layer_norm, pad_vocab, ring_buffer_write, rms_norm,
-                     rope_tables, rope_tables_at, swiglu)
+                     einsum_promoted, layer_norm, pad_vocab,
+                     ring_buffer_write, rms_norm, rope_tables, rope_tables_at,
+                     swiglu)
 
 __all__ = ["param_defs", "forward_train", "loss_fn", "embed_tokens",
            "unembed", "cache_len_for", "cache_spec", "forward_prefill",
@@ -87,10 +88,17 @@ def _qkv(p: dict, h: torch.Tensor, rope):
 
 
 def _attn(q, k, v, window: int | None) -> torch.Tensor:
-    """Prefill attention: B10 on a CUDA tensor (equal head counts, as the
-    reference's kernel), `attention` on the CPU."""
+    """Prefill attention: B10 on a CUDA tensor, `attention` on the CPU.
+    B10 takes equal head counts, as the reference's kernel ("GQA repeat
+    happens outside"): with KV < H heads, k and v are repeated along the
+    head axis so that query head h reads KV head h // (H / KV), the
+    grouping of `attention` and `decode_attention`."""
     if q.device.type != "cuda":
         return attention(q, k, v, causal=True, window=window)
+    group = q.shape[2] // k.shape[2]
+    if group > 1:
+        k = k.repeat_interleave(group, dim=2)
+        v = v.repeat_interleave(group, dim=2)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=True, window=window)
 
@@ -155,9 +163,11 @@ def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits in the promoted dtype of ``x`` and the weights (an xLSTM's
+    f32 residual stream against bf16 embeddings gives f32 logits)."""
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["unembed"])
+        return einsum_promoted("bsd,vd->bsv", x, params["embed"])
+    return einsum_promoted("bsd,dv->bsv", x, params["unembed"])
 
 
 def _final_norm(params: dict, x: torch.Tensor, cfg: ArchConfig):

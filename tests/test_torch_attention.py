@@ -182,3 +182,23 @@ def test_cuda_flash_attention_vs_plain(S, hd, causal, window, dtype):
                                    causal=causal, window=window)
     tol = 2e-6 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [130, 257])
+def test_cuda_gqa_prefill_attention_vs_plain(S, dtype):
+    """The prefill's `_attn` with fewer KV heads than query heads (k and v
+    repeated to H heads for B10) against the plain grouped attention."""
+    _need_cuda()
+    from repro_torch.models.transformer import _attn
+    dev = torch.device("cuda")
+    q = torch.from_numpy(_normal((1, S, 8, 32))).to(dtype).to(dev)
+    k, v = (torch.from_numpy(_normal((1, S, 2, 32))).to(dtype).to(dev)
+            for _ in range(2))
+    before = launch_counts["flash_attention"]
+    got = _attn(q, k, v, None)
+    assert launch_counts["flash_attention"] == before + 1
+    want = common.attention(q, k, v, causal=True)
+    tol = 2e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
