@@ -32,9 +32,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               senders, guard clip 1e3 and --nan-policy skip (B3 + B6), 6
               steps; B6 timed and checked at that path's shapes
   kernel_attention  B10 flash_attention against ref.flash_attention_ref,
-              f32 and bf16, S in {1, 7, 128, 130, 2000} x hd in {8, 16, 32,
-              40, 64, 80, 128} x (causal, causal + window 256, non-causal,
-              non-causal + window 100); grouped-query prefill through
+              f32 and bf16, S in {1, 7, 127, 128, 129, 130, 255, 257, 2000}
+              x hd in {8, 16, 32, 40, 64, 80, 128} x (causal, causal +
+              window 256, non-causal, non-causal + window 100); grouped-query
+              prefill through
               models.transformer._attn (k, v repeated to H heads for B10)
               at granite-8b's H = 32, KV = 8, hd = 128, S in {130, 2000},
               f32 and bf16, against the plain grouped attention; timed at
@@ -47,7 +48,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               N = 384, Q in {1, 7, 52, 64}) and zamba2-7b's (G, 64, 112,
               64), N = 64; the autograd Function's gradients against
               autograd through the plain version; timed at the xLSTM serve
-              prefill's (32, 64, 1, 384), N = 384, bf16 and f32
+              prefill's (32, 64, 1, 384), N = 384, bf16 and f32, then at
+              each shape the xLSTM paths give it (training, prefill and
+              decode; memory and normalizer calls), f32 and bf16, each
+              beside its own bound
   kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
               ring_obfuscate_gossip_krng bitwise against their plain
               versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
@@ -89,7 +93,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               and depth, bf16; B11 12 times a prefill and a decode step; the
               same gate as serve_path
   kernels     every kernel with its launches, error, times and bound
-Then the card's name and power limit, then the result line.
+Then B10's time and TFLOP/s at the serve shape beside those of
+scaled_dot_product_attention in the same run, the card's name and power
+limit, and the result line.
 
 The serve paths' gate is a same-width oracle: each request decoded alone,
 its prefill paged into every row of a batch ``--slots`` rows wide and
@@ -100,8 +106,11 @@ and is a diagnostic only.
 
 Bounds: B1-B9 (elementwise and m <= 32 mixing): bytes each kernel must
 move (inputs read once, outputs written once) over 3.35e12 B/s, or its
-float operations over 67e12 FLOP/s (f32 outside the tensor cores),
-whichever is larger.  B10 (matmul-shaped): its bytes over 3.35e12 B/s or
+float operations over 67e12 FLOP/s (f32 outside the tensor cores), or,
+for the kernels that draw threefry bits (B3, B9 one word an element, B5
+one an edge), their 32-bit integer operations (73 a word, counted from
+csrc/threefry.cuh) over 16.7e12 op/s (64 INT32 lanes an SM), whichever is
+larger.  B10 (matmul-shaped): its bytes over 3.35e12 B/s or
 its FLOPs over the unmasked (query, key) pairs, 4 hd per pair, over
 989e12 FLOP/s (dense bf16 tensor cores), whichever is larger; its f32
 CUDA-core bound (67e12) is printed beside it.  B11: its bytes (x, Bm,
@@ -130,6 +139,15 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 BF16_TC_FLOPS = 989e12
+# 32-bit integer operations: 64 INT32 lanes an SM (Hopper white paper) x
+# 132 SMs x 1.98 GHz, the clock of the f32 rate (132 x 128 x 2 x 1.98e9 =
+# 67e12)
+INT32_OPS = 132 * 64 * 1.98e9
+# integer operations of one threefry draw as csrc/threefry.cuh does it: 2
+# initial adds, 20 rounds of add, rotate and xor, 5 key injections of 2
+# adds, the final xor (the key-only work, k2 and the injection constants,
+# is per key and not counted)
+THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1
 MAIN_LAYERS = 8
 # record_function ranges of core/pdsgd.py's step
 STEP_RANGES = ("coupling", "held_state", "agent_grads", "pdsgd_update",
@@ -164,8 +182,13 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def bound_ms(nbytes: float, flops: float = 0.0) -> tuple[float, str]:
-    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def bound_ms(nbytes: float, flops: float = 0.0,
+             int_ops: float = 0.0) -> tuple[float, str]:
+    """The least time of a kernel on the card: its bytes over the memory
+    rate, its f32 operations over the f32 rate, its 32-bit integer
+    operations over the integer rate, whichever is largest."""
+    by = nbytes / HBM_BYTES_PER_S * 1e3
+    op = max(flops / F32_FLOPS, int_ops / INT32_OPS) * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
 
@@ -569,8 +592,10 @@ def phase_kernels_ring(torch, K, prng):
           "results": out})
 
 
-ATTN_SEQS = (1, 7, 128, 130, 2000)
-# 8 and 40: hd padded to a multiple of 16 on the tensor-core path
+# 127, 129, 255, 257: both sides of B10's 128-row tile edges
+ATTN_SEQS = (1, 7, 127, 128, 129, 130, 255, 257, 2000)
+# 8 and 40: hd padded to a multiple of 16 on the tensor-core path; 80 one
+# 128-byte and one 32-byte box; 128 two 128-byte boxes
 ATTN_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128)
 # (causal, window): the three modes the serve path and the reference's
 # sweep use, and a non-causal window (tiles whose rows are all masked)
@@ -699,6 +724,9 @@ def phase_kernel_attention(torch, K):
     row["bound_ms"], row["bound_by"] = (by, "bytes") if by >= op else (
         op, "operations")
     row["bound_f32_cuda_cores_ms"] = flops / F32_FLOPS * 1e3
+    row["tflops"] = flops / row["ms"] / 1e9
+    row["library_tflops"] = flops / row["library_ms"] / 1e9
+    row["ms_over_library"] = row["ms"] / row["library_ms"]
     emit({"phase": "kernel_attention", "cases": n_cases,
           "seqs": ATTN_SEQS, "head_dims": ATTN_HEAD_DIMS,
           "modes": [list(m) for m in ATTN_MODES],
@@ -723,6 +751,15 @@ SSD_SHAPES = ((2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
 # the xLSTM serve prefill's memory call: a 500-token prompt padded to 8
 # chunks of 64, 4 heads folded: G = 32, P = N = 384
 SSD_SERVE_SHAPE = (32, 64, 1, 384, 384)
+# every shape the xLSTM paths give B11 (G, Q, H, P, N): each mLSTM block
+# makes a memory call (P = 384) and a normalizer call (P = 1); training
+# folds per-agent batch 2 x 2 chunks x 4 heads, a prefill 8 chunks x 4
+# heads, a decode step 8 slots x 4 heads at Q = 1
+SSD_PATH_SHAPES = {
+    f"{path} {call}": (G, Q, 1, P, 384)
+    for path, G, Q in (("train", 16, 64), ("prefill", 32, 64),
+                       ("decode", 32, 1))
+    for call, P in (("memory", 384), ("normalizer", 1))}
 BF16_U = 2.0 ** -8  # bf16's unit roundoff
 
 
@@ -854,6 +891,19 @@ def phase_kernel_ssd(torch, K):
         nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS) * 1e3
     nbytes32, _ = ssd_bound(G, Q, H, P, N, 4)
     row["bound_f32_ms"] = bound_ms(nbytes32, flops)[0]
+    # by shape: each call the xLSTM paths make, beside its own bound
+    by_shape = {}
+    for name, shape in SSD_PATH_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_inputs(torch, shape, dtype, g, dev)
+            nb, fl = ssd_bound(*shape, 4 if dtype == torch.float32 else 2)
+            bms, bby = bound_ms(nb, fl)
+            by_shape[f"{name} {str(dtype)[6:]}"] = {
+                "shape": list(shape),
+                "ms": time_ms(torch, lambda: K.ssd_intra_chunk(*ins),
+                              iters=50),
+                "bound_ms": bms, "bound_by": bby}
+    row["by_shape"] = by_shape
     emit({"phase": "kernel_ssd", "cases": n_cases,
           "shapes": [list(t) for t in SSD_SHAPES],
           "tolerance": "relative to mag (plain version on |x|, |B|, |C|): "
@@ -1011,7 +1061,10 @@ def phase_main_path(torch, K, train, prng, cfg):
         X[:, s:e], G[:, s:e],
         prng.leaf_bits(kd, offsets, m, width, start=s, stop=e), lam, 0.0,
         -1.0), width)
-    b3["bound_ms"], b3["bound_by"] = bound_ms(n * 6, n * 5)
+    b3["bound_ms"], b3["bound_by"] = bound_ms(n * 6, n * 5,
+                                              n * THREEFRY_INT_OPS)
+    b3["bound_bytes_ms"] = bound_ms(n * 6)[0]
+    b3["bound_int_ms"] = n * THREEFRY_INT_OPS / INT32_OPS * 1e3
     b3["library_ms"] = None
     # B2 on (X, V), bf16
     from repro_torch.core.topology import make_topology
@@ -1155,6 +1208,9 @@ def phase_dropout_path(torch, K, train, prng, cfg):
         torch, lambda: metropolis_from_mask(mask5).bfloat16() @ X - Bb @ U5,
         iters=5)
     key5 = mixing.mask_key(k)
+    # B5 draws one threefry word per undirected edge
+    draws = m * (m - 1) // 2
+    bound5 = bound_ms(n * 6, width * 4 * m * m, draws * THREEFRY_INT_OPS)
     b5 = {"ms": time_ms(torch, lambda: K.masked_gossip_update_krng(
               key5, mixing.keep_prob, adj, B, X, U5, out=Y), iters=10),
           "max_abs_err": err5,
@@ -1162,7 +1218,9 @@ def phase_dropout_path(torch, K, train, prng, cfg):
                                 K.ref.masked_gossip_krng_ref(
                                     key5, mixing.keep_prob, adj, B,
                                     X[:, s:e], U5[:, s:e]), width),
-          "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+          "bound_ms": bound5[0], "bound_by": bound5[1],
+          "bound_int_ms": draws * THREEFRY_INT_OPS / INT32_OPS * 1e3,
+          "library_ms": None}
     emit({"phase": "dropout_path_kernels", "shape": [m, width],
           "dtype": "bfloat16", "B4": b4, "B5": b5})
     del X5, U5, Y
@@ -1410,7 +1468,10 @@ def phase_ring_path(torch, K, train, prng, cfg):
                                                    start=s, stop=e), lam),
                                 width),
           "library_ms": None}
-    b9["bound_ms"], b9["bound_by"] = bound_ms(n * 6, n * (6 + 4 * nd))
+    b9["bound_ms"], b9["bound_by"] = bound_ms(n * 6, n * (6 + 4 * nd),
+                                              n * THREEFRY_INT_OPS)
+    b9["bound_bytes_ms"] = bound_ms(n * 6)[0]
+    b9["bound_int_ms"] = n * THREEFRY_INT_OPS / INT32_OPS * 1e3
     emit({"phase": "ring_path_kernels", "shape": [m, width],
           "dtype": "bfloat16", "B9": b9, "B7": b7,
           "ring_vs_concat": {"ring_max_bf16_ulps_vs_f32": ulps_r,
@@ -2326,6 +2387,12 @@ def main(argv=None) -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
         print(json.dumps({"kernels": kernels}), flush=True)
+    # B10 at the serve shape against the library call of the same run
+    print(json.dumps({"B10_serve_shape": {
+        "shape": list(SERVE_ATTN_SHAPE), "ms": b10["ms"],
+        "tflops": b10["tflops"], "sdpa_ms": b10["library_ms"],
+        "sdpa_tflops": b10["library_tflops"],
+        "ms_over_sdpa": b10["ms_over_library"]}}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

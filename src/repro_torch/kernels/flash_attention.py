@@ -5,8 +5,9 @@
     o = softmax(q k^T / sqrt(hd) + mask) v,   mask: causal and/or a window
 
 q, k, v: (B, S, H, hd) with equal head counts, float32 (f32 FMAs on the
-CUDA cores) or bfloat16 (mma.sync on the tensor cores, f32 accumulation);
-any S >= 1 and any hd that is a multiple of 8 up to 128.  A tensor on the
+CUDA cores) or bfloat16 (TMA loads into an mbarrier ring, both products on
+wgmma, f32 accumulation); any S >= 1 and any hd that is a multiple of 8 up
+to 128.  A tensor on the
 CPU goes to the plain version `ref.flash_attention_ref`; a CUDA tensor
 launches the kernel (and counts the launch) or raises.
 """

@@ -9,8 +9,9 @@ wrapper takes its plain version; the test marked ``gpu`` holds the CUDA
 kernel against it on the card.
 
 Tolerances:
-* plain B10 vs the interpreted Pallas kernel: the reference sweep's own
-  (tests/test_kernels.py:31), atol = rtol = 2e-6 in f32, 2e-2 in bf16
+* plain B10 vs the interpreted Pallas kernel (one tile of S where 64 does
+  not divide S): the reference sweep's own (tests/test_kernels.py:31),
+  atol = rtol = 2e-6 in f32, 2e-2 in bf16
   (the kernel keeps its scores in f32, the plain version rounds logits
   and probabilities to bf16);
 * plain B10 vs ``models.common.attention`` in f32: atol = rtol = 2e-6 (the
@@ -35,9 +36,14 @@ from repro_torch.models import common
 
 RNG = np.random.default_rng(0)
 
-# the reference sweep's shapes (tests/test_kernels.py:21-26)
+# the reference sweep's shapes (tests/test_kernels.py:21-26), then
+# stablelm's hd = 80 at S on both sides of B10's 128-row tile edges, causal
+# with and without a window
 SWEEP = [(2, 128, 2, 64, True, None), (1, 256, 4, 32, True, 64),
-         (2, 64, 1, 128, False, None), (1, 512, 2, 16, True, 256)]
+         (2, 64, 1, 128, False, None), (1, 512, 2, 16, True, 256),
+         *((1, S, 2, 80, True, w) for S in (127, 129, 257) for w in (None, 64))]
+# B10's tile edges on the card: every hd it takes at S around 128 and 256
+EDGE_SEQS = (127, 129, 257)
 
 
 def _normal(shape, dtype=np.float32) -> np.ndarray:
@@ -55,8 +61,11 @@ def _allclose(got: torch.Tensor, want, tol: float):
 def test_flash_plain_vs_interpreted_pallas(B, S, H, hd, causal, window,
                                            dtype):
     q, k, v = (_normal((B, S, H, hd), dtype) for _ in range(3))
+    # the reference kernel asserts S % bq == 0: one tile where 64 does not
+    # divide S
+    bq = 64 if S % 64 == 0 else S
     want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                     causal=causal, window=window, bq=64, bk=64,
+                     causal=causal, window=window, bq=bq, bk=bq,
                      interpret=True)
     got = ref.flash_attention_ref(params_from_numpy(q), params_from_numpy(k),
                                   params_from_numpy(v), causal=causal,
@@ -168,7 +177,9 @@ def _need_cuda():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S,hd,causal,window", [
     (1, 16, True, None), (130, 80, True, None), (257, 32, True, 64),
-    (200, 128, False, None), (300, 40, False, 100)])
+    (200, 128, False, None), (300, 40, False, 100),
+    *((S, hd, True, w) for S in EDGE_SEQS for hd in range(8, 129, 8)
+      for w in (None, 64))])
 def test_cuda_flash_attention_vs_plain(S, hd, causal, window, dtype):
     _need_cuda()
     dev = torch.device("cuda")
