@@ -46,21 +46,28 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               bf16 (bf16 held against f32 on the same inputs), over the
               reference sweep, xlstm-125m's folded shapes (P in {384, 1},
               N = 384, Q in {1, 7, 52, 64}) and zamba2-7b's (G, 64, 112,
-              64), N = 64; the autograd Function's gradients against
-              autograd through the plain version; timed at the xLSTM serve
-              prefill's (32, 64, 1, 384), N = 384, bf16 and f32, then at
-              each shape the xLSTM paths give it (training, prefill and
-              decode; memory and normalizer calls), f32 and bf16, each
-              beside its own bound
+              64), N = 64, and both sides of the kernel's routes and tiles
+              (Q in {2, 15, 16, 17, 63, 65, 127}, ragged P and N); the
+              autograd Function's gradients against autograd through the
+              plain version; timed at the xLSTM serve prefill's (32, 64, 1,
+              384), N = 384, bf16 and f32, then at each shape the xLSTM
+              paths give it (training, prefill and decode; memory and
+              normalizer calls), f32 and bf16, each beside its own bound:
+              device time from a CUDA graph of the calls replayed, the
+              host's microseconds a call beside it
   kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
               ring_obfuscate_gossip_krng bitwise against their plain
               versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
               (4, 2) torus: capture, a dropped direction, a planted nan, B9's
-              bits and B9 == B8 on them
+              bits and B9 == B8 on them; then B9 over leaf layouts that
+              stress its per-tile leaf lookup (a boundary inside a tile, a
+              leaf of many tiles, one-column leaves, padding past the last
+              leaf, n no multiple of a tile)
   ring_path   the main path's model and flags with --kernel-layout ring (B9
               only, one launch a step), 1 warm-up + 6 timed steps, then one
               torus_gossip_pdsgd(None, ..., fused=True) on its buffers (B7);
-              B9 and B7 checked and timed there, and the ring update held
+              B9 and B7 checked and timed (B9 in turns with B3 and B2 on
+              the same buffers) there, and the ring update held
               against the concat update (B3 + B2) on the same draws
   bits_path   the same entry point with kernel_rng=False (Lambda bits drawn
               outside the kernel, the reference's HBM-bits route) at depth
@@ -113,12 +120,13 @@ csrc/threefry.cuh) over 16.7e12 op/s (64 INT32 lanes an SM), whichever is
 larger.  B10 (matmul-shaped): its bytes over 3.35e12 B/s or
 its FLOPs over the unmasked (query, key) pairs, 4 hd per pair, over
 989e12 FLOP/s (dense bf16 tensor cores), whichever is larger; its f32
-CUDA-core bound (67e12) is printed beside it.  B11: its bytes (x, Bm,
-Cm, dt, a_cum read once, y and the f32 states written once) over 3.35e12
-B/s or its f32 operations over 67e12 FLOP/s, whichever is larger: 2 N
-per causal (i, j) pair for the scores, 2 H P per pair for y, 2 Q H P N
-for the states, a chunk; its bf16 tensor-core bound (989e12) is printed
-beside it.  (H100 SXM data sheet.)
+CUDA-core bound (67e12) is printed beside it.  B11 (its products on tensor
+cores): its bytes (x, Bm, Cm, dt, a_cum read once, y and the f32 states
+written once) over 3.35e12 B/s or its FLOPs over 989e12 FLOP/s,
+whichever is larger: 2 N per causal (i, j) pair for the scores, 2 H P per
+pair for y, 2 Q H P N for the states, a chunk; its f32 CUDA-core bound
+(67e12, the bound of the FMA kernel it replaced) is printed beside it.
+(H100 SXM data sheet.)
 """
 from __future__ import annotations
 
@@ -180,6 +188,43 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(torch, fn, iters: int = 50, replays: int = 5) -> dict:
+    """Device time of one call of ``fn`` apart from its host cost:
+    ``iters`` calls captured in a CUDA graph and the graph replayed
+    ``replays`` times between CUDA events (``device_ms``, the kernels back
+    to back with the graph's launch gaps), and the host's microseconds a
+    call with the calls issued eagerly one after another, no sync
+    (``host_us``: the wrapper's dispatch, what a host-bound loop pays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(replays):
+        graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    dev = t0.elapsed_time(t1) / (replays * iters)
+    del graph
+    h0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - h0) / iters * 1e6
+    torch.cuda.synchronize()
+    return {"device_ms": dev, "host_us": host}
 
 
 def bound_ms(nbytes: float, flops: float = 0.0,
@@ -491,6 +536,17 @@ def phase_kernels_coupled(torch, K):
 
 
 RING_TORI = ((2, 1), (4, 1), (5, 1), (32, 1), (4, 2))
+# (leaf sizes, columns) that stress B9's per-tile leaf lookup (a warp's
+# tile is 32 VEC columns: 128, 64 or 32 as m <= 4, 8, 32): boundaries
+# inside tiles, a leaf of many tiles, one-column leaves, padding starting
+# inside a tile, columns no multiple of any tile
+RING_LEAF_LAYOUTS = {
+    "boundary_in_tile": ([200, 3000, 56, 700], 3960),
+    "long_leaf": ([128 * 40 + 40, 8], 5176),
+    "one_column": ([1] * 40 + [100], 144),
+    "padding": ([1000], 1536),
+    "ragged_n": ([600, 560], 1160),
+}
 
 
 def phase_kernels_ring(torch, K, prng):
@@ -499,7 +555,9 @@ def phase_kernels_ring(torch, K, prng):
     torus (ndirs 3): the capture streams, the output with capture off, a
     dropped direction's v exactly 0, a nan planted in one sender's g at
     the plain version's positions, B9's exported bits = `prng.leaf_bits`
-    and B9 = B8 on them."""
+    and B9 = B8 on them; then, on every ring and torus, B9 over
+    RING_LEAF_LAYOUTS: bits = `prng.leaf_bits`, output = B8's on them, and
+    the same written over X."""
     from repro_torch.dist import collectives as C
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
@@ -585,11 +643,42 @@ def phase_kernels_ring(torch, K, prng):
             rec[str(dtype)[6:]] = {"bitwise": True, "nan_positions": int(
                 torch.isnan(on).sum())}
         out[f"{n_data}x{n_pod}"] = {"m": m, "ndirs": nd, **rec}
+    layouts = {}
+    for name, (lsizes, lcols) in RING_LEAF_LAYOUTS.items():
+        for n_data, n_pod in RING_TORI:
+            m = n_data * n_pod
+            src = C.source_table(n_data, n_pod)
+            nd = src.shape[0]
+            w = torch.rand(m, 1 + nd, generator=g, device=dev)
+            b = torch.rand(m, 1 + nd, generator=g, device=dev)
+            loff = torch.tensor([0, *itertools.accumulate(lsizes)],
+                                dtype=torch.int64)
+            keys = torch.stack([prng.split(prng.fold_in(prng.key(m + 7), a),
+                                           len(lsizes)) for a in range(m)])
+            bits = prng.leaf_bits(keys.to(dev), loff, m, lcols)
+            for dtype in (torch.float32, torch.bfloat16):
+                X = torch.randn(m, lcols, generator=g, device=dev).to(dtype)
+                G = torch.randn(m, lcols, generator=g, device=dev).to(dtype)
+                what = f"{name} {n_data}x{n_pod} {str(dtype)[6:]}"
+                o9, b9 = K.ring_obfuscate_gossip_krng(
+                    w, b, src, X, G, keys, loff, 0.05, export_bits=True)
+                o8 = K.ring_obfuscate_gossip(w, b, src, X, G, bits, 0.05)
+                check(torch.equal(b9, bits), f"B9 {what}: bits differ from "
+                                             f"prng.leaf_bits")
+                check(same_bits(torch, o9, o8), f"B9 {what}: differs from "
+                                                f"B8 on its bits")
+                Xi = X.clone()
+                K.ring_obfuscate_gossip_krng(w, b, src, Xi, G, keys, loff,
+                                             0.05, out=Xi)
+                check(same_bits(torch, Xi, o8), f"B9 {what}: in place "
+                                                f"differs")
+        layouts[name] = {"cols": lcols, "leaves": len(lsizes),
+                         "bitwise": True}
     emit({"phase": "kernel_ring", "cols": cols, "leaf_sizes": sizes,
           "tolerances": {"B7": "bitwise", "B8": "bitwise (nan positions "
                          "exact)", "B9": "bitwise, bits = prng.leaf_bits, "
                          "= B8 on its bits"},
-          "results": out})
+          "results": out, "b9_leaf_layouts": layouts})
 
 
 # 127, 129, 255, 257: both sides of B10's 128-row tile edges
@@ -747,7 +836,12 @@ def phase_kernel_attention(torch, K):
 # (112 heads, P = N = 64, B and C shared)
 SSD_SHAPES = ((2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
               *((16, Q, 1, P, 384) for P in (384, 1) for Q in (1, 7, 52, 64)),
-              (4, 64, 112, 64, 64))
+              (4, 64, 112, 64, 64),
+              # both sides of the decode route's Q < 16 and of the tensor
+              # cores' padded chunk (16, 32, 64, 128); P and N past a tile
+              # (vector staging), then odd ones (element staging)
+              *((3, Q, 2, 72, 80) for Q in (2, 15, 16, 17, 63, 65, 127)),
+              (2, 33, 1, 5, 13), (2, 9, 3, 37, 261))
 # the xLSTM serve prefill's memory call: a 500-token prompt padded to 8
 # chunks of 64, 4 heads folded: G = 32, P = N = 384
 SSD_SERVE_SHAPE = (32, 64, 1, 384, 384)
@@ -788,6 +882,14 @@ def ssd_bound(G: int, Q: int, H: int, P: int, N: int, elem: int):
     return nbytes, flops
 
 
+def ssd_tc_bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """B11's bound on tensor cores: its bytes over the memory rate or its
+    FLOPs over the dense bf16 tensor-core rate, whichever is larger."""
+    by = nbytes / HBM_BYTES_PER_S * 1e3
+    op = flops / BF16_TC_FLOPS * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
 def phase_kernel_ssd(torch, K):
     """B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref over SSD_SHAPES,
     f32 and bf16, each tolerance taken relative to ``mag``, the plain
@@ -800,7 +902,11 @@ def phase_kernel_ssd(torch, K):
     Function's gradients (B11 forward, the plain version's backward)
     against autograd through the plain version, f32, atol = rtol = 1e-6;
     then B11 timed at the xLSTM serve prefill's memory call, bf16 (and f32,
-    the dtype of the blocks after the first), beside its plain version."""
+    the dtype of the blocks after the first), beside its plain version, and
+    at each shape the xLSTM paths give it: device time from a CUDA graph of
+    50 calls replayed (`device_ms`), the host's microseconds a call beside
+    it, and the eager CUDA-event time (``events_ms``, which at a few
+    microseconds of device time measures the host's dispatch)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -873,36 +979,40 @@ def phase_kernel_ssd(torch, K):
     y, s = K.ssd_intra_chunk(x, dt, a_cum, Bm, Cm)
     y_p, s_p = plain(x, dt, a_cum, Bm, Cm)
     torch.cuda.synchronize()
-    row = {"ms": time_ms(torch, lambda: K.ssd_intra_chunk(x, dt, a_cum, Bm,
-                                                          Cm), iters=50),
+    timed = device_ms(torch, lambda: K.ssd_intra_chunk(x, dt, a_cum, Bm,
+                                                       Cm))
+    row = {"ms": timed["device_ms"], "host_us": timed["host_us"],
            "max_abs_err": max(float((y.float() - y_p.float()).abs().max()),
                               float((s - s_p).abs().max())),
            "plain_ms": time_ms(torch, lambda: plain(x, dt, a_cum, Bm, Cm),
                                iters=10),
            "library_ms": None}
     x32, B32, C32 = x.float(), Bm.float(), Cm.float()
-    row["ms_f32"] = time_ms(torch, lambda: K.ssd_intra_chunk(
-        x32, dt, a_cum, B32, C32), iters=50)
+    timed = device_ms(torch, lambda: K.ssd_intra_chunk(x32, dt, a_cum, B32,
+                                                       C32))
+    row["ms_f32"], row["host_us_f32"] = timed["device_ms"], timed["host_us"]
     row["plain_ms_f32"] = time_ms(torch, lambda: plain(x32, dt, a_cum, B32,
                                                        C32), iters=10)
     nbytes, flops = ssd_bound(G, Q, H, P, N, 2)
-    row["bound_ms"], row["bound_by"] = bound_ms(nbytes, flops)
-    row["bound_bf16_tensor_cores_ms"] = max(
-        nbytes / HBM_BYTES_PER_S, flops / BF16_TC_FLOPS) * 1e3
+    row["bound_ms"], row["bound_by"] = ssd_tc_bound(nbytes, flops)
+    row["bound_f32_fma_ms"] = bound_ms(nbytes, flops)[0]
     nbytes32, _ = ssd_bound(G, Q, H, P, N, 4)
-    row["bound_f32_ms"] = bound_ms(nbytes32, flops)[0]
+    row["bound_f32_ms"] = ssd_tc_bound(nbytes32, flops)[0]
     # by shape: each call the xLSTM paths make, beside its own bound
     by_shape = {}
     for name, shape in SSD_PATH_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
             ins = ssd_inputs(torch, shape, dtype, g, dev)
             nb, fl = ssd_bound(*shape, 4 if dtype == torch.float32 else 2)
-            bms, bby = bound_ms(nb, fl)
+            bms, bby = ssd_tc_bound(nb, fl)
+            timed = device_ms(torch, lambda: K.ssd_intra_chunk(*ins))
             by_shape[f"{name} {str(dtype)[6:]}"] = {
-                "shape": list(shape),
-                "ms": time_ms(torch, lambda: K.ssd_intra_chunk(*ins),
-                              iters=50),
-                "bound_ms": bms, "bound_by": bby}
+                "shape": list(shape), "ms": timed["device_ms"],
+                "host_us": timed["host_us"],
+                "events_ms": time_ms(torch, lambda: K.ssd_intra_chunk(*ins),
+                                     iters=50),
+                "bound_ms": bms, "bound_by": bby,
+                "bound_f32_fma_ms": bound_ms(nb, fl)[0]}
     row["by_shape"] = by_shape
     emit({"phase": "kernel_ssd", "cases": n_cases,
           "shapes": [list(t) for t in SSD_SHAPES],
@@ -1472,6 +1582,16 @@ def phase_ring_path(torch, K, train, prng, cfg):
                                               n * THREEFRY_INT_OPS)
     b9["bound_bytes_ms"] = bound_ms(n * 6)[0]
     b9["bound_int_ms"] = n * THREEFRY_INT_OPS / INT32_OPS * 1e3
+    # in turns with what the concat path runs for the same update: B3 (the
+    # same words) and B2 (the same bytes) on these buffers, then B9 again
+    V, Xn = Y, torch.empty_like(X)
+    b9["b3_ms"] = time_ms(torch, lambda: K.obfuscate_update_krng(
+        X, G, keys, offsets, lam, 0.0, -1.0, out=V), iters=5)
+    b9["b2_ms"] = time_ms(torch, lambda: K.gossip_update(W, B, X, V, out=Xn),
+                          iters=5)
+    b9["ms_again"] = time_ms(torch, lambda: K.ring_obfuscate_gossip_krng(
+        w_tab, b_tab, src, X, G, keys, offsets, lam, out=Xr), iters=5)
+    del V, Xn
     emit({"phase": "ring_path_kernels", "shape": [m, width],
           "dtype": "bfloat16", "B9": b9, "B7": b7,
           "ring_vs_concat": {"ring_max_bf16_ulps_vs_f32": ulps_r,

@@ -75,8 +75,8 @@ _SIGNATURES = {
     },
     "ssm_scan": {
         "ssd_intra_chunk_fwd": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                                _VOIDP, _VOIDP, _VOIDP, _LL, _INT, _INT,
-                                _INT, _INT, _VOIDP],
+                                _VOIDP, _VOIDP, _LL, _INT, _INT, _INT, _INT,
+                                _VOIDP],
     },
 }
 

@@ -1,5 +1,8 @@
 """Mamba2 SSD intra-chunk block (counterpart of ``repro.kernels.ssm_scan``),
-hand-written in CUDA in ``csrc/ssm_scan.cu`` (B11).
+hand-written in CUDA in ``csrc/ssm_scan.cu`` (B11): one launch a call, no
+scratch; a tensor-core (3xTF32) route for 16 <= Q <= 128 and an f32 route
+bound by the states' bytes for Q < 16 (decode), chosen in the kernel's C
+entry point.
 
 For each chunk g of Q steps and head h:
 
@@ -65,11 +68,10 @@ def _forward(x, dt, a_cum, Bm, Cm):
         raise ValueError("ssd_intra_chunk needs contiguous inputs")
     y = torch.empty_like(x)
     states = torch.empty((G, H, P, N), dtype=torch.float32, device=x.device)
-    scores = torch.empty((G, Q, Q), dtype=torch.float32, device=x.device)
     status = library("ssm_scan").ssd_intra_chunk_fwd(
         dtype_code(x.dtype), x.data_ptr(), dt.data_ptr(), a_cum.data_ptr(),
-        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), states.data_ptr(),
-        scores.data_ptr(), G, Q, H, P, N, stream_ptr(x.device))
+        Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), states.data_ptr(), G, Q,
+        H, P, N, stream_ptr(x.device))
     check_status("ssd_intra_chunk", status)
     launch_counts["ssd_intra_chunk"] += 1
     return y, states
@@ -102,6 +104,11 @@ class _SsdIntraChunk(torch.autograd.Function):
 def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a_cum: torch.Tensor,
                     Bm: torch.Tensor, Cm: torch.Tensor):
     """Returns ``(y_intra (G, Q, H, P) in x's dtype, states (G, H, P, N)
-    f32)``, differentiable in every input."""
+    f32)``, differentiable in every input.  Where no gradient is wanted
+    (serving) the call skips the autograd Function: one launch and one
+    ctypes call, nothing else on the host."""
     _check(x, dt, a_cum, Bm, Cm)
-    return _SsdIntraChunk.apply(x, dt, a_cum, Bm, Cm)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, a_cum, Bm, Cm)):
+        return _SsdIntraChunk.apply(x, dt, a_cum, Bm, Cm)
+    return _forward(x, dt, a_cum, Bm, Cm)

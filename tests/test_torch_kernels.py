@@ -102,14 +102,43 @@ def test_obfuscate_general_scalars():
                                       0.13, 0.6, 0.3))
 
 
-def _ragged_layout(m):
-    """Keys and offsets for leaves of ragged sizes, padded to 512."""
-    sizes = [5, 1, 300, 77, 1024, 3]
+# (leaf sizes, columns): B9 on the card finds a tile's leaf once for 32
+# VEC columns (128, 64 or 32 as m <= 4, 8, 32); these stress that lookup
+LEAF_LAYOUTS = {
+    "ragged": ([5, 1, 300, 77, 1024, 3], 1536),
+    # leaf boundaries inside tiles
+    "boundary_in_tile": ([200, 3000, 56, 700], 3960),
+    # a leaf of many tiles
+    "long_leaf": ([128 * 40 + 40, 8], 5176),
+    # one-column leaves, then a short one
+    "one_column": ([1] * 40 + [100], 144),
+    # padding past the last leaf, its start inside a tile
+    "padding": ([1000], 1536),
+    # columns no multiple of any tile
+    "ragged_n": ([600, 560], 1160),
+}
+
+
+def _leaf_layout(m, name="ragged"):
+    """Keys and offsets for one of LEAF_LAYOUTS."""
+    sizes, cols = LEAF_LAYOUTS[name]
     offsets = np.concatenate([[0], np.cumsum(sizes)])
-    cols = -(-offsets[-1] // 512) * 512
     keys = torch.stack([prng.split(prng.fold_in(prng.key(3), a), len(sizes))
                         for a in range(m)])
     return sizes, torch.from_numpy(offsets.astype(np.int64)), cols, keys
+
+
+def _jax_leaf_bits(keys, sizes, offsets, m, cols):
+    """Per-(row, leaf) jax.random.bits laid side by side, padding 0."""
+    want = np.zeros((m, cols), np.uint32)
+    for a in range(m):
+        for l, n in enumerate(sizes):
+            jk = jax.random.wrap_key_data(
+                jnp.asarray(keys[a, l].numpy().astype(np.uint32)))
+            o = int(offsets[l])
+            want[a, o:o + n] = np.asarray(jax.random.bits(jk, (n,),
+                                                          jnp.uint32))
+    return want
 
 
 @pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16])
@@ -117,15 +146,8 @@ def test_obfuscate_krng_plain_bitwise(dtype):
     """B3's bits are jax.random.bits of each (row, leaf) key over the leaf;
     v equals the Pallas B1 kernel fed those bits."""
     m = 4
-    sizes, offsets, cols, keys = _ragged_layout(m)
-    want_bits = np.zeros((m, cols), np.uint32)
-    for a in range(m):
-        for l, n in enumerate(sizes):
-            jk = jax.random.wrap_key_data(
-                jnp.asarray(keys[a, l].numpy().astype(np.uint32)))
-            o = int(offsets[l])
-            want_bits[a, o:o + n] = np.asarray(
-                jax.random.bits(jk, (n,), jnp.uint32))
+    sizes, offsets, cols, keys = _leaf_layout(m)
+    want_bits = _jax_leaf_bits(keys, sizes, offsets, m, cols)
     x = RNG.normal(size=(m, cols)).astype(dtype)
     g = RNG.normal(size=(m, cols)).astype(dtype)
     v, bits = obfuscate_update_krng(_torch(x), _torch(g), keys, offsets,
@@ -325,7 +347,7 @@ def test_cuda_obfuscate_kernels_bitwise_vs_plain(dtype):
     _need_cuda()
     dev = torch.device("cuda")
     m = 4
-    sizes, offsets, cols, keys = _ragged_layout(m)
+    sizes, offsets, cols, keys = _leaf_layout(m)
     x = torch.randn(m, cols, dtype=torch.float32).to(dtype)
     g = torch.randn(m, cols, dtype=torch.float32).to(dtype)
     v, bits = obfuscate_update_krng(x.to(dev), g.to(dev), keys, offsets,
@@ -445,14 +467,46 @@ def _same_values(a, b):
                             b.nan_to_num(0.0).view(torch.uint8)))
 
 
+@pytest.mark.parametrize("layout", sorted(LEAF_LAYOUTS))
+def test_ring_krng_plain_bits_over_leaf_layouts(layout):
+    """B9's plain version over the leaf layouts that stress the CUDA
+    kernel's per-tile leaf lookup: its bits are jax.random.bits of each
+    (row, leaf) key over the leaf and 0 past the last leaf, its output B8's
+    plain version on those bits, bit for bit, also written over X."""
+    from repro_torch.dist import collectives as C
+    from repro_torch.kernels import (ring_obfuscate_gossip,
+                                     ring_obfuscate_gossip_krng)
+    m = 4
+    sizes, offsets, cols, keys = _leaf_layout(m, layout)
+    want_bits = _jax_leaf_bits(keys, sizes, offsets, m, cols)
+    gen = torch.Generator().manual_seed(cols)
+    perms = C.perm_stack(m, 1)
+    w = torch.rand(m, 1 + perms.shape[0], generator=gen)
+    b = torch.rand(m, 1 + perms.shape[0], generator=gen)
+    X = torch.randn(m, cols, generator=gen).bfloat16()
+    G = torch.randn(m, cols, generator=gen).bfloat16()
+    o9, bits = ring_obfuscate_gossip_krng(w, b, perms, X, G, keys, offsets,
+                                          0.05, export_bits=True)
+    np.testing.assert_array_equal(bits.to(torch.int64).numpy(),
+                                  want_bits.astype(np.int64))
+    o8 = ring_obfuscate_gossip(w, b, perms, X, G, bits, 0.05)
+    assert torch.equal(o9.view(torch.int16), o8.view(torch.int16))
+    Xi = X.clone()
+    ring_obfuscate_gossip_krng(w, b, perms, Xi, G, keys, offsets, 0.05,
+                               out=Xi)
+    assert torch.equal(Xi.view(torch.int16), o8.view(torch.int16))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", sorted(LEAF_LAYOUTS))
 @pytest.mark.parametrize("m", [2, 4, 32])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype):
-    """B7, B8 and B9 against their plain versions on the card: outputs,
-    captured v and u bitwise, capture not changing the output, a nan
-    planted in one sender's g at the plain version's positions, and B9
-    equal to B8 on its exported bits."""
+def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype, layout):
+    """B7, B8 and B9 against their plain versions on the card, over leaf
+    layouts that stress B9's per-tile leaf lookup: outputs, captured v and
+    u bitwise, capture not changing the output, a nan planted in one
+    sender's g at the plain version's positions, B9 equal to B8 on its
+    exported bits, and B9 written over X."""
     _need_cuda()
     from repro_torch.dist import collectives as C
     from repro_torch.kernels import (ring_gossip_update, ring_obfuscate_gossip,
@@ -463,11 +517,12 @@ def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype):
     nd = perms.shape[0]
     w = torch.rand(m, 1 + nd, generator=gen).to(dev)
     b = torch.rand(m, 1 + nd, generator=gen).to(dev)
-    _, offsets, cols, keys = _ragged_layout(m)
+    _, offsets, cols, keys = _leaf_layout(m, layout)
+    nan_col = 300 if cols > 300 else cols // 2
     X = torch.randn(m, cols, generator=gen).to(dtype).to(dev)
     U = torch.randn(m, cols, generator=gen).to(dtype).to(dev)
     G = torch.randn(m, cols, generator=gen).to(dtype)
-    G[m - 1, 300] = float("nan")
+    G[m - 1, nan_col] = float("nan")
     G = G.to(dev)
     out, v = ring_gossip_update(w, b, perms, X, U, capture=True)
     po, pv = ref.ring_gossip_ref(w, b, perms.to(dev), X, U)
@@ -478,7 +533,7 @@ def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype):
     o8, v8, u8 = ring_obfuscate_gossip(w, b, perms, X, G, bits, 0.05,
                                        capture=True)
     p8 = ref.ring_obfuscate_gossip_ref(w, b, perms.to(dev), X, G, bits, 0.05)
-    assert bool(torch.isnan(o8[:, 300]).all())
+    assert bool(torch.isnan(o8[:, nan_col]).all())
     for a, c in zip((o8, v8, u8), p8):
         assert _same_values(a, c)
     assert _same_values(ring_obfuscate_gossip(w, b, perms, X, G, bits, 0.05),
@@ -489,3 +544,7 @@ def test_cuda_ring_kernels_bitwise_vs_plain(m, dtype):
     assert torch.equal(b9, bits)
     for a, c in zip((o9, v9, u9), (o8, v8, u8)):
         assert _same_values(a, c)
+    Xi = X.clone()
+    ring_obfuscate_gossip_krng(w, b, perms, Xi, G, keys, offsets, 0.05,
+                               out=Xi)
+    assert _same_values(Xi, o8)

@@ -22,7 +22,8 @@ Tolerances (f32):
   5e-4 + rtol 1e-3; split-chunk carry atol 1e-4 + rtol 1e-3; conv step
   atol 1e-5);
 * the card: f32 atol = rtol = 1e-4 (the kernel sums the N scores and the
-  Q rows in another order); bf16 against an f32 computation on the same
+  Q rows in another order, on tensor cores split 3xTF32 for Q >= 16);
+  one launch a call; bf16 against an f32 computation on the same
   bf16 inputs, y within 2e-2 relative to its scale (the kernel rounds only
   y; the plain version also rounds the scores and the weights).
 """
@@ -42,6 +43,16 @@ from repro_torch.models import ssm
 SHAPES = [(2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
           (8, 64, 1, 24, 24), (8, 52, 1, 1, 24), (6, 1, 1, 16, 16),
           (4, 1, 3, 8, 8)]
+# both sides of the CUDA kernel's routes: Q < 16 on the f32 decode route,
+# the chunk padded to 16, 32, 64 or 128 on the tensor-core one (on the card
+# with P and N past a 64-wide tile; on the CPU at the reference sweep's
+# widths, where its atol 1e-5 holds)
+ROUTE_QS = (1, 2, 15, 16, 17, 63, 64, 65, 127, 128)
+ROUTE_SHAPES = [(3, Q, 2, 72, 80) for Q in ROUTE_QS]
+# the shapes the xLSTM paths give B11 (training, prefill, decode; memory
+# and normalizer calls) and zamba2-7b's native form
+PATH_SHAPES = [(G, Q, 1, P, 384) for G, Q in ((16, 64), (32, 64), (32, 1))
+               for P in (384, 1)] + [(4, 64, 112, 64, 64)]
 
 
 def _inputs(G, Q, H, P, N, seed=0):
@@ -59,7 +70,8 @@ def _t(*arrays):
     return [torch.from_numpy(np.array(a)) for a in arrays]
 
 
-@pytest.mark.parametrize("G,Q,H,P,N", SHAPES)
+@pytest.mark.parametrize("G,Q,H,P,N", SHAPES + [(2, Q, 2, 8, 16)
+                                                for Q in ROUTE_QS])
 def test_plain_b11_matches_reference_kernel_and_plain_version(G, Q, H, P, N):
     arrays = _inputs(G, Q, H, P, N)
     y_k, s_k = jax_ssd_intra_chunk(*map(jnp.asarray, arrays))
@@ -297,7 +309,8 @@ def _need_cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("G,Q,H,P,N", SHAPES + [(3, 64, 1, 384, 384),
-                                                (2, 64, 112, 64, 64)])
+                                                (2, 64, 112, 64, 64)]
+                         + ROUTE_SHAPES + PATH_SHAPES)
 def test_cuda_ssd_intra_chunk_vs_plain(G, Q, H, P, N, dtype):
     _need_cuda()
     dev = torch.device("cuda")
