@@ -9,9 +9,10 @@ all through the port's entry points, and reports what ran.
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # main-, dropout-, fault-, ring- and
-                                     # xLSTM train-path steps and of both
-                                     # serve paths' prefills and decode
-                                     # chunks
+                                     # xLSTM train-path steps, of the
+                                     # scanned main path's replayed chunks
+                                     # and of both serve paths' prefills
+                                     # and decode chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -20,10 +21,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               at (rows, 2^22) against the plain versions; B4
               masked_gossip_update, B5 masked_gossip_update_krng and B6
               guarded_gossip_update at m = 4, 5, 32 in f32 and bf16
-  step_parity stablelm-3b-smoke f32, 4 agents, 2 steps: card vs CPU
+  step_parity stablelm-3b-smoke f32, 4 agents, 2 steps: card vs CPU, for
+              PDSGD, DSGD, DSGT, DP-DSGD and PDSGD with the gradient clip
   main_path   stablelm-3b (full width, depth 8), 4 agents on a ring, bf16,
               1 warm-up + 5 timed steps through run_training; then B3 and
               B2 timed and checked at the shapes that run gave them
+  fig2_path   the paper's Fig. 2 workload (the North star): 600 PDSGD
+              steps (B3 + B2) through the eager loop and through the
+              scanned step (a CUDA graph of 100 steps, replayed), in jax's
+              earlier threefry stream (partitionable=False); gates: graph
+              == eager bitwise, final_err within a relative 1e-3 of
+              0.07891825798133546; then one replay traced by
+              torch.profiler: kernels and device time a replayed step, B3
+              and B2 kernels counted in the trace
+  main_path_scanned  the main path with --unroll-k 4: a warm-up chunk,
+              then 8 steps replayed from the CUDA graph, beside the same
+              12 steps eager; the states equal bit for bit; launches
+              counted on the warm-up chunk and, for the replays, from the
+              capture
+  baselines_path  the main path's configuration, eager, 3 steps each:
+              --algorithm dsgt (peak carries the tracker pair), dp_dsgd
+              --sigma-dp 0.01, pdsgd --grad-clip-kappa 1.0 (B3 + B2), dsgd
+              (6 steps), then dsgd --unroll-k 3 equal to it bit for bit;
+              then the plain dsgd and dsgt updates alone, device ms
+              beside their bytes bounds; no
+              B-kernel for the baselines
   dropout_path  the same model and entry point with --topology-dropout
               0.25 (B3 + B4), 1 warm-up + 6 timed steps, then one
               fused_pdsgd_flat(mask_key=...) update on its buffers (B5);
@@ -99,10 +121,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               --gen-tokens 32 --decode-chunk 8 --parity-check: full width
               and depth, bf16; B11 12 times a prefill and a decode step; the
               same gate as serve_path
-  kernels     every kernel with its launches, error, times and bound
+  kernels     every kernel with its launches in its own path's run (B3
+              and B2: main_path; B11: the xLSTM train and serve paths),
+              error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
 scaled_dot_product_attention in the same run, the card's name and power
-limit, and the result line.
+limit, and the result line.  Each phase's line is also appended to
+chiprun_out/chip_smoke.jsonl (emptied at the start).
 
 The serve paths' gate is a same-width oracle: each request decoded alone,
 its prefill paged into every row of a batch ``--slots`` rows wide and
@@ -159,12 +184,21 @@ THREEFRY_INT_OPS = 2 + 20 * 3 + 5 * 2 + 1
 MAIN_LAYERS = 8
 # record_function ranges of core/pdsgd.py's step
 STEP_RANGES = ("coupling", "held_state", "agent_grads", "pdsgd_update",
+               "dsgd_update", "dsgt_update", "dp_dsgd_update",
                "consensus_error")
 BITS_PATH_LAYERS = 2
 
 
+# every phase record is also kept here: the run's standard output is
+# longer than what a caller may see of it
+RECORDS = ROOT / "chiprun_out" / "chip_smoke.jsonl"
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with RECORDS.open("a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi() -> str:
@@ -397,6 +431,20 @@ def phase_kernels(torch, K, prng):
                                                      -1.0)),
               f"B3 {dtype} v differs from B1 fed its bits")
         out[f"B3_{str(dtype)[6:]}_bitwise"] = True
+        # jax's earlier threefry stream (the Fig. 2 target's), odd and
+        # even leaves
+        v, bits = K.obfuscate_update_krng(x, gr, keys, offsets, 0.05, 0.0,
+                                          -1.0, return_bits=True,
+                                          partitionable=False)
+        want_bits = prng.leaf_bits(keys.to(dev), offsets, rows, cols,
+                                   partitionable=False)
+        torch.cuda.synchronize()
+        check(torch.equal(bits, want_bits),
+              f"B3 {dtype} original-stream bits differ")
+        check(same_bits(torch, v, K.ref.obfuscate_ref(x, gr, want_bits, 0.05,
+                                                      0.0, -1.0)),
+              f"B3 {dtype} original-stream v differs")
+        out[f"B3_{str(dtype)[6:]}_original_stream_bitwise"] = True
     # B2: f32 max abs/rel error; bf16 within 1 bf16 ulp of the f32 result
     for m in (4, 5, 32):
         W = torch.rand(m, m, generator=g, device=dev)
@@ -1029,13 +1077,19 @@ def phase_kernel_ssd(torch, K):
     return row
 
 
+PARITY_RUNS = (("pdsgd", ()), ("dsgd", ("--algorithm", "dsgd")),
+               ("dsgt", ("--algorithm", "dsgt")),
+               ("dp_dsgd", ("--algorithm", "dp_dsgd", "--sigma-dp", "0.01")),
+               ("pdsgd_clip", ("--grad-clip-kappa", "0.05")))
+
+
 def phase_step_parity(torch, train):
     """2 steps of stablelm-3b-smoke (f32) through run_training on the card
-    (kernels) and on the CPU (plain versions), same weights and batches.
-    Tolerance: losses rtol 1e-5; params atol 1e-3 + rtol 1e-4 — the smoke
-    model's 0.02-scale embeddings under LayerNorm amplify the first
-    step's summation-order difference (as on the CPU against the
-    reference, tests/test_torch_train.py)."""
+    (kernels) and on the CPU (plain versions), same weights and batches,
+    for PDSGD, each baseline and the clip.  Tolerance: losses rtol 1e-5;
+    params atol 1e-3 + rtol 1e-4 — the smoke model's 0.02-scale embeddings
+    under LayerNorm amplify the first step's summation-order difference
+    (as on the CPU against the reference, tests/test_torch_train.py)."""
     from repro_torch.core.privacy import tree_leaves
     from repro_torch.models import build_model
     from repro_torch.configs import get_config
@@ -1043,28 +1097,31 @@ def phase_step_parity(torch, train):
     gen = torch.Generator()
     gen.manual_seed(5)
     p0 = build_model(cfg).init(gen, "cpu")
-    flags = ["--arch", "stablelm-3b-smoke", "--agents", "4", "--steps", "2",
-             "--log-every", "1", "--seq-len", "64", "--seed", "5"]
-    gpu = train.run_training(train.build_parser().parse_args(
-        flags + ["--device", "cuda"]), init_params=p0)
-    cpu = train.run_training(train.build_parser().parse_args(
-        flags + ["--device", "cpu"]), init_params=p0)
-    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
-                   for a, b in zip(gpu["history"], cpu["history"]))
-    check(loss_rel <= 1e-5, f"step_parity loss rel {loss_rel}")
-    max_abs = 0.0
-    for a, b in zip(tree_leaves(gpu["state"].params),
-                    tree_leaves(cpu["state"].params)):
-        a = a.cpu()
-        max_abs = max(max_abs, float((a - b).abs().max()))
-        check(torch.allclose(a, b, atol=1e-3, rtol=1e-4),
-              "step_parity params")
-    emit({"phase": "step_parity", "arch": "stablelm-3b-smoke",
-          "dtype": "float32", "agents": 4, "steps": 2,
-          "losses_gpu": [r["loss"] for r in gpu["history"]],
-          "losses_cpu": [r["loss"] for r in cpu["history"]],
-          "max_loss_rel_err": loss_rel, "max_param_abs_err": max_abs,
-          "tolerance": "loss rtol 1e-5; params atol 1e-3 + rtol 1e-4"})
+    for name, extra in PARITY_RUNS:
+        flags = ["--arch", "stablelm-3b-smoke", "--agents", "4", "--steps",
+                 "2", "--log-every", "1", "--seq-len", "64", "--seed", "5",
+                 *extra]
+        gpu = train.run_training(train.build_parser().parse_args(
+            flags + ["--device", "cuda"]), init_params=p0)
+        cpu = train.run_training(train.build_parser().parse_args(
+            flags + ["--device", "cpu"]), init_params=p0)
+        loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(gpu["history"], cpu["history"]))
+        check(loss_rel <= 1e-5, f"step_parity {name} loss rel {loss_rel}")
+        max_abs = 0.0
+        for a, b in zip(tree_leaves(gpu["state"].params),
+                        tree_leaves(cpu["state"].params)):
+            a = a.cpu()
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            check(torch.allclose(a, b, atol=1e-3, rtol=1e-4),
+                  f"step_parity {name} params")
+        emit({"phase": "step_parity", "run": name, "flags": list(extra),
+              "arch": "stablelm-3b-smoke", "dtype": "float32", "agents": 4,
+              "steps": 2,
+              "losses_gpu": [r["loss"] for r in gpu["history"]],
+              "losses_cpu": [r["loss"] for r in cpu["history"]],
+              "max_loss_rel_err": loss_rel, "max_param_abs_err": max_abs,
+              "tolerance": "loss rtol 1e-5; params atol 1e-3 + rtol 1e-4"})
 
 
 def _chunks(n: int, size: int = 1 << 24):
@@ -1091,15 +1148,18 @@ def _path_args(train, steps: int, extra=(), seq_len: int = 512):
 
 
 def _run_path(torch, K, train, cfg, steps: int, kernel_rng: bool,
-              extra=(), seq_len: int = 512):
+              extra=(), seq_len: int = 512, held: bool = False):
     """run_training with the launch counts set to 0 just before it.  The
     counts returned are read just after it.  Earlier phases' buffers are
-    collected first, so the peak is this run's."""
+    collected first, so the peak is this run's; with ``held`` the caller
+    keeps an earlier run's state for a comparison, and the peak returned
+    is this run's above what was allocated before it."""
     args = _path_args(train, steps, extra, seq_len)
     gc.collect()
     torch.cuda.synchronize()
-    check(torch.cuda.memory_allocated() < 1 << 30,
-          f"{torch.cuda.memory_allocated()} B still allocated before a path")
+    base = torch.cuda.memory_allocated()
+    check(held or base < 1 << 30,
+          f"{base} B still allocated before a path")
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1107,7 +1167,8 @@ def _run_path(torch, K, train, cfg, steps: int, kernel_rng: bool,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launch_counts)
-    return res, counts, wall, torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - (base if held else 0)
+    return res, counts, wall, peak
 
 
 def _finite_flat(torch, flat) -> bool:
@@ -1720,6 +1781,397 @@ def phase_bits_path(torch, K, train, prng, cfg):
     emit({"phase": "bits_path_kernels", "shape": [m, width],
           "dtype": "bfloat16", "B1": b1})
     return {"obfuscate_update": (counts, b1)}
+
+
+FIG2_ITERS = 600
+FIG2_UNROLL = 100
+# the reference's recorded final_err_scanned of the Fig. 2 workload
+# (BENCH_pdsgd.json), drawn from jax's earlier threefry stream
+NORTH_STAR = 0.07891825798133546
+SCANNED_UNROLL = 4
+SCANNED_STEPS = 12  # a warm-up chunk, then two replayed chunks
+BASELINE_STEPS = 3
+
+
+def _fig2_workload(torch, prng, dev, partitionable: bool):
+    """`benchmarks/run.py::bench_step_path`'s workload on the card: m = 5,
+    d = 2, paper_fig1, paper_experiment(0.05), estimation_problem(5, d=2,
+    s=3, n_per_agent=100, seed=0), sample indices from default_rng(0),
+    keys split(key(0), 600); every draw in the threefry stream
+    ``partitionable`` names."""
+    import numpy as np
+    from repro_torch.core.pdsgd import make_decentralized_step
+    from repro_torch.core.schedules import paper_experiment
+    from repro_torch.core.topology import make_topology
+    from repro_torch.data import estimation_problem
+    m, d = 5, 2
+    prob = estimation_problem(m, d=d, s=3, n_per_agent=100, seed=0)
+    idx = np.random.default_rng(0).integers(0, 100,
+                                            size=(FIG2_ITERS, m, 8))
+    zb = torch.from_numpy(prob["Z"][np.arange(m)[None, :, None], idx])
+    M = torch.from_numpy(prob["M"])
+
+    def loss(p, batch):
+        z, Mi = batch
+        return torch.mean(torch.sum((z - p @ Mi.T) ** 2, -1))
+
+    step = make_decentralized_step(loss, make_topology("paper_fig1", m),
+                                   paper_experiment(0.05),
+                                   partitionable=partitionable)
+    keys = prng.split(prng.key(0), FIG2_ITERS, partitionable)
+
+    def err(state):
+        # as bench_step_path takes it: the f32 agent mean, then the norm
+        x = state.flat[:, :d].cpu().numpy()
+        return float(np.linalg.norm(x.mean(0) - prob["theta_opt"]))
+    return step, zb.to(dev), M.to(dev), keys, err
+
+
+def _fig2_eager(torch, K, step, zb, M, keys, iters):
+    from repro_torch.core.pdsgd import init_state
+    state = init_state(torch.zeros(2), 5, device=zb.device)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    for k in range(iters):
+        state, aux = step(state, (zb[k], M), keys[k])
+    torch.cuda.synchronize()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    return state, aux, us, dict(K.launch_counts)
+
+
+# kernel names of B3 and B2 in a trace (csrc/obfuscate.cu, csrc/gossip.cu)
+TRACE_NAMES = {"obfuscate_update_krng": "obfuscate_krng_kernel",
+               "gossip_update": "gossip_kernel"}
+
+
+def _trace_replay(torch, run, steps: int) -> dict:
+    """Device kernels of one call of ``run`` (a replayed chunk of
+    ``steps`` steps) from a torch.profiler trace: kernels a step, device
+    busy µs a step, the chunk's window, B3's and B2's kernels counted
+    (their launches inside the replay, which no wrapper counts) and the
+    top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith(("Memcpy", "Memset"))]
+    if not kernels:
+        return {"kernel_events": 0}
+    lo = min(e.time_range.start for e in kernels)
+    hi = max(e.time_range.end for e in kernels)
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        t = by_name.setdefault(e.name, [0, 0.0])
+        t[0] += 1
+        t[1] += e.time_range.end - e.time_range.start
+    busy = sum(t for _, t in by_name.values())
+    traced = {n: sum(c for k, (c, _) in by_name.items() if sub in k)
+              for n, sub in TRACE_NAMES.items()}
+    top = [{"kernel": k[:100], "per_step": c / steps, "us_per_step": t / steps}
+           for k, (c, t) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][1])[:10]]
+    return {"kernel_events": len(kernels),
+            "kernels_per_step": len(kernels) / steps,
+            "device_busy_us_per_step": busy / steps,
+            "window_us_per_step": (hi - lo) / steps,
+            "idle_share": 1.0 - busy / (hi - lo) if hi > lo else None,
+            "b_kernels_traced": traced, "top": top}
+
+
+def phase_fig2_path(torch, K, prng):
+    """The North star's workload (paper Fig. 2) on the card: 600 PDSGD steps
+    (B3 + B2 each) through the eager loop, then through the scanned step
+    (`make_scanned_steps`, a CUDA graph of 100 steps: its first chunk the
+    warm-up, five replays), every draw in jax's earlier threefry stream,
+    the one the target was drawn from (``partitionable=False``); then one
+    more replay under torch.profiler, whose trace counts the kernels a
+    replayed step runs.  Gates: the graph's state equal to the eager
+    loop's bit for bit, final_err within a relative 1e-3 of
+    0.07891825798133546, 600 launches of B3 and of B2 counted on the
+    eager loop, 100 counted on the graph's warm-up chunk, and the traced
+    replay's B3 and B2 kernels equal to what its capture counted (100)."""
+    from repro_torch.core.pdsgd import init_state, make_scanned_steps
+    dev = torch.device("cuda")
+    step, zb, M, keys, err = _fig2_workload(torch, prng, dev, False)
+    _fig2_eager(torch, K, step, zb, M, keys, 5)  # warm-up
+    eager, aux_e, us_eager, c_eager = _fig2_eager(
+        torch, K, step, zb, M, keys, FIG2_ITERS)
+    scanned = make_scanned_steps(step, FIG2_UNROLL)
+    state = init_state(torch.zeros(2), 5, device=dev)
+    Mk = M.expand(FIG2_UNROLL, *M.shape)
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    chunk_us = []
+    losses = []
+    for c in range(FIG2_ITERS // FIG2_UNROLL):
+        sl = slice(c * FIG2_UNROLL, (c + 1) * FIG2_UNROLL)
+        t0 = time.perf_counter()
+        state, aux = scanned(state, (zb[sl], Mk), keys[sl])
+        losses.append(aux["loss"])
+        torch.cuda.synchronize()
+        chunk_us.append((time.perf_counter() - t0) / FIG2_UNROLL * 1e6)
+    c_graph = dict(K.launch_counts)
+    replayed = scanned.replayed_launches()
+    e_eager, e_graph = err(eager), err(state)
+    check(same_bits(torch, state.flat, eager.flat),
+          "fig2_path: graph state differs from the eager loop's")
+    # one more replay (steps 600-699 on the last chunk's batches), traced
+    last = slice(FIG2_ITERS - FIG2_UNROLL, FIG2_ITERS)
+    trace = _trace_replay(torch, lambda: scanned(state, (zb[last], Mk),
+                                                 keys[last]), FIG2_UNROLL)
+    step_p, zb_p, M_p, keys_p, _ = _fig2_workload(torch, prng, dev, True)
+    part, _, _, _ = _fig2_eager(torch, K, step_p, zb_p, M_p, keys_p,
+                                FIG2_ITERS)
+    gap = abs(e_graph - NORTH_STAR) / NORTH_STAR
+    losses = torch.cat(losses)
+    check(bool(torch.isfinite(losses).all()), "fig2_path losses")
+    check(gap <= 1e-3, f"fig2_path final_err {e_graph}: {gap} from "
+                       f"{NORTH_STAR}")
+    replays = FIG2_ITERS // FIG2_UNROLL - 1
+    for name, c, n in (("eager", c_eager, FIG2_ITERS),
+                       ("graph warm-up", c_graph, FIG2_UNROLL),
+                       ("graph replays", replayed, replays * FIG2_UNROLL)):
+        check(all(c.get(b, 0) == n for b in TRACE_NAMES),
+              f"fig2_path {name} launches {c}")
+    check(trace.get("b_kernels_traced") == {b: FIG2_UNROLL
+                                             for b in TRACE_NAMES},
+          f"fig2_path traced replay {trace.get('b_kernels_traced')}")
+    emit({"phase": "fig2_path", "workload": "fig2_estimation d=2 m=5 "
+          "iters=600, paper_fig1, paper_experiment(0.05)",
+          "threefry": "partitionable=False (jax_threefry_partitionable="
+                      "False)",
+          "us_per_step_eager": us_eager,
+          "us_per_step_graph": sum(chunk_us) / len(chunk_us),
+          "us_per_step_graph_replays": sum(chunk_us[1:]) / len(chunk_us[1:]),
+          "us_per_step_graph_first_chunk": chunk_us[0],
+          "unroll_k": FIG2_UNROLL, "final_err_eager": e_eager,
+          "final_err_graph": e_graph, "north_star": NORTH_STAR,
+          "rel_gap_to_north_star": gap,
+          "final_err_eager_partitionable": err(part),
+          "graph_equals_eager_bitwise": True,
+          "launches_eager": c_eager,
+          "launches_graph_warmup_counted": c_graph,
+          "launches_graph_replays_from_capture": replayed,
+          "replays": replays, "traced_replay": trace})
+
+
+def _ms_per_step(hist, first: int) -> float:
+    """Host ms a step between the records of steps ``first`` and the last
+    (each record's time is taken after its step's, or chunk's, sync)."""
+    recs = {r["step"]: r["elapsed_s"] for r in hist if "step" in r}
+    last = max(recs)
+    return (recs[last] - recs[first]) / (last - first) * 1e3
+
+
+def phase_main_path_scanned(torch, K, train, cfg):
+    """The main path's configuration through `--unroll-k 4`: a warm-up chunk
+    (the graph's code path run eagerly, then captured), then two chunks
+    replayed (8 steps); beside it the same 12 steps through the eager
+    loop.  Gates: finite losses; the scanned run's state equal to the
+    eager run's bit for bit after the warm-up and both replays; B3 and B2
+    counted once a step of the warm-up chunk, and once a step of each
+    replay from the capture (no wrapper sees a replay; `--profile`'s
+    trace counts their kernels)."""
+    steps, k = SCANNED_STEPS, SCANNED_UNROLL
+    res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
+                                        ("--unroll-k", str(k)))
+    hist = res["history"]
+    losses = [r["loss"] for r in hist]
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(len(hist) == steps and res["state"].step == steps, "steps run")
+    replayed = res["replayed_launches"]
+    for what, c, n in (("counted", counts, k),
+                       ("replayed", replayed, steps - k)):
+        check(all(c.get(b, 0) == n for b in TRACE_NAMES),
+              f"main_path_scanned {what} launches {c}")
+    ms_scanned = _ms_per_step(hist, k - 1)
+    scanned_state = res["state"]
+    del res
+    eager, e_counts, e_wall, e_peak = _run_path(torch, K, train, cfg, steps,
+                                                True, held=True)
+    same = same_bits(torch, scanned_state.flat, eager["state"].flat)
+    check(same, "main_path_scanned: the graph's state differs from the "
+                "eager loop's")
+    ms_eager = _ms_per_step(eager["history"], k - 1)
+    emit({"phase": "main_path_scanned", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "dtype": cfg.dtype, "agents": 4,
+          "topology": "ring", "per_agent_batch": 2, "seq_len": 512,
+          "unroll_k": k, "steps": steps, "losses": losses,
+          "ms_per_step_replayed": ms_scanned,
+          "ms_per_step_eager_same_steps": ms_eager,
+          "first_chunk_s": hist[k - 1]["elapsed_s"], "run_wall_s": wall,
+          "max_memory_allocated": peak,
+          "max_memory_allocated_eager": e_peak,
+          "state_equals_eager_bitwise": same,
+          "launches_warmup_counted": counts,
+          "launches_replays_from_capture": replayed})
+
+
+# dsgd last but one: its state is held for the comparison with the graph
+BASELINE_RUNS = (
+    ("dsgt", ("--algorithm", "dsgt"), BASELINE_STEPS),
+    ("dp_dsgd", ("--algorithm", "dp_dsgd", "--sigma-dp", "0.01"),
+     BASELINE_STEPS),
+    ("pdsgd_clip", ("--grad-clip-kappa", "1.0"), BASELINE_STEPS),
+    ("dsgd", ("--algorithm", "dsgd"), 2 * BASELINE_STEPS),
+    ("dsgd_unroll3", ("--algorithm", "dsgd", "--unroll-k", "3"),
+     2 * BASELINE_STEPS),
+)
+
+
+def phase_baselines_path(torch, K, train, cfg):
+    """The paper's baselines on the main path's configuration, eager: DSGT
+    (its tracker pair two more (m, width) buffers), DP-DSGD (sigma 0.01;
+    its normal draws are int64 threefry in torch ops), PDSGD with
+    --grad-clip-kappa 1.0, DSGD (6 steps, the reference for the graph
+    below), then DSGD through --unroll-k 3 (a warm-up chunk and a replay;
+    its peak taken above the held DSGD state) against the eager DSGD run
+    bit for bit.  Gates: finite losses; no B-kernel for the baselines
+    (counted or replayed), B3 + B2 once a step with the clip; DSGT's peak
+    at least 0.9 x two buffers above DSGD's.  Then the plain updates alone
+    at this shape (`_baseline_updates`)."""
+    out, states = {}, {}
+    b_kernels = tuple(SOURCES)
+    for name, extra, steps in BASELINE_RUNS:
+        res, counts, wall, peak = _run_path(torch, K, train, cfg, steps,
+                                            True, extra,
+                                            held=name == "dsgd_unroll3")
+        hist = res["history"]
+        losses = [r["loss"] for r in hist]
+        check(all(math.isfinite(l) for l in losses),
+              f"baselines_path {name} losses {losses}")
+        check(res["state"].step == steps, f"baselines_path {name} steps")
+        if name == "pdsgd_clip":
+            check(counts.get("obfuscate_update_krng", 0) == steps
+                  and counts.get("gossip_update", 0) == steps,
+                  f"baselines_path {name} launches {counts}")
+        else:
+            replayed = res["replayed_launches"]
+            check(not any(counts.get(b, 0) or replayed.get(b, 0)
+                          for b in b_kernels),
+                  f"baselines_path {name} launched {counts}, {replayed}")
+        first = 2 if name == "dsgd_unroll3" else 0
+        rec = {"steps": steps, "losses": losses,
+               "ms_per_step": _ms_per_step(hist, first),
+               "run_wall_s": wall, "max_memory_allocated": peak,
+               "launches": counts}
+        if name in ("dsgd", "dsgd_unroll3"):
+            states[name] = res["state"]
+        else:
+            del res
+        out[name] = rec
+    same = same_bits(torch, states["dsgd"].flat, states["dsgd_unroll3"].flat)
+    check(same, "baselines_path: dsgd --unroll-k 3 differs from eager dsgd")
+    X = states["dsgd"].flat
+    two = 2 * X.numel() * X.element_size()
+    extra_b = out["dsgt"]["max_memory_allocated"] - \
+        out["dsgd"]["max_memory_allocated"]
+    check(extra_b >= 0.9 * two,
+          f"dsgt's peak carries {extra_b} B more than dsgd's, tracker "
+          f"pair {two} B")
+    shape, dtype = tuple(X.shape), X.dtype
+    del states, X
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "baselines_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "dtype": cfg.dtype, "agents": 4,
+          "topology": "ring", "per_agent_batch": 2, "seq_len": 512,
+          "runs": out, "dsgt_extra_peak_bytes": extra_b,
+          "tracker_pair_bytes": two,
+          "dsgd_unroll3_equals_eager_bitwise": same,
+          "updates": _baseline_updates(torch, shape, dtype)})
+
+
+def _baseline_updates(torch, shape, dtype) -> dict:
+    """Device ms of the plain baseline updates on (m, width) buffers of the
+    main path (CUDA events, 3 calls after one warm-up, each its own
+    record): `dsgd_update` in place (bound: read X and G, write X) and the
+    step's DSGT `_dsgt_step_` (read X, Y, g^{k-1}, G, write X, Y,
+    g^{k-1}), beside their bytes bounds."""
+    from repro_torch.core.pdsgd import _dsgt_step_, dsgd_update
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    bufs = [torch.empty(shape, dtype=dtype, device=dev) for _ in range(4)]
+    for b in bufs:
+        b.normal_(generator=g)
+    X, Y, Gp, G = bufs
+    W = torch.full((shape[0], shape[0]), 1.0 / shape[0], device=dev)
+    lam = torch.full((), 0.01, device=dev)
+    one = X.numel() * X.element_size()
+    out = {}
+    for name, fn, passes in (
+            ("dsgd_update", lambda: dsgd_update(X, G, W=W, lam=lam, out=X),
+             3),
+            ("dsgt_step", lambda: _dsgt_step_(X, Y, Gp, G, W=W, lam=lam),
+             7)):
+        fn()
+        ms = []
+        for _ in range(3):
+            a, b = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        check(all(math.isfinite(v) for v in ms), f"{name} timing")
+        out[name] = {"ms": ms, "bound_ms": bound_ms(passes * one)[0],
+                     "bound_by": "bytes"}
+    check(_finite_flat(torch, X), "baseline updates left non-finite X")
+    del bufs, X, Y, Gp, G
+    return out
+
+
+def phase_profile_scanned(torch, train, cfg):
+    """Device busy and idle within the replayed chunks of the scanned main
+    path (--unroll-k 4, 12 steps: kernels that start after the second
+    chunk's range opened), from a torch.profiler trace; written to
+    chiprun_out/profile_main_path_scanned.json."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _path_args(train, SCANNED_STEPS,
+                      ("--unroll-k", str(SCANNED_UNROLL)))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train.run_training(args, cfg=cfg)
+    torch.cuda.synchronize()
+    events = prof.events()
+    lo = min(e.time_range.start for e in events
+             if e.name == f"train_chunk_{SCANNED_UNROLL}")
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.time_range.start >= lo
+               and not e.name.startswith("train_chunk_")]
+    hi = max(e.time_range.end for e in kernels) if kernels else lo
+    busy = sum((e.time_range.end - e.time_range.start) / 1e3
+               for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3
+    n = SCANNED_STEPS - SCANNED_UNROLL
+    # B3's and B2's kernels in the replays: launches no wrapper counts
+    traced = {b: sum(1 for e in kernels if sub in e.name)
+              for b, sub in TRACE_NAMES.items()}
+    check(traced == {b: n for b in TRACE_NAMES},
+          f"main_path_scanned traced replays {traced}")
+    window = (hi - lo) / 1e3
+    top = [{"kernel": k[:120], "ms_per_step": v / n}
+           for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "profile_main_path_scanned.json").write_text(json.dumps(
+        {"steps": n, "window_ms": window, "busy_ms": busy,
+         "kernel_events": len(kernels), "kernels": top}, indent=1))
+    emit({"phase": "profile", "path": "main_path_scanned",
+          "steps_profiled": n, "kernel_events": len(kernels),
+          "b_kernels_traced": traced,
+          "step_ms": window / n, "device_busy_ms_per_step": busy / n,
+          "idle_share": (1.0 - busy / window) if window > 0 else None,
+          "top": top[:12]})
 
 
 def phase_profile(torch, train, cfg, path: str = "main_path", extra=(),
@@ -2406,7 +2858,8 @@ def main(argv=None) -> int:
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile main-, dropout-, fault-, ring- and "
-                         "xLSTM train-path steps and both serve paths with "
+                         "xLSTM train-path steps, the scanned main path's "
+                         "replayed chunks and both serve paths with "
                          "torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
@@ -2419,6 +2872,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; the port's "
               "kernels run only on a CUDA card", file=sys.stderr)
         return 3
+    RECORDS.parent.mkdir(exist_ok=True)
+    RECORDS.write_text("")
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core import prng
@@ -2441,6 +2896,19 @@ def main(argv=None) -> int:
         if opts.profile:
             phase_profile(torch, train, main_cfg)
             torch.cuda.empty_cache()
+        phase_fig2_path(torch, K, prng)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_main_path_scanned(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if opts.profile:
+            phase_profile_scanned(torch, train, main_cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase_baselines_path(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
         rows.update(phase_dropout_path(torch, K, train, prng, main_cfg))
         torch.cuda.empty_cache()
         rows.update(phase_fault_path(torch, K, train, prng, main_cfg))
@@ -2497,6 +2965,8 @@ def main(argv=None) -> int:
             phase_profile_serve(torch, serve, requests=2, gen=16,
                                 path_args=XLSTM_SERVE_ARGS,
                                 path="xlstm_serve_path")
+        # each kernel's launches from its own path's run, counted there
+        # with the counts set to 0 just before it
         kernels = []
         for name, (counts, r) in rows.items():
             src, replaces = SOURCES[name]

@@ -2,10 +2,16 @@
 
     x^{k+1} = W x^k - B^k (Lambda^k ∘ g^k),
 
-(counterpart of ``repro.core.pdsgd``; the ``pdsgd`` algorithm over a static
-or time-varying mixing process, with agent faults, sentinels and
-trimmed-mean aggregation, in the concat or the ring kernel layout — the
-baselines, observers and clipping come later).
+and the baselines it is evaluated against (counterpart of
+``repro.core.pdsgd``):
+
+  * ``pdsgd``   : Eq. (4), over a static or time-varying mixing process,
+                  with agent faults, sentinels and trimmed-mean
+                  aggregation, in the concat or the ring kernel layout;
+  * ``dsgd``    : x^{k+1} = W x^k - lam^k g^k                  (Lian et al.)
+  * ``dsgt``    : gradient tracking, x and the tracker y both gossiped
+                  (2x PDSGD's message volume);
+  * ``dp_dsgd`` : dsgd with N(0, sigma_DP^2) noise added to g  (Table I).
 
 State layout.  All m agents' parameters live in ONE flat (m, width) buffer,
 each row the agent's leaves concatenated in tree order and zero-padded to
@@ -13,7 +19,7 @@ a multiple of 512 (`kernels.FlatLayout`, the reference's concat layout).
 The model sees views into that buffer, so the fused update needs no
 flatten/concat.  The step updates the buffer in place where the reference
 donates it: u is written over the gradient buffer and x' over the
-parameters.
+parameters.  DSGT's tracker pair is two more such buffers.
 
 Randomness.  Lambda^k and B^k come from the reference's key derivation,
 reproduced bit for bit by `prng`: B^k from ``agent_key(fold_in(key, 2),
@@ -21,6 +27,17 @@ step, 0)``; Lambda^k from one key per (agent, leaf),
 ``split(agent_key(fold_in(key, 1), step, a), n_leaves)`` — the keys
 ``repro.core.pdsgd._per_agent_bits`` draws its bits from.  On the main
 path the obfuscate kernel draws the bits itself from that key table.
+DP-DSGD's noise is ``normal(split(fold_in(key, 3), n_leaves)[l])`` over
+each leaf's (m, ...) view.  ``partitionable=False`` on the step draws all
+of them from jax's earlier threefry stream (`prng`).
+
+The scanned step.  `make_scanned_steps` runs k steps per call: on the CPU
+a loop over the eager step; on the card one CUDA graph of k steps, whose
+keys, schedule and draws come from a device step counter
+(`make_decentralized_step`'s ``step.inner``).  Threefry in int64 torch
+ops is exact on any device, and B^k and the noise are drawn on the
+buffer's device on either path, so the graph's steps are the eager
+steps bit for bit.
 """
 from __future__ import annotations
 
@@ -33,23 +50,30 @@ from ..dist import collectives as C
 from ..faults.inject import (guarded_gossip_mix, neighbor_avg_warmstart,
                              trimmed_mean_mix)
 from ..faults.process import FaultProcess, realize_coupling
-from ..kernels.build import to_device
+from ..kernels.build import launch_counts, to_device
 from ..kernels.obfuscate import obfuscate_update, obfuscate_update_krng
 from ..kernels.ops import FlatLayout, fused_pdsgd_flat, ring_pdsgd_flat
 from . import prng
 from .mixing import MixingProcess, as_process
-from .privacy import (agent_key, obfuscated_gradient, sample_B, tree_leaves,
-                      tree_unflatten)
+from .privacy import (agent_key, clip_gradients, obfuscated_gradient,
+                      sample_B, tree_leaves, tree_unflatten)
 from .schedules import Schedule
 from .topology import Topology
 
-__all__ = ["DecentralizedState", "init_state", "consensus_error",
-           "lambda_key_table", "per_agent_bits", "gossip_mix",
-           "pdsgd_update", "obfuscate_flat", "make_decentralized_step"]
+__all__ = ["ALGORITHMS", "DecentralizedState", "init_state",
+           "consensus_error", "lambda_key_table", "per_agent_bits",
+           "gossip_mix", "pdsgd_update", "dsgd_update", "dsgt_update",
+           "dp_dsgd_update", "dp_noise_", "obfuscate_flat",
+           "make_decentralized_step", "make_scanned_steps"]
 
+ALGORITHMS = ("pdsgd", "dsgd", "dsgt", "dp_dsgd")
 _LAYOUTS = ("concat", "ring")
 _RING_CORRUPT = ("kernel_layout='ring' does not carry corrupt-link "
                  "injection; the guarded fault path stays dense")
+_RING_STREAM = ("kernel_layout='ring' draws jax's partitionable threefry "
+                "stream only")
+# columns a chunk of the plain (m, width) passes
+_CHUNK = 1 << 24
 
 
 def _check_layout(kernel_layout: str) -> None:
@@ -61,11 +85,16 @@ def _check_layout(kernel_layout: str) -> None:
 
 @dataclasses.dataclass
 class DecentralizedState:
-    """Per-agent parameters as one flat (m, width) buffer, plus the step."""
+    """Per-agent parameters as one flat (m, width) buffer, plus the step.
+
+    ``tracker`` is the algorithm's extra state: None, or for dsgt the pair
+    (y^{k-1}, g^{k-1}), two (m, width) buffers in the parameters' dtype
+    (`init_state(..., algorithm="dsgt")`)."""
 
     flat: torch.Tensor
     layout: FlatLayout
     step: int = 0
+    tracker: tuple[torch.Tensor, torch.Tensor] | None = None
 
     @property
     def num_agents(self) -> int:
@@ -77,8 +106,12 @@ class DecentralizedState:
         return self.layout.tree(self.flat)
 
 
-def init_state(params, m: int, device=None) -> DecentralizedState:
-    """Replicate a single-agent parameter tree to m agents."""
+def init_state(params, m: int, device=None,
+               algorithm: str = "pdsgd") -> DecentralizedState:
+    """Replicate a single-agent parameter tree to m agents; ``algorithm``
+    sizes the extra state (dsgt: a zero tracker pair)."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
     layout = FlatLayout.of(params)
     leaves = tree_leaves(params)
     device = torch.device(device) if device is not None else leaves[0].device
@@ -86,11 +119,15 @@ def init_state(params, m: int, device=None) -> DecentralizedState:
                        device=device)
     for view, leaf in zip(layout.leaf_views(flat), leaves):
         view.copy_(leaf.to(device))
-    return DecentralizedState(flat=flat, layout=layout, step=0)
+    tracker = None
+    if algorithm == "dsgt":
+        tracker = (torch.zeros_like(flat), torch.zeros_like(flat))
+    return DecentralizedState(flat=flat, layout=layout, step=0,
+                              tracker=tracker)
 
 
 @torch.no_grad()
-def consensus_error(flat: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+def consensus_error(flat: torch.Tensor, chunk: int = _CHUNK) -> torch.Tensor:
     """sum_i ||x_i - x_bar||^2 over a flat (m, width) buffer: m times the
     per-column population variance, summed, in f32, a column chunk at a
     time (padding columns are equal across agents and add nothing)."""
@@ -102,35 +139,171 @@ def consensus_error(flat: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
     return total
 
 
-def lambda_key_table(key: torch.Tensor, step: int, m: int,
-                     n_leaves: int) -> torch.Tensor:
+def lambda_key_table(key: torch.Tensor, step, m: int, n_leaves: int,
+                     partitionable: bool = True) -> torch.Tensor:
     """(m, n_leaves, 2) keys: row a is ``split(agent_key(fold_in(key, 1),
-    step, a), n_leaves)``."""
+    step, a), n_leaves)``, every agent at once, on key's device (``step``
+    an int or a device counter; ``partitionable``: the threefry stream,
+    `prng`)."""
     lam_key = prng.fold_in(key, 1)
-    return torch.stack([prng.split(agent_key(lam_key, step, a), n_leaves)
-                        for a in range(m)])
+    agents = torch.arange(m, dtype=torch.int64, device=key.device)
+    return prng.split(agent_key(lam_key, step, agents), n_leaves,
+                      partitionable)
 
 
-def per_agent_bits(key: torch.Tensor, step: int, layout: FlatLayout, m: int,
-                   device=None) -> torch.Tensor:
+_OFFSETS: dict = {}
+
+
+def _offsets(layout: FlatLayout, device) -> torch.Tensor:
+    """The layout's leaf offsets as an int64 tensor on ``device``, made
+    once per (layout, device): a CUDA graph reads the same tensor at
+    every replay."""
+    device = torch.device(device)
+    cache_key = (layout.offsets, device)
+    t = _OFFSETS.get(cache_key)
+    if t is None:
+        t = to_device(torch.tensor(layout.offsets, dtype=torch.int64),
+                      device)
+        _OFFSETS[cache_key] = t
+    return t
+
+
+def per_agent_bits(key: torch.Tensor, step, layout: FlatLayout, m: int,
+                   device=None, partitionable: bool = True) -> torch.Tensor:
     """The Lambda^k bits of every agent laid out like the flat buffer, as
     (m, width) uint32: ``repro.core.pdsgd._per_agent_bits``, flattened and
-    padded with zeros."""
-    table = to_device(lambda_key_table(key, step, m, layout.n_leaves),
-                      device or "cpu")
-    return prng.leaf_bits(table, layout.offsets, m, layout.width)
+    padded with zeros, drawn on ``device``."""
+    table = to_device(lambda_key_table(key, step, m, layout.n_leaves,
+                                       partitionable), device or "cpu")
+    return prng.leaf_bits(table, layout.offsets, m, layout.width,
+                          partitionable=partitionable)
 
 
-def gossip_mix(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
-    """y_i = sum_j mat[i, j] x_j over the leading agent axis, in f32, cast
-    to p's dtype."""
-    y = mat.to(p.dtype).float() @ p.reshape(p.shape[0], -1).float()
-    return y.reshape(p.shape).to(p.dtype)
+def _pieces(n: int, chunk: int):
+    """Column ranges ``[s, e)`` covering ``n`` columns, ``chunk`` wide,
+    never a one-column piece (a matrix-vector product sums in another
+    order than the matrix product): the last piece takes one more."""
+    chunk = max(chunk, 2)
+    s = 0
+    while s < n:
+        e = n if n - s <= chunk + 1 else s + chunk
+        yield s, e
+        s = e
+
+
+@torch.no_grad()
+def gossip_mix(mat: torch.Tensor, p: torch.Tensor,
+               chunk: int = _CHUNK) -> torch.Tensor:
+    """y_i = sum_j mat[i, j] x_j over the leading agent axis: mat cast to
+    p's dtype, the products summed in f32 and the sum cast to p's dtype,
+    a column chunk at a time (columns are independent, so the chunks
+    change no value; no f32 copy of the whole buffer is made)."""
+    m = p.shape[0]
+    src = p.reshape(m, -1)
+    matf = mat.to(p.dtype).float()
+    out = torch.empty(src.shape, dtype=p.dtype, device=p.device)
+    for s, e in _pieces(src.shape[1], chunk):
+        out[:, s:e] = (matf @ src[:, s:e].float()).to(p.dtype)
+    return out.reshape(p.shape)
+
+
+def _descend(mixed: torch.Tensor, d: torch.Tensor, lam) -> torch.Tensor:
+    """mixed - lam d in f32, cast to mixed's dtype.  In f32 it is the
+    reference's ``a - lam * d`` operation for operation; the reference's
+    f32 ``lam`` would promote bf16 parameters to f32, the port keeps the
+    buffer's dtype."""
+    return (mixed.float() - lam * d.float()).to(mixed.dtype)
+
+
+@torch.no_grad()
+def dsgd_update(X: torch.Tensor, G: torch.Tensor, *, W: torch.Tensor, lam,
+                out: torch.Tensor | None = None,
+                chunk: int = _CHUNK) -> torch.Tensor:
+    """Conventional decentralized SGD: x' = W x - lam g on flat (m, width)
+    buffers, a column piece at a time (``out`` may be X: each piece is
+    read whole before it is written)."""
+    out = torch.empty_like(X) if out is None else out
+    for s, e in _pieces(X.shape[1], chunk):
+        out[:, s:e] = _descend(gossip_mix(W, X[:, s:e]), G[:, s:e], lam)
+    return out
+
+
+@torch.no_grad()
+def dsgt_update(X: torch.Tensor, Y: torch.Tensor, G: torch.Tensor,
+                G_prev: torch.Tensor, *, W: torch.Tensor, lam,
+                chunk: int = _CHUNK) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradient tracking on flat buffers, as the reference writes it:
+
+        x^{k+1} = W x^k - lam y^k
+        y^{k+1} = W y^k + g^{k+1} - g^k
+
+    (``G`` is g^{k+1}, ``G_prev`` g^k); returns new (x', y').  The training
+    step runs the phase-shifted form in place (`_dsgt_step_`)."""
+    Xn, Yn = torch.empty_like(X), torch.empty_like(Y)
+    for s, e in _pieces(X.shape[1], chunk):
+        Xn[:, s:e] = _descend(gossip_mix(W, X[:, s:e]), Y[:, s:e], lam)
+        Yn[:, s:e] = gossip_mix(W, Y[:, s:e]) + G[:, s:e] - G_prev[:, s:e]
+    return Xn, Yn
+
+
+@torch.no_grad()
+def _dsgt_step_(X: torch.Tensor, Y: torch.Tensor, G_prev: torch.Tensor,
+                G: torch.Tensor, *, W: torch.Tensor, lam,
+                chunk: int = _CHUNK) -> None:
+    """The step's DSGT, in place (the reference's
+    ``make_decentralized_step`` dsgt branch, ``pdsgd.py:600-613``): the
+    tracker holds (y^{k-1}, g^{k-1}), y^k = W y^{k-1} + g^k - g^{k-1} in
+    the parameters' dtype (y^{-1} = g^{-1} = 0, so the first tracker is
+    g^0), x^{k+1} = W x^k - lam y^k with the FRESH y^k; then the tracker
+    becomes (y^k, g^k).  Phase-shifted against `dsgt_update`: do not swap
+    one for the other without re-deriving the phase."""
+    for s, e in _pieces(X.shape[1], chunk):
+        y = gossip_mix(W, Y[:, s:e]) + G[:, s:e] - G_prev[:, s:e]
+        X[:, s:e] = _descend(gossip_mix(W, X[:, s:e]), y, lam)
+        Y[:, s:e] = y
+        G_prev[:, s:e] = G[:, s:e]
+
+
+@torch.no_grad()
+def dp_noise_(G: torch.Tensor, layout: FlatLayout, key: torch.Tensor,
+              sigma_dp: float, chunk: int = 1 << 22,
+              partitionable: bool = True) -> torch.Tensor:
+    """G += sigma_dp N(0, 1), in place, in G's dtype: leaf l's noise is
+    ``normal(split(key, n_leaves)[l], (m, *shape_l))`` laid over its (m,
+    n_l) columns (counter a n_l + c at row a, column c), drawn ``chunk``
+    columns at a time with int64 threefry on G's device."""
+    m = G.shape[0]
+    keys = prng.split(to_device(key, G.device), layout.n_leaves,
+                      partitionable)
+    rows = torch.arange(m, dtype=torch.int64, device=G.device)[:, None]
+    for l, (o, o1) in enumerate(zip(layout.offsets[:-1],
+                                    layout.offsets[1:])):
+        n = o1 - o
+        for c in range(0, n, chunk):
+            c1 = min(n, c + chunk)
+            idx = rows * n + torch.arange(c, c1, dtype=torch.int64,
+                                          device=G.device)[None, :]
+            z = prng.normal_from_bits(
+                prng.bits_at(keys[l], idx, m * n, G.dtype == torch.bfloat16,
+                             partitionable), G.dtype)
+            G[:, o + c:o + c1] += z * sigma_dp
+    return G
+
+
+@torch.no_grad()
+def dp_dsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
+                   key: torch.Tensor, W: torch.Tensor, lam,
+                   sigma_dp: float, out: torch.Tensor | None = None,
+                   partitionable: bool = True) -> torch.Tensor:
+    """Differential-privacy baseline: Gaussian noise added to the gradient
+    (`dp_noise_`, written over G) before the conventional update."""
+    dp_noise_(G, layout, key, sigma_dp, partitionable=partitionable)
+    return dsgd_update(X, G, W=W, lam=lam, out=out)
 
 
 def _obfuscated_rows(G: torch.Tensor, layout: FlatLayout,
-                     key: torch.Tensor, step: int,
-                     lam_bar) -> torch.Tensor:
+                     key: torch.Tensor, step: int, lam_bar,
+                     partitionable: bool = True) -> torch.Tensor:
     """u = Lambda^k ∘ g per agent by the reference's unfused formula
     (`privacy.obfuscated_gradient` over each agent's leaves), as a new
     flat buffer."""
@@ -138,26 +311,34 @@ def _obfuscated_rows(G: torch.Tensor, layout: FlatLayout,
     u_rows = torch.zeros_like(G)
     for a in range(G.shape[0]):
         u = obfuscated_gradient(agent_key(lam_key, step, a),
-                                layout.tree(G[a]), lam_bar)
+                                layout.tree(G[a]), lam_bar, partitionable)
         for view, leaf in zip(layout.leaf_views(u_rows[a]), tree_leaves(u)):
             view.copy_(leaf)
     return u_rows
 
 
-def _lambda_source(key: torch.Tensor, step: int, layout: FlatLayout,
-                   X: torch.Tensor, kernel_rng: bool) -> dict:
+def _lambda_source(key: torch.Tensor, step, layout: FlatLayout,
+                   X: torch.Tensor, kernel_rng: bool,
+                   partitionable: bool = True) -> dict:
     """What the obfuscate kernel draws Lambda^k from: the key table and the
-    leaf offsets (``kernel_rng``), or the `per_agent_bits` buffer."""
+    leaf offsets (``kernel_rng``), or the `per_agent_bits` buffer.  Derived
+    where the key lies: a host key (the eager loop) on the host, a device
+    key (the graph) on the card, as uint32 with device offsets."""
     m = X.shape[0]
     if kernel_rng:
-        return {"keys": lambda_key_table(key, step, m, layout.n_leaves),
+        keys = lambda_key_table(key, step, m, layout.n_leaves, partitionable)
+        if keys.device.type == "cuda":
+            return {"keys": keys.to(torch.uint32),
+                    "offsets": _offsets(layout, keys.device)}
+        return {"keys": keys,
                 "offsets": torch.tensor(layout.offsets, dtype=torch.int64)}
-    return {"bits": per_agent_bits(key, step, layout, m, device=X.device)}
+    return {"bits": per_agent_bits(key, step, layout, m, device=X.device,
+                                   partitionable=partitionable)}
 
 
 @torch.no_grad()
 def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
-                 key: torch.Tensor, step: int, W: torch.Tensor,
+                 key: torch.Tensor, step, W: torch.Tensor,
                  support: torch.Tensor, lam_bar, kernel_rng: bool = True,
                  in_place: bool = False, eager: bool = False,
                  mask: torch.Tensor | None = None,
@@ -165,7 +346,8 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                  corrupt_mode: str = "nan", corrupt_scale: float = 1e4,
                  guard_clip: float | None = 1e3,
                  kernel_layout: str = "concat",
-                 torus_shape: tuple[int, int] | None = None) -> torch.Tensor:
+                 torus_shape: tuple[int, int] | None = None,
+                 partitionable: bool = True) -> torch.Tensor:
     """One iteration of Eq. (4) on flat (m, width) buffers; returns x'.
 
     ``W``/``support`` are this step's realized coupling and its support
@@ -174,7 +356,8 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     (an (m,) 0/1 vector of corrupt senders) selects the fault-tolerant
     gossip: the corrupt agents' transmits are poisoned per
     ``corrupt_mode``/``corrupt_scale`` and every link is finite-guarded at
-    ``guard_clip`` (None: no guard) at the receiver.
+    ``guard_clip`` (None: no guard) at the receiver.  ``step`` is the
+    absolute step, an int or a device counter.
 
     The training step takes the fused branch: `kernels.fused_pdsgd_flat`,
     the obfuscate kernel drawing Lambda from the key table in-kernel
@@ -202,12 +385,18 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     is given.  It realizes the same Lambda^k and B^k; it is the
     port-internal oracle the tests hold the fused branch against, and
     writes a new buffer.
+
+    ``partitionable=False`` draws Lambda^k and B^k from jax's earlier
+    threefry stream (`prng`; the concat layout only).
     """
     _check_layout(kernel_layout)
-    B = sample_B(agent_key(prng.fold_in(key, 2), step, 0), support)
+    B = sample_B(agent_key(prng.fold_in(key, 2), step, 0), support,
+                 partitionable)
     if kernel_layout == "ring" and not eager:
         if corrupt is not None:
             raise ValueError(_RING_CORRUPT)
+        if not partitionable:
+            raise ValueError(_RING_STREAM)
         m = X.shape[0]
         n_data, n_pod = torus_shape if torus_shape is not None else (m, 1)
         if n_data * n_pod != m:
@@ -221,7 +410,8 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
             **_lambda_source(key, step, layout, X, kernel_rng),
             in_place=in_place)
     if eager:
-        u_rows = _obfuscated_rows(G, layout, key, step, lam_bar)
+        u_rows = _obfuscated_rows(G, layout, key, step, lam_bar,
+                                  partitionable)
         out = torch.zeros_like(X)
         for o, x, u in zip(layout.leaf_views(out), layout.leaf_views(X),
                            layout.leaf_views(u_rows)):
@@ -235,28 +425,29 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
         return out
     out, _ = fused_pdsgd_flat(
         W, B, X, G, lam_bar, **_lambda_source(key, step, layout, X,
-                                              kernel_rng),
+                                              kernel_rng, partitionable),
         mask=mask, corrupt=corrupt, corrupt_mode=corrupt_mode,
         corrupt_scale=corrupt_scale, guard_clip=guard_clip,
-        in_place=in_place)
+        in_place=in_place, partitionable=partitionable)
     return out
 
 
 @torch.no_grad()
 def obfuscate_flat(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                    key: torch.Tensor, step: int, lam_bar,
-                   kernel_rng: bool = True,
-                   eager: bool = False) -> torch.Tensor:
+                   kernel_rng: bool = True, eager: bool = False,
+                   partitionable: bool = True) -> torch.Tensor:
     """u = Lambda^k ∘ g alone (the descent of trimmed-mean aggregation):
     through the obfuscate kernel, written over G, or by the unfused
     formula (``eager``) into a new buffer.  The same Lambda^k as
     `pdsgd_update`."""
     if eager:
-        return _obfuscated_rows(G, layout, key, step, lam_bar)
-    src = _lambda_source(key, step, layout, X, kernel_rng)
+        return _obfuscated_rows(G, layout, key, step, lam_bar, partitionable)
+    src = _lambda_source(key, step, layout, X, kernel_rng, partitionable)
     if kernel_rng:
         return obfuscate_update_krng(X, G, src["keys"], src["offsets"],
-                                     lam_bar, 0.0, -1.0, out=G)
+                                     lam_bar, 0.0, -1.0, out=G,
+                                     partitionable=partitionable)
     return obfuscate_update(X, G, src["bits"], lam_bar, 0.0, -1.0, out=G)
 
 
@@ -292,7 +483,7 @@ def _agent_grads(loss_fn, state: DecentralizedState, batch,
     return torch.stack(losses)
 
 
-def _finite(flat: torch.Tensor, chunk: int = 1 << 24) -> torch.Tensor:
+def _finite(flat: torch.Tensor, chunk: int = _CHUNK) -> torch.Tensor:
     """Whether every entry of an (m, n) buffer is finite, as a device bool,
     a column chunk at a time (no (m, n) mask is allocated)."""
     ok = torch.ones((), dtype=torch.bool, device=flat.device)
@@ -325,43 +516,78 @@ def _trimmed_mean(flat: torch.Tensor, U: torch.Tensor, support, corrupt, *,
                                     scale=scale))
 
 
+def _graph_refusal(process: MixingProcess, faults, nan_policy: str,
+                   aggregation: str, kernel_layout: str,
+                   eager: bool) -> str | None:
+    """What keeps a step out of the CUDA graph of `make_scanned_steps` (each
+    realizes or decides on the host), or None."""
+    if not process.is_static:
+        return ("time-varying mixing (its W_k is realized on the host "
+                "each step)")
+    if faults is not None:
+        return "agent faults (realized on the host each step)"
+    if nan_policy != "off":
+        return f"nan_policy={nan_policy!r} (its sentinels sync the host)"
+    if kernel_layout == "ring":
+        return "kernel_layout='ring' (its tables are built on the host)"
+    if aggregation != "gossip":
+        return f"aggregation={aggregation!r}"
+    if eager:
+        return "the unfused oracle (eager=True)"
+    return None
+
+
 def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                             topology: Topology | MixingProcess,
                             schedule: Schedule, kernel_rng: bool = True, *,
+                            algorithm: str = "pdsgd", sigma_dp: float = 0.0,
+                            grad_clip: float | None = None,
+                            track_mean: bool = False,
                             faults: FaultProcess | None = None,
                             nan_policy: str = "off",
                             aggregation: str = "gossip", trim: int = 1,
                             eager: bool = False,
                             kernel_layout: str = "concat",
-                            torus_shape: tuple[int, int] | None = None):
-    """``step(state, batch, key) -> (state, aux)`` for PDSGD.
+                            torus_shape: tuple[int, int] | None = None,
+                            partitionable: bool = True):
+    """``step(state, batch, key) -> (state, aux)`` for one of `ALGORITHMS`.
 
     ``loss_fn(params_i, batch_i)`` is ONE agent's scalar loss; batch leaves
     carry a leading (m, ...) agent axis.  ``key`` is the step's key (the
     reference's ``fold_in(run_key, k)``).  lam_bar is evaluated on the
-    buffer's device from the step counter.  The returned state shares the
-    input state's buffer, which the step has updated in place.
-    ``kernel_rng`` picks how the obfuscate kernel gets Lambda's bits (see
-    `pdsgd_update`); ``eager=True`` runs the unfused formula instead of
-    the kernels (the tests' oracle).  ``kernel_layout``/``torus_shape``
-    pick the update's layout (`pdsgd_update`): ``"ring"`` runs it as one
-    ring kernel per step.
+    buffer's device from the step counter (agent 0, as the reference).
+    The returned state shares the input state's buffers, which the step
+    has updated in place.  ``kernel_rng`` picks how the obfuscate kernel
+    gets Lambda's bits (see `pdsgd_update`); ``eager=True`` runs the
+    unfused formula instead of the kernels (the tests' oracle).
+    ``kernel_layout``/``torus_shape`` pick the update's layout
+    (`pdsgd_update`): ``"ring"`` runs it as one ring kernel per step.
+
+    ``algorithm``: ``pdsgd`` (Eq. 4, the kernels), or a baseline — ``dsgd``
+    (`dsgd_update`), ``dsgt`` (in place on ``state.tracker``, the
+    reference's phase-shifted convention, `_dsgt_step_`) or ``dp_dsgd``
+    (`dp_dsgd_update` with ``sigma_dp``, its noise from ``fold_in(key,
+    3)``).  The baselines' W x and W y are plain torch products, as the
+    reference computes them outside any Pallas kernel.  ``grad_clip``
+    (kappa > 0) clips every gradient element to [-kappa, kappa] in place
+    before the update (`privacy.clip_gradients`).  ``track_mean`` adds
+    the agent-mean parameters to aux (``params_mean``, a tree).
 
     ``topology`` may be a `MixingProcess`: the step realizes W_k from the
     absolute step each iteration, and a time-varying one routes the
     gossip through the masked kernel.
 
-    ``faults`` (a `faults.FaultProcess`) composes the coupling per step
-    through `faults.realize_coupling`; down agents keep their held rows;
-    rejoining agents warm start from their stable neighbours first with
-    ``rejoin='neighbor-avg'``; corrupt transmits go through the guarded
-    kernel.  An inert process is no process, so the rate-0 step is the
-    fault-free step.  ``nan_policy`` adds isfinite sentinels on the loss
-    and the updated parameters: ``"warn"`` counts
+    ``faults`` (a `faults.FaultProcess`, pdsgd only) composes the coupling
+    per step through `faults.realize_coupling`; down agents keep their
+    held rows; rejoining agents warm start from their stable neighbours
+    first with ``rejoin='neighbor-avg'``; corrupt transmits go through the
+    guarded kernel.  An inert process is no process, so the rate-0 step is
+    the fault-free step.  ``nan_policy`` adds isfinite sentinels on the
+    loss, the updated parameters and the tracker: ``"warn"`` counts
     (``aux["fault_nonfinite"]``), ``"skip"`` also restores the held
-    buffer on a non-finite step.  ``aggregation="trimmed_mean"`` replaces
-    the gossip by coordinate-wise trimmed-mean aggregation of the
-    neighbours' states (`faults.inject.trimmed_mean_mix`) with each
+    buffers on a non-finite step.  ``aggregation="trimmed_mean"`` (pdsgd
+    only) replaces the gossip by coordinate-wise trimmed-mean aggregation
+    of the neighbours' states (`faults.inject.trimmed_mean_mix`) with each
     agent's own obfuscated descent.
 
     Held state and the in-place update.  The reference freezes a down
@@ -369,9 +595,26 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     writes x' over the buffer, so the step copies the down agents' rows
     (at most m of them) before it and writes them back after.  Under
     ``nan_policy="skip"`` it copies the whole held buffer first (one more
-    (m, width) buffer for the step).  The neighbour-average warm start
-    changes the held rows before the gradients, as the reference's.
+    (m, width) buffer for the step, two more with a tracker).  The
+    neighbour-average warm start changes the held rows before the
+    gradients, as the reference's.
+
+    ``step.inner(state, batch, key, k)`` is the same step at absolute step
+    ``k``, an int or a 0-d int64 device counter: what `make_scanned_steps`
+    captures.  ``step.graph_refusal`` names what keeps this step out of a
+    CUDA graph (None when the graph holds it).
+
+    ``partitionable=False`` draws every random number of the step
+    (Lambda^k, B^k, DP-DSGD's noise) from jax's earlier threefry stream
+    (`prng`), the one the recorded Fig. 2 target was drawn from.  The
+    draws that follow jax's partitionable stream only (a time-varying
+    mixing process's masks, faults, the ring layout's kernels) are
+    refused with it.
     """
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if grad_clip is not None and not grad_clip > 0.0:
+        raise ValueError(f"grad_clip must be > 0, got {grad_clip}")
     if nan_policy not in ("off", "warn", "skip"):
         raise ValueError(f"unknown nan_policy {nan_policy!r}; "
                          f"have ('off', 'warn', 'skip')")
@@ -382,16 +625,31 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     process = as_process(topology)
     if faults is not None and faults.is_inert:
         faults = None  # the rate-0 path IS the fault-free path
-    if faults is not None and faults.num_agents != process.num_agents:
-        raise ValueError(
-            f"faults built for {faults.num_agents} agents but the "
-            f"topology has {process.num_agents}")
+    if not partitionable:
+        if not process.is_static or faults is not None:
+            raise ValueError(
+                "partitionable=False (jax's earlier threefry stream) takes "
+                "a static topology without faults: mixing masks and fault "
+                "realizations draw the partitionable stream only")
+        if kernel_layout == "ring" and not eager:
+            raise ValueError(_RING_STREAM)
+    if faults is not None:
+        if algorithm != "pdsgd":
+            raise ValueError(
+                "fault injection composes with the paper's pdsgd update; "
+                f"algorithm={algorithm!r} is not a fault scenario")
+        if faults.num_agents != process.num_agents:
+            raise ValueError(
+                f"faults built for {faults.num_agents} agents but the "
+                f"topology has {process.num_agents}")
     m = process.num_agents
-    if aggregation == "trimmed_mean" and not (1 <= trim
-                                              and m - 2 * trim >= 1):
-        raise ValueError(
-            f"trim must satisfy 1 <= trim and m - 2*trim >= 1; "
-            f"got trim={trim}, m={m}")
+    if aggregation == "trimmed_mean":
+        if algorithm != "pdsgd":
+            raise ValueError("aggregation='trimmed_mean' is a pdsgd mode")
+        if not (1 <= trim and m - 2 * trim >= 1):
+            raise ValueError(
+                f"trim must satisfy 1 <= trim and m - 2*trim >= 1; "
+                f"got trim={trim}, m={m}")
     corrupting = faults is not None and faults.has_corruption
     if corrupting and kernel_layout == "ring" and not eager \
             and aggregation == "gossip":
@@ -399,13 +657,18 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     rejoining = (faults is not None and faults.has_crash
                  and not faults.is_failstop)
 
-    def step(state: DecentralizedState, batch, key: torch.Tensor):
+    def inner(state: DecentralizedState, batch, key: torch.Tensor, k):
         if state.num_agents != m:
             raise ValueError(f"state has {state.num_agents} agents, the "
                              f"topology {m}")
+        if algorithm == "dsgt" and state.tracker is None:
+            raise ValueError(
+                "algorithm='dsgt' carries (y, prev_grads) in "
+                "state.tracker; build the state with "
+                "init_state(params, m, algorithm='dsgt')")
         X = state.flat
         dev = X.device
-        k = state.step
+        layout = state.layout
         alive = corrupt = rejoin = None
         # named ranges: the host time of each part in a torch.profiler trace
         with torch.profiler.record_function("coupling"):
@@ -414,8 +677,10 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             else:
                 W, support, mask, alive, corrupt = realize_coupling(
                     process, faults, k, dev)
-            lam_bar = schedule(torch.full((), float(k), dtype=torch.float32,
-                                          device=dev))
+            k_f32 = (k.to(torch.float32) if isinstance(k, torch.Tensor)
+                     else torch.full((), float(k), dtype=torch.float32,
+                                     device=dev))
+            lam_bar = schedule(k_f32)
         with torch.profiler.record_function("held_state"):
             # the held anchor: the buffer with rejoiners warm started
             if rejoining:
@@ -426,15 +691,29 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             down = ([] if alive is None else
                     [int(i) for i in torch.nonzero(alive == 0).flatten()])
             held_rows = {i: X[i].clone() for i in down}
-            held = X.clone() if nan_policy == "skip" else None
+            held = held_tracker = None
+            if nan_policy == "skip":
+                held = X.clone()
+                if state.tracker is not None:
+                    held_tracker = tuple(t.clone() for t in state.tracker)
         G = torch.empty_like(X)
         with torch.profiler.record_function("agent_grads"):
             losses = _agent_grads(loss_fn, state, batch, G)
-        with torch.profiler.record_function("pdsgd_update"):
-            if aggregation == "trimmed_mean":
-                U = obfuscate_flat(X, G, state.layout, key=key, step=k,
+            if grad_clip is not None:
+                clip_gradients(G[:, :layout.size], grad_clip)
+        with torch.profiler.record_function(f"{algorithm}_update"):
+            if algorithm == "dsgd":
+                dsgd_update(X, G, W=W, lam=lam_bar, out=X)
+            elif algorithm == "dp_dsgd":
+                dp_dsgd_update(X, G, layout, key=prng.fold_in(key, 3), W=W,
+                               lam=lam_bar, sigma_dp=sigma_dp, out=X,
+                               partitionable=partitionable)
+            elif algorithm == "dsgt":
+                _dsgt_step_(X, *state.tracker, G, W=W, lam=lam_bar)
+            elif aggregation == "trimmed_mean":
+                U = obfuscate_flat(X, G, layout, key=key, step=k,
                                    lam_bar=lam_bar, kernel_rng=kernel_rng,
-                                   eager=eager)
+                                   eager=eager, partitionable=partitionable)
                 _trimmed_mean(
                     X, U, support,
                     corrupt if corrupt is not None else torch.zeros(m),
@@ -444,7 +723,7 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                 del U
             else:
                 out = pdsgd_update(
-                    X, G, state.layout, key=key, step=k, W=W,
+                    X, G, layout, key=key, step=k, W=W,
                     support=support, lam_bar=lam_bar, kernel_rng=kernel_rng,
                     in_place=True, eager=eager, mask=mask,
                     corrupt=corrupt if corrupting else None,
@@ -453,7 +732,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                     corrupt_scale=faults.corrupt_scale if corrupting
                     else 1e4,
                     guard_clip=faults.guard_clip if corrupting else 1e3,
-                    kernel_layout=kernel_layout, torus_shape=torus_shape)
+                    kernel_layout=kernel_layout, torus_shape=torus_shape,
+                    partitionable=partitionable)
                 if out is not X:
                     X.copy_(out)
                 del out
@@ -466,16 +746,23 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                 X[i].copy_(row)
             del held_rows
             if nan_policy != "off":
-                finite = bool(torch.isfinite(losses).all()
-                              & _finite(X[:, :state.layout.size]))
+                finite = (torch.isfinite(losses).all()
+                          & _finite(X[:, :layout.size]))
+                for t in state.tracker or ():
+                    finite &= _finite(t[:, :layout.size])
+                finite = bool(finite)
                 aux["fault_nonfinite"] = int(not finite)
                 if nan_policy == "skip" and not finite:
                     X.copy_(held)
-            del held
-        new = DecentralizedState(flat=X, layout=state.layout, step=k + 1)
+                    for t, h in zip(state.tracker or (), held_tracker or ()):
+                        t.copy_(h)
+            del held, held_tracker
+        new = DecentralizedState(flat=X, layout=layout, step=state.step + 1,
+                                 tracker=state.tracker)
         with torch.profiler.record_function("consensus_error"):
-            aux["consensus_error"] = consensus_error(
-                X[:, :state.layout.size])
+            aux["consensus_error"] = consensus_error(X[:, :layout.size])
+        if track_mean:
+            aux["params_mean"] = layout.tree(X.mean(dim=0))
         if alive is not None:
             aux["fault_down"] = int(m - alive.sum())
             aux["fault_corrupt"] = int(corrupt.sum())
@@ -483,4 +770,183 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                                    else 0)
         return new, aux
 
+    def step(state: DecentralizedState, batch, key: torch.Tensor):
+        return inner(state, batch, key, state.step)
+
+    step.inner = inner
+    step.graph_refusal = _graph_refusal(process, faults, nan_policy,
+                                        aggregation, kernel_layout, eager)
     return step
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return None if tree is None else fn(tree)
+
+
+def _tree_pairs(dst, src):
+    """Leaf pairs of two trees of one structure."""
+    if isinstance(dst, dict):
+        return [p for k in dst for p in _tree_pairs(dst[k], src[k])]
+    if isinstance(dst, (tuple, list)):
+        return [p for d, s in zip(dst, src) for p in _tree_pairs(d, s)]
+    return [] if dst is None else [(dst, src)]
+
+
+def _stack_aux(auxes: list):
+    """Per-step aux dicts -> one dict of (k, ...) stacks."""
+    first = auxes[0]
+    if isinstance(first, dict):
+        return {k: _stack_aux([a[k] for a in auxes]) for k in first}
+    if isinstance(first, torch.Tensor):
+        return torch.stack(auxes)
+    return torch.tensor(auxes)
+
+
+def _copy_in(dst: torch.Tensor, src) -> None:
+    """Copy a chunk's input into a graph's static buffer without waiting
+    for the card: a host tensor goes through pinned memory."""
+    src = torch.as_tensor(src)
+    if src.device.type == "cpu":
+        src = src.pin_memory()
+    dst.copy_(src, non_blocking=True)
+
+
+class _StepGraph:
+    """k steps of ``inner`` captured in one CUDA graph over one state's
+    buffers: static inputs are a (k, m, ...) batch buffer, a (k, 2) key
+    buffer and a device step counter that the graph increments after each
+    step; the outputs are the stacked aux tensors.  The first chunk runs
+    the same k steps eagerly on a side stream (PyTorch's warm-up before
+    capture; they are real steps); capturing then launches nothing, and
+    every later chunk replays.  The wrappers count a launch where they
+    launch a kernel, and a replay goes through no wrapper: what they count
+    during capture (no kernel runs) is taken back and kept as
+    ``launches``, what one replay launches, beside ``replays``."""
+
+    def __init__(self, inner, k: int, state: DecentralizedState, batches,
+                 keys):
+        dev = state.flat.device
+        self.inner, self.k = inner, k
+        self.batches = _tree_map(
+            lambda t: torch.empty(tuple(t.shape), dtype=t.dtype,
+                                  device=dev), batches)
+        self.keys = torch.empty((k, 2), dtype=torch.int64, device=dev)
+        self.counter = torch.zeros((), dtype=torch.int64, device=dev)
+        self.graph = None
+        self.aux = None
+        self.launches: dict[str, int] = {}
+        self.replays = 0
+
+    def _load(self, state, batches, keys) -> None:
+        for d, s in _tree_pairs(self.batches, batches):
+            _copy_in(d, s)
+        _copy_in(self.keys, torch.as_tensor(keys, dtype=torch.int64))
+        self.counter.fill_(state.step)
+
+    def _steps(self, state):
+        auxes = []
+        for i in range(self.k):
+            batch = _tree_map(lambda t: t[i], self.batches)
+            state, aux = self.inner(state, batch, self.keys[i],
+                                    self.counter)
+            self.counter += 1
+            auxes.append(aux)
+        return _stack_aux(auxes)
+
+    def __call__(self, state, batches, keys):
+        self._load(state, batches, keys)
+        if self.graph is None:
+            side = torch.cuda.Stream(state.flat.device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                aux = self._steps(state)
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            before = dict(launch_counts)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.aux = self._steps(state)
+            self.launches = {n: c - before.get(n, 0)
+                             for n, c in launch_counts.items()
+                             if c != before.get(n, 0)}
+            for n, c in self.launches.items():
+                launch_counts[n] -= c
+        else:
+            self.graph.replay()
+            self.replays += 1
+            aux = _tree_map(torch.clone, self.aux)
+        return aux
+
+
+def make_scanned_steps(step_fn, unroll_k: int):
+    """``scanned(state, batches, keys) -> (state, aux_stacked)``: ``unroll_k``
+    steps of a `make_decentralized_step` step per call, the counterpart
+    of the reference's ``lax.scan``.  Every ``batches`` leaf has a
+    leading (unroll_k, m, ...) axis; ``keys`` is (unroll_k, 2) (e.g.
+    `launch.steps.per_step_keys`); each aux value comes out stacked
+    (unroll_k, ...).
+
+    On the CPU it is a loop over the eager step, bitwise the eager loop by
+    construction.  On the card it is one CUDA graph of ``unroll_k`` steps
+    (`_StepGraph`), captured once per state's buffers and batch shapes
+    and replayed per chunk; the keys, the schedule, B^k, Lambda^k and
+    DP-DSGD's noise are derived inside it from the device step counter,
+    bitwise the eager steps' values.  The state's buffers are updated in
+    place; the aux stacks are copies, so they outlive the next replay.
+    ``scanned.replayed_launches()`` gives the kernel launches the replays
+    ran, each graph's captured launches times its replays (the wrappers'
+    `launch_counts` hold the eager warm-up chunks' only).
+
+    A step the graph cannot hold (``step_fn.graph_refusal``: time-varying
+    mixing, faults, sentinels, the ring layout, trimmed-mean aggregation,
+    the unfused oracle) is refused on every device, so a run with
+    ``--unroll-k > 1`` does not depend on where it runs; nothing falls
+    back to the eager loop.
+    """
+    inner = getattr(step_fn, "inner", None)
+    if inner is None:
+        raise ValueError("make_scanned_steps needs a step from "
+                         "make_decentralized_step")
+    if unroll_k < 1:
+        raise ValueError(f"unroll_k must be >= 1, got {unroll_k}")
+    if step_fn.graph_refusal is not None:
+        raise ValueError(
+            f"the scanned step (unroll_k > 1, a CUDA graph on the card) "
+            f"does not hold {step_fn.graph_refusal} yet: ROADMAP 0a; run "
+            f"the eager loop (--unroll-k 1)")
+    graphs: dict = {}
+
+    def scanned(state: DecentralizedState, batches, keys):
+        if state.flat.device.type != "cuda":
+            auxes = []
+            for i in range(unroll_k):
+                state, aux = step_fn(state, _tree_map(lambda t: t[i],
+                                                      batches), keys[i])
+                auxes.append(aux)
+            return state, _stack_aux(auxes)
+        ptrs = (state.flat.data_ptr(),) + tuple(
+            t.data_ptr() for t in state.tracker or ())
+        shapes = tuple((tuple(s.shape), s.dtype)
+                       for _, s in _tree_pairs(batches, batches))
+        graph = graphs.get((ptrs, shapes))
+        if graph is None:
+            graph = graphs[(ptrs, shapes)] = _StepGraph(
+                inner, unroll_k, state, batches, keys)
+        aux = graph(state, batches, keys)
+        return DecentralizedState(flat=state.flat, layout=state.layout,
+                                  step=state.step + unroll_k,
+                                  tracker=state.tracker), aux
+
+    def replayed_launches() -> dict[str, int]:
+        out: dict[str, int] = {}
+        for g in graphs.values():
+            for n, c in g.launches.items():
+                out[n] = out.get(n, 0) + c * g.replays
+        return out
+
+    scanned.replayed_launches = replayed_launches
+    return scanned

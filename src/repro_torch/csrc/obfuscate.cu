@@ -34,7 +34,10 @@
 // Lambda key.  Columns past off[n_leaves] (padding) get bits 0.  The realized
 // Lambda is therefore bit-identical to the reference's counter stream, and
 // the main path needs no bits buffer at all (the optional bits output is for
-// the parity check only).
+// the parity check only).  With original != 0 the words follow jax's earlier
+// stream instead (jax_threefry_partitionable=False, threefry_bits_original
+// over the leaf's n = off[l+1] - off[l] words), a second instantiation of
+// the kernel.
 //
 // Bitwise parity with the plain PyTorch version.  The math is written with
 // __fmul_rn / __fsub_rn, which nvcc never contracts into FMAs, so every
@@ -122,7 +125,7 @@ __global__ void obfuscate_kernel(const T* x, const T* g,
 // never straddle rows).  Leaf offsets live in shared memory; a thread finds
 // the leaf of its first column by binary search and walks forward across a
 // boundary inside its 8.
-template <typename T>
+template <typename T, bool kOriginal>
 __global__ void obfuscate_krng_kernel(const T* x, const T* g,
                                       const uint32_t* __restrict__ keys,
                                       const int64_t* __restrict__ offsets,
@@ -162,8 +165,13 @@ __global__ void obfuscate_krng_kernel(const T* x, const T* g,
         while (c >= off[l + 1]) ++l;
         const uint64_t ctr = (uint64_t)(c - off[l]);
         const uint32_t* kp = keys + 2 * (row * n_leaves + l);
-        b = threefry_bits(kp[0], kp[1], (uint32_t)(ctr >> 32),
-                          (uint32_t)ctr);
+        if constexpr (kOriginal) {
+          b = threefry_bits_original(kp[0], kp[1], ctr,
+                                     (uint64_t)(off[l + 1] - off[l]));
+        } else {
+          b = threefry_bits(kp[0], kp[1], (uint32_t)(ctr >> 32),
+                            (uint32_t)ctr);
+        }
       }
       bv.v[k] = b;
       store_f(&ov.v[k], obf_math(load_f(&xv.v[k]), load_f(&gv.v[k]), b, lam2,
@@ -206,30 +214,45 @@ extern "C" int obfuscate_update(int dtype, const void* x, const void* g,
   return (int)cudaGetLastError();
 }
 
+template <typename T, bool kOriginal>
+void launch_krng(int grid, cudaStream_t s, const void* x, const void* g,
+                 const void* keys, const void* offsets, int n_leaves,
+                 long long rows, long long cols, const void* scal, void* out,
+                 void* bits_out) {
+  obfuscate_krng_kernel<T, kOriginal><<<grid, kThreads, 0, s>>>(
+      (const T*)x, (const T*)g, (const uint32_t*)keys,
+      (const int64_t*)offsets, n_leaves, rows, cols, (const float*)scal,
+      (T*)out, (uint32_t*)bits_out);
+}
+
 // keys: (rows, n_leaves, 2) uint32; offsets: (n_leaves + 1,) int64 with
 // offsets[0] == 0.  cols % 8 == 0 and 16-byte aligned x/g/out/bits_out are
-// the caller's checks.  bits_out may be null.
+// the caller's checks; with original, a leaf has fewer than 2^32 columns
+// (the original stream's counters are 32-bit).  bits_out may be null.
 extern "C" int obfuscate_update_krng(int dtype, const void* x, const void* g,
                                      const void* keys, const void* offsets,
                                      int n_leaves, long long rows,
                                      long long cols, const void* scal,
-                                     void* out, void* bits_out,
+                                     void* out, void* bits_out, int original,
                                      void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || cols % kVec != 0) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
   const int grid = grid_for(rows * cols / kVec);
-  if (dtype == 0) {
-    obfuscate_krng_kernel<float><<<grid, kThreads, 0, s>>>(
-        (const float*)x, (const float*)g, (const uint32_t*)keys,
-        (const int64_t*)offsets, n_leaves, rows, cols, (const float*)scal,
-        (float*)out, (uint32_t*)bits_out);
+  if (dtype == 0 && !original) {
+    launch_krng<float, false>(grid, s, x, g, keys, offsets, n_leaves, rows,
+                              cols, scal, out, bits_out);
+  } else if (dtype == 0) {
+    launch_krng<float, true>(grid, s, x, g, keys, offsets, n_leaves, rows,
+                             cols, scal, out, bits_out);
+  } else if (dtype == 1 && !original) {
+    launch_krng<__nv_bfloat16, false>(grid, s, x, g, keys, offsets,
+                                      n_leaves, rows, cols, scal, out,
+                                      bits_out);
   } else if (dtype == 1) {
-    obfuscate_krng_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
-        (const uint32_t*)keys, (const int64_t*)offsets, n_leaves, rows, cols,
-        (const float*)scal, (__nv_bfloat16*)out, (uint32_t*)bits_out);
+    launch_krng<__nv_bfloat16, true>(grid, s, x, g, keys, offsets, n_leaves,
+                                     rows, cols, scal, out, bits_out);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -44,7 +44,8 @@ _SIGNATURES = {
         "obfuscate_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                              _LL, _INT, _VOIDP],
         "obfuscate_update_krng": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
-                                  _LL, _LL, _VOIDP, _VOIDP, _VOIDP, _VOIDP],
+                                  _LL, _LL, _VOIDP, _VOIDP, _VOIDP, _INT,
+                                  _VOIDP],
     },
     "gossip": {
         "gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,

@@ -6,7 +6,8 @@
 `obfuscate_update` takes the uint32 bits as an input (B1);
 `obfuscate_update_krng` draws them in the kernel with threefry2x32 from a
 per-(row, leaf) key table (B3), so the realized Lambda equals the
-reference's ``jax.random`` counter stream bit for bit.
+reference's ``jax.random`` counter stream bit for bit, in the stream its
+``partitionable`` argument names (`core.prng`).
 
 A tensor on the CPU goes to the plain version in `ref`; a CUDA tensor
 launches the kernel (and counts the launch) or raises.  ``out`` may be
@@ -89,15 +90,19 @@ def obfuscate_update_krng(x: torch.Tensor, g: torch.Tensor,
                           keys: torch.Tensor, offsets: torch.Tensor,
                           lam_bar, w_self, b_self,
                           out: torch.Tensor | None = None,
-                          return_bits: bool = False):
+                          return_bits: bool = False,
+                          partitionable: bool = True):
     """`obfuscate_update` with the bits drawn in the kernel.
 
     ``keys``: (R, n_leaves, 2) uint32 words (as ``torch.uint32`` or int64
-    holding uint32 values) — row a's key for leaf l; ``offsets``:
+    holding uint32 values, on the host or on x's device) — row a's key
+    for leaf l; ``offsets``:
     (n_leaves + 1,) int64 column offsets of the leaves, ``offsets[0] == 0``
     and ``offsets[-1] <= C`` (the columns past it are padding and draw
-    bits 0).  Returns v, or ``(v, bits)`` with ``return_bits`` (the parity
-    check; the training step never asks for the bits).
+    bits 0).  ``partitionable=False`` draws jax's earlier threefry
+    stream (`core.prng`; a second instance of the kernel).  Returns v, or
+    ``(v, bits)`` with ``return_bits`` (the parity check; the training
+    step never asks for the bits).
     """
     _check_xg(x, g, out)
     R, C = x.shape
@@ -108,7 +113,7 @@ def obfuscate_update_krng(x: torch.Tensor, g: torch.Tensor,
                          f"{(R, n_leaves, 2)}, got {tuple(keys.shape)}")
     if x.device.type == "cpu":
         v, bits = ref.obfuscate_krng_ref(x, g, keys, offsets, lam_bar,
-                                         w_self, b_self)
+                                         w_self, b_self, partitionable)
         if out is not None:
             v = out.copy_(v)
         return (v, bits) if return_bits else v
@@ -124,8 +129,11 @@ def obfuscate_update_krng(x: torch.Tensor, g: torch.Tensor,
                for t in (x, g, out)):
         raise ValueError("obfuscate_update_krng needs contiguous tensors "
                          "aligned to 8 elements")
-    keys32 = to_device(keys.to(torch.int64).to(torch.uint32).contiguous(),
-                       x.device)
+    # a uint32 table and offsets already on the card are used as they
+    # are (a CUDA graph's step derives them there); host ones are copied
+    if keys.dtype != torch.uint32:
+        keys = keys.to(torch.int64).to(torch.uint32)
+    keys32 = to_device(keys.contiguous(), x.device)
     offsets = to_device(offsets, x.device)
     bits = (torch.empty((R, C), dtype=torch.uint32, device=x.device)
             if return_bits else None)
@@ -135,7 +143,7 @@ def obfuscate_update_krng(x: torch.Tensor, g: torch.Tensor,
         dtype_code(x.dtype), x.data_ptr(), g.data_ptr(), keys32.data_ptr(),
         offsets.data_ptr(), n_leaves, R, C, scal.data_ptr(), out.data_ptr(),
         bits.data_ptr() if bits is not None else None,
-        stream_ptr(x.device))
+        int(not partitionable), stream_ptr(x.device))
     check_status("obfuscate_update_krng", status)
     launch_counts["obfuscate_update_krng"] += 1
     return (out, bits) if return_bits else out

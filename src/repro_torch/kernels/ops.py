@@ -105,11 +105,13 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                      corrupt: torch.Tensor | None = None,
                      corrupt_mode: str = "nan",
                      corrupt_scale: float = 1e4,
-                     guard_clip: float | None = 1e3):
+                     guard_clip: float | None = 1e3,
+                     partitionable: bool = True):
     """Eq. (4) on flat (m, width) buffers.  Returns ``(x', u)``.
 
     With ``keys`` (m, n_leaves, 2) and ``offsets`` the obfuscate stage
-    draws Lambda in the kernel (`obfuscate_update_krng`); with ``bits``
+    draws Lambda in the kernel (`obfuscate_update_krng`, in the threefry
+    stream ``partitionable`` names, `core.prng`); with ``bits``
     (m, width) uint32 it reads them (`obfuscate_update`).  ``in_place``
     writes u over G and x' over X — safe because every kernel reads each
     element it writes before writing it — which is how the training step
@@ -139,10 +141,13 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
     if corrupt is not None and mask is None:
         raise ValueError("corrupt injection needs the realized edge mask; "
                          "compose faults through faults.realize_coupling")
+    if mask_key is not None and not partitionable:
+        raise ValueError("the in-kernel mask draw is jax's partitionable "
+                         "threefry stream only")
     u_out = G if in_place else None
     if keys is not None:
         U = obfuscate_update_krng(X, G, keys, offsets, lam_bar, 0.0, -1.0,
-                                  out=u_out)
+                                  out=u_out, partitionable=partitionable)
     else:
         U = obfuscate_update(X, G, bits, lam_bar, 0.0, -1.0, out=u_out)
     x_out = X if in_place else None

@@ -38,10 +38,13 @@ def obfuscate_ref(x: torch.Tensor, g: torch.Tensor, bits: torch.Tensor,
 
 
 def obfuscate_krng_ref(x: torch.Tensor, g: torch.Tensor, keys: torch.Tensor,
-                       offsets: torch.Tensor, lam_bar, w_self, b_self):
+                       offsets: torch.Tensor, lam_bar, w_self, b_self,
+                       partitionable: bool = True):
     """`obfuscate_ref` fed the bits the in-kernel generator draws
-    (`prng.leaf_bits`): ``(v, bits)``."""
-    bits = prng.leaf_bits(keys, offsets, x.shape[0], x.shape[1])
+    (`prng.leaf_bits`, in the stream ``partitionable`` names): ``(v,
+    bits)``."""
+    bits = prng.leaf_bits(keys, offsets, x.shape[0], x.shape[1],
+                          partitionable=partitionable)
     return obfuscate_ref(x, g, bits, lam_bar, w_self, b_self), bits
 
 

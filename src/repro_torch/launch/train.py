@@ -1,8 +1,10 @@
-"""Decentralized PDSGD training driver (counterpart of
-``repro.launch.train``; the eager loop).
+"""Decentralized training driver (counterpart of
+``repro.launch.train``).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch stablelm-3b-smoke --agents 4 --steps 50 --device cpu \
+        [--algorithm pdsgd|dsgd|dsgt|dp_dsgd] [--sigma-dp 0.01]
+        [--grad-clip-kappa 1.0] [--unroll-k 4]
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
         [--kernel-layout ring]
 
@@ -10,14 +12,20 @@ Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
 ``fold_in(key(seed + 1), k)``, both as in the reference, so the same
 flags (and the same initial weights, `run_training(init_params=...)`)
-walk the reference's trajectory (the reference's default algorithm,
-pdsgd, and its eager loop, ``--unroll-k 1``).  The time-varying topology
-(``--topology-*``), agent faults (``--fault-*``) and the ``--nan-policy``
-sentinels are the reference's flags, and so is ``--kernel-layout ring``
-(the whole update as one ring kernel; needs ``--topology ring``).  The
-leafwise layout of sharded agents, the other algorithms, checkpoints,
-resume, rollback, prefetch, the scanned loop and the privacy audit are not
-ported yet.
+walk the reference's trajectory.  ``--algorithm`` picks PDSGD or one of
+the paper's baselines (``--sigma-dp`` is DP-DSGD's noise scale);
+``--grad-clip-kappa`` clips every gradient element to [-kappa, kappa]
+before the update.  ``--unroll-k K`` (K > 1) runs K steps per call of
+`core.pdsgd.make_scanned_steps` — on the card one CUDA graph of K steps,
+replayed per chunk — and the remaining steps eagerly; both loops walk
+the same trajectory bit for bit, and the history keeps one record per
+logged step either way.  The time-varying topology (``--topology-*``),
+agent faults (``--fault-*``) and the ``--nan-policy`` sentinels are the
+reference's flags, and so is ``--kernel-layout ring`` (the whole update
+as one ring kernel; needs ``--topology ring``); none of them, nor the
+xLSTM family, runs under ``--unroll-k > 1`` yet (ROADMAP 0a).  The
+leafwise layout of sharded agents, checkpoints, resume, rollback,
+prefetch and the privacy audit are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,18 +33,21 @@ import argparse
 import json
 import time
 
+import numpy as np
 import torch
 
 from ..configs import get_config
 from ..core import prng
 from ..core.mixing import make_mixing
-from ..core.pdsgd import init_state, make_decentralized_step
+from ..core.pdsgd import (ALGORITHMS, init_state, make_decentralized_step,
+                          make_scanned_steps)
 from ..core.schedules import warmup_harmonic
 from ..core.topology import make_topology
 from ..data import make_lm_pipeline
 from ..faults import make_faults
 from ..kernels.build import to_device
 from ..models import build_model
+from .steps import per_step_keys
 
 __all__ = ["build_parser", "build_mixing", "build_faults", "run_training",
            "main"]
@@ -103,6 +114,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel, then gossip kernel); 'ring' = Lambda-draw, "
                         "obfuscate and the per-direction exchange in one "
                         "kernel (requires --topology ring)")
+    p.add_argument("--algorithm", default="pdsgd", choices=list(ALGORITHMS))
+    p.add_argument("--grad-clip-kappa", type=float, default=None,
+                   help="clip every gradient element to [-kappa, kappa] "
+                        "before the update (Theorem 5's bounded-gradient "
+                        "premise; see core.privacy.clip_gradients / "
+                        "lambda_stats)")
+    p.add_argument("--sigma-dp", type=float, default=0.0,
+                   help="noise scale of --algorithm dp_dsgd")
+    p.add_argument("--unroll-k", type=int, default=1,
+                   help="steps per call of the scanned step (a CUDA graph "
+                        "of K steps on the card); 1 = eager")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--per-agent-batch", type=int, default=2)
     p.add_argument("--seq-len", type=int, default=64)
@@ -146,7 +168,10 @@ def build_faults(args):
 
 def run_training(args, cfg=None, init_params=None,
                  kernel_rng: bool = True) -> dict:
-    """Run the eager loop; returns ``{"state", "history", "fault_totals"}``.
+    """Run the training loop (chunks of ``--unroll-k`` steps through the
+    scanned step, then the eager loop); returns ``{"state", "history",
+    "fault_totals", "replayed_launches"}`` (the last: the kernels the
+    CUDA graph's replays ran, from its capture, `make_scanned_steps`).
 
     ``cfg`` overrides ``--arch`` (e.g. a depth-cut config object);
     ``init_params`` (a single-agent tree) replaces the random init from a
@@ -175,14 +200,26 @@ def run_training(args, cfg=None, init_params=None,
                              "corrupt-link injection; drop "
                              "--fault-corrupt-rate or use --kernel-layout "
                              "concat")
+    if args.unroll_k < 1:
+        raise SystemExit("--unroll-k must be >= 1")
+    if args.unroll_k > 1 and cfg.family == "xlstm":
+        raise ValueError("--unroll-k > 1: the xLSTM family does not run "
+                         "under the CUDA graph of steps yet (ROADMAP 0a); "
+                         "use --unroll-k 1")
     bundle = build_model(cfg)
     mixing = build_mixing(args)
     faults = build_faults(args)
     sched = warmup_harmonic(args.lr, hold=args.warmup_hold)
     step = make_decentralized_step(bundle.loss_fn, mixing, sched,
-                                   kernel_rng=kernel_rng, faults=faults,
+                                   kernel_rng=kernel_rng,
+                                   algorithm=args.algorithm,
+                                   sigma_dp=args.sigma_dp,
+                                   grad_clip=args.grad_clip_kappa,
+                                   faults=faults,
                                    nan_policy=args.nan_policy,
                                    kernel_layout=kernel_layout)
+    scanned = (make_scanned_steps(step, args.unroll_k)
+               if args.unroll_k > 1 else None)
     b_window = args.b_window
     if b_window is None:
         b_window = 8 if not mixing.is_static else 0
@@ -194,14 +231,48 @@ def run_training(args, cfg=None, init_params=None,
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         init_params = bundle.init(gen, device)
-    state = init_state(init_params, args.agents, device=device)
+    state = init_state(init_params, args.agents, device=device,
+                       algorithm=args.algorithm)
     del init_params
     key = prng.key(args.seed + 1)
 
     history: list[dict] = []
     fault_totals: dict[str, int] = {}
     t0 = time.perf_counter()
-    for k in range(args.steps):
+
+    def logged(k: int) -> bool:
+        return k % args.log_every == 0 or k == args.steps - 1
+
+    def log(k: int, loss: float, cons: float) -> None:
+        rec = {"step": k, "loss": loss, "consensus_error": cons,
+               "elapsed_s": time.perf_counter() - t0}
+        if monitor is not None:
+            diag = monitor(k)
+            rec.update(b_window=b_window,
+                       b_window_connected=diag["connected"],
+                       b_window_union_min_degree=diag["union_min_degree"])
+        rec.update(fault_totals)  # cumulative, not per interval
+        history.append(rec)
+        print(json.dumps(rec), flush=True)
+
+    k = 0
+    # the scanned loop: whole chunks of --unroll-k steps, one sync a chunk
+    while scanned is not None and args.steps - k >= args.unroll_k:
+        with torch.profiler.record_function(f"train_chunk_{k}"):
+            per_step = [pipeline.batch_at(k + i)
+                        for i in range(args.unroll_k)]
+            batches = {name: torch.from_numpy(np.stack(
+                [b[name] for b in per_step])) for name in per_step[0]}
+            state, aux = scanned(state, batches,
+                                 per_step_keys(key, k, args.unroll_k))
+        losses = aux["loss"].tolist()
+        cons = aux["consensus_error"].tolist()
+        for i in range(args.unroll_k):
+            if logged(k + i):
+                log(k + i, losses[i], cons[i])
+        k += args.unroll_k
+    # the eager loop: the whole run at --unroll-k 1, the tail otherwise
+    for k in range(k, args.steps):
         # the range names each step in a torch.profiler trace
         with torch.profiler.record_function(f"train_step_{k}"):
             batch = {name: to_device(torch.from_numpy(v), device)
@@ -210,25 +281,16 @@ def run_training(args, cfg=None, init_params=None,
         for name in FAULT_COUNTERS:
             if name in aux:
                 fault_totals[name] = fault_totals.get(name, 0) + aux[name]
-        if k % args.log_every == 0 or k == args.steps - 1:
-            rec = {"step": k, "loss": float(aux["loss"]),
-                   "consensus_error": float(aux["consensus_error"]),
-                   "elapsed_s": time.perf_counter() - t0}
-            if monitor is not None:
-                diag = monitor(k)
-                rec.update(b_window=b_window,
-                           b_window_connected=diag["connected"],
-                           b_window_union_min_degree=diag[
-                               "union_min_degree"])
-            rec.update(fault_totals)  # cumulative, not per interval
-            history.append(rec)
-            print(json.dumps(rec), flush=True)
+        if logged(k):
+            log(k, float(aux["loss"]), float(aux["consensus_error"]))
     if faults is not None or args.nan_policy != "off":
         summary = {"fault_summary": dict(fault_totals)}
         history.append(summary)
         print(json.dumps(summary), flush=True)
     return {"state": state, "history": history,
-            "fault_totals": fault_totals}
+            "fault_totals": fault_totals,
+            "replayed_launches": (scanned.replayed_launches()
+                                  if scanned is not None else {})}
 
 
 def main(argv=None) -> int:

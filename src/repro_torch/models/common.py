@@ -92,6 +92,9 @@ def rope_freqs(head_dim: int, rotary_frac: float, theta: float) -> np.ndarray:
     return inv.astype(np.float32)
 
 
+_INV_FREQ: dict = {}
+
+
 def rope_tables_at(positions: torch.Tensor, head_dim: int,
                    rotary_frac: float,
                    theta: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -99,9 +102,14 @@ def rope_tables_at(positions: torch.Tensor, head_dim: int,
     rot_dim/2) f32: the angle ``positions * inv_freq`` in f32, then cos and
     sin (the reference's ``apply_rope(x, positions, ...)``).  Decode gives
     per-slot positions (B, 1).  The inverse frequencies reach the card
-    without a blocking copy."""
-    inv = to_device(torch.from_numpy(rope_freqs(head_dim, rotary_frac,
-                                                theta)), positions.device)
+    once per (head_dim, rotary_frac, theta, device), without a blocking
+    copy, and are reused: a CUDA graph of training steps reads the same
+    tensor at every replay."""
+    cache_key = (head_dim, rotary_frac, theta, positions.device)
+    inv = _INV_FREQ.get(cache_key)
+    if inv is None:
+        inv = _INV_FREQ[cache_key] = to_device(torch.from_numpy(rope_freqs(
+            head_dim, rotary_frac, theta)), positions.device)
     ang = positions[..., None].float() * inv
     return torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
 
