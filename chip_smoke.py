@@ -39,6 +39,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               12 steps eager; the states equal bit for bit; launches
               counted on the warm-up chunk and, for the replays, from the
               capture
+  dropout_path_scanned  the main path with --topology-dropout 0.25 and
+              --unroll-k 4 (a warm-up chunk, then 8 steps replayed from the
+              CUDA graph, each W_k realized in it from the device step
+              counter, B3 + B4), beside the same 12 steps eager; then with
+              --topology-resample-every 4 and 3 (3: redraws inside the
+              replayed chunks); the states equal bit for bit;
+              B4's launches from the capture
+  privacy_audit  launch/audit.main on the card at the reference's defaults
+              (m 5, dim 3, 8 parity steps, 40 attack steps, 200,000
+              samples; B3 + B2), then with --topology-dropout 0.3 (B4 in
+              the CUDA graph); gates: capture-on == capture-off bitwise on
+              every path, the four paths' streams bitwise and ok,
+              theta (kNN and binned) within 0.02 of 1.0322, DSGD's
+              recovery exact (relative error < 1e-6), PDSGD's least-squares
+              MSE at or above the Theorem-5 bound, theorem5 equal to a CPU
+              run's; the attack numbers beside the CPU run's, capture on
+              against off microseconds a replayed step
+  privacy_capture_path  stablelm-3b at full width, depth 2, m 4, bf16: one
+              step from one state with capture off, auditor() and
+              external_eavesdropper() (concat: B3 + B2), then off and the
+              eavesdropper on the ring layout (B9); V is (4, 4, D) f32,
+              26.8 GB; gates: x' equal to capture-off bitwise, V's
+              diagonal zero, concat V = w x - b u of B3's own u, ring V
+              within u's bf16 rounding of concat V; ms on against off,
+              peak memory, V's bytes bound
   baselines_path  the main path's configuration, eager, 3 steps each:
               --algorithm dsgt (peak carries the tracker pair), dp_dsgd
               --sigma-dp 0.01, pdsgd --grad-clip-kappa 1.0 (B3 + B2), dsgd
@@ -163,6 +188,7 @@ import itertools
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -2011,6 +2037,333 @@ def phase_main_path_scanned(torch, K, train, cfg):
           "launches_replays_from_capture": replayed})
 
 
+# resample 4 redraws at each chunk's first step; 3 inside the replayed
+# chunks (steps 6 and 9), at a different offset in each
+DROPOUT_SCANNED_RUNS = (("dropout", DROPOUT_FLAGS),
+                        ("resample", ("--topology-resample-every", "4")),
+                        ("resample_3", ("--topology-resample-every", "3")))
+
+
+def phase_dropout_path_scanned(torch, K, train, cfg):
+    """The dropout path through `--unroll-k 4` (a warm-up chunk, then two
+    chunks replayed from the CUDA graph, each W_k realized in the graph
+    from the device step counter and B4 computing its Metropolis weights),
+    beside the same 12 steps eager; then the same with
+    `--topology-resample-every 4` and 3 (3 redraws inside the replayed
+    chunks).  Gate: the states equal bit for bit.
+    B3 and B4 counted once a step of the warm-up chunk, and once a step of
+    each replay from the capture."""
+    steps, k = SCANNED_STEPS, SCANNED_UNROLL
+    out = {}
+    for name, flags in DROPOUT_SCANNED_RUNS:
+        res, counts, wall, peak = _run_path(
+            torch, K, train, cfg, steps, True,
+            (*flags, "--unroll-k", str(k)))
+        hist = _step_records(res)
+        losses = [r["loss"] for r in hist]
+        check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+        check(len(hist) == steps and res["state"].step == steps,
+              "steps run")
+        replayed = res["replayed_launches"]
+        for what, c, n in (("counted", counts, k),
+                           ("replayed", replayed, steps - k)):
+            check(c.get("obfuscate_update_krng", 0) == n
+                  and c.get("masked_gossip_update", 0) == n
+                  and c.get("gossip_update", 0) == 0,
+                  f"dropout_path_scanned {name} {what} launches {c}")
+        ms_scanned = _ms_per_step(hist, k - 1)
+        scanned_state = res["state"]
+        del res
+        eager, _, e_wall, e_peak = _run_path(torch, K, train, cfg, steps,
+                                             True, flags, held=True)
+        same = same_bits(torch, scanned_state.flat, eager["state"].flat)
+        check(same, f"dropout_path_scanned {name}: the graph's state "
+                    f"differs from the eager loop's")
+        windows = [r.get("b_window_connected") for r in hist]
+        rec = {"phase": "dropout_path_scanned", "mode": name,
+               "flags": list(flags), "arch": cfg.name,
+               "num_layers": cfg.num_layers, "dtype": cfg.dtype,
+               "agents": 4, "topology": "ring", "per_agent_batch": 2,
+               "seq_len": 512, "unroll_k": k, "steps": steps,
+               "losses": losses,
+               "ms_per_step_replayed": ms_scanned,
+               "ms_per_step_eager_same_steps": _ms_per_step(
+                   _step_records(eager), k - 1),
+               "first_chunk_s": hist[k - 1]["elapsed_s"],
+               "run_wall_s": wall, "eager_wall_s": e_wall,
+               "max_memory_allocated": peak,
+               "max_memory_allocated_eager": e_peak,
+               "b_window_connected": windows,
+               "state_equals_eager_bitwise": same,
+               "launches_warmup_counted": counts,
+               "launches_replays_from_capture": replayed}
+        emit(rec)
+        out[name] = rec
+        del scanned_state, eager
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# theta of Theorem 5 at kappa = 5 (Remark 5), the estimators' target
+THETA_REMARK5 = 1.0322
+THETA_TOL = 0.02
+AUDIT_RUNS = (("static", ()), ("dropout", ("--topology-dropout", "0.3")))
+
+
+def phase_privacy_audit(torch, K):
+    """`launch/audit.main` on the card at the reference's defaults (m 5,
+    dim 3, 8 parity steps, 40 attack steps, 200,000 samples) through B3 +
+    B2, then with --topology-dropout 0.3 (the scanned path under a
+    time-varying graph: B4 in the CUDA graph).  First the oracle's mix
+    (`core.pdsgd.oracle_mix`, which the eager and ring paths use) against
+    B2, bitwise, at m = 4, 5, 32.  Gates: capture-on == capture-off
+    bitwise on every path; the four paths' streams bitwise (every
+    deviation 0) and the report ``ok``; theta (kNN and binned) within 0.02
+    of 1.0322; dsgd_recovery_rel_err < 1e-6; the PDSGD inversion's MSE at
+    or above the Theorem-5 bound; the theorem5 section equal to a CPU
+    run's on the same config.  The attack numbers printed beside the CPU
+    run's, and the report's capture overhead."""
+    from repro_torch.core.pdsgd import oracle_mix
+    from repro_torch.launch import audit as AU
+    # the oracle's mix on the card is B2's FMA chain: bitwise B2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    for m in (4, 5, 32):
+        W, B = (torch.rand((m, m), device="cuda", generator=gen)
+                for _ in range(2))
+        X, U = (torch.randn((m, 1 << 18), device="cuda", generator=gen)
+                for _ in range(2))
+        check(same_bits(torch, K.gossip_update(W, B, X, U),
+                        oracle_mix(W, X) - oracle_mix(B, U)),
+              f"privacy_audit: the oracle's mix differs from B2 at m={m}")
+    out = {}
+    for name, extra in AUDIT_RUNS:
+        path = RECORDS.parent / f"privacy_report_{name}.json"
+        argv = ["--device", "cuda", "--out", str(path), *extra]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = AU.main(argv)
+        wall = time.perf_counter() - t0
+        counts = dict(K.launch_counts)
+        rep = json.loads(path.read_text())
+        cfg = AU.config_from_args(AU.build_parser().parse_args(argv))
+        par = rep["parity"]
+        check(all(par["trajectory_bitwise"].values()),
+              f"privacy_audit {name}: capture changed a trajectory "
+              f"{par['trajectory_bitwise']}")
+        worst = max(v for dev in par["max_abs_deviation"].values()
+                    for v in dev.values())
+        check(all(par["observations_bitwise"].values()) and worst == 0.0,
+              f"privacy_audit {name}: the paths' streams differ, "
+              f"max deviation {worst}")
+        check(rc == 0 and rep["ok"], f"privacy_audit {name}: report not ok")
+        t5 = rep["theorem5"]
+        for est in ("theta_knn", "theta_binned"):
+            check(abs(t5[est] - THETA_REMARK5) <= THETA_TOL,
+                  f"privacy_audit {name}: {est} {t5[est]}")
+        cpu_t5 = json.loads(json.dumps(AU.theorem5_report(cfg)))
+        check(t5 == cpu_t5, f"privacy_audit {name}: theorem5 differs "
+                            f"from the CPU run's")
+        att = rep["attacks"]
+        check(att["dsgd_recovery_rel_err"] < 1e-6,
+              f"privacy_audit {name}: dsgd {att['dsgd_recovery_rel_err']}")
+        check(att["pdsgd_ls_recovery_mse"] >= att["theorem5_mse_bound"],
+              f"privacy_audit {name}: PDSGD under the Theorem-5 bound")
+        cpu_att = AU.attack_report(cfg, device="cpu")
+        check(counts.get("obfuscate_update_krng", 0) > 0
+              and counts.get("masked_gossip_update" if extra
+                             else "gossip_update", 0) > 0,
+              f"privacy_audit {name} launches {counts}")
+        rec = {"phase": "privacy_audit", "mode": name, "argv": argv,
+               "ok": rep["ok"], "wall_s": wall,
+               "trajectory_bitwise": par["trajectory_bitwise"],
+               "observations_bitwise": par["observations_bitwise"],
+               "max_abs_deviation": par["max_abs_deviation"],
+               "theta_knn": t5["theta_knn"],
+               "theta_binned": t5["theta_binned"],
+               "theorem5_equals_cpu": True,
+               "attacks": {k: att[k] for k in (
+                   "dsgd_recovery_rel_err", "pdsgd_ls_recovery_mse",
+                   "theorem5_mse_bound", "pdsgd_mse_over_bound",
+                   "recovery_gap", "kappa")},
+               "attacks_cpu": {k: cpu_att[k] for k in (
+                   "dsgd_recovery_rel_err", "pdsgd_ls_recovery_mse",
+                   "theorem5_mse_bound", "pdsgd_mse_over_bound",
+                   "recovery_gap", "kappa")},
+               "overhead": rep["overhead"], "launches": counts,
+               "memory_allocated_after": torch.cuda.memory_allocated()}
+        emit(rec)
+        out[name] = rec
+    return out
+
+
+def _step_fn(torch, train, cfg, args, observer):
+    """The trainer's step (`run_training`'s configuration) with an
+    observer, and its batch 0 on the card."""
+    from repro_torch.core.pdsgd import make_decentralized_step
+    from repro_torch.core.schedules import warmup_harmonic
+    from repro_torch.models import build_model
+    bundle = build_model(cfg)
+    kernel_layout = "concat" if args.kernel_layout == "auto" \
+        else args.kernel_layout
+    return make_decentralized_step(
+        bundle.loss_fn, train.build_mixing(args),
+        warmup_harmonic(args.lr, hold=args.warmup_hold),
+        kernel_layout=kernel_layout, observer=observer), bundle
+
+
+# steps timed per capture configuration (each from the same x^0)
+CAPTURE_REPS = 3
+
+
+def phase_privacy_capture_path(torch, K, train, prng, cfg):
+    """stablelm-3b at full width, depth 2, m 4 on a ring, bf16: one step
+    from the same state with capture off, with ``auditor()`` and with
+    ``external_eavesdropper()`` through the concat layout (B3 + B2), then
+    capture off and the eavesdropper through the ring layout (B9).  V is
+    (4, 4, D) f32.  Gates: the parameters equal capture-off bit for bit;
+    V's diagonal exactly zero; concat V equal to w x - b u formed from the
+    auditor record's x and the kernel's own u; ring V equal to concat V
+    within the bf16 rounding of u (B9 keeps u in f32, B3 writes it in
+    bf16): |dV| <= 2^-8 |b_ij u_j| + 2^-22 (|w_ij x_j| + |b_ij u_j|) (2^-8
+    is bf16's half ulp, relative)."""
+    from repro_torch.core.pdsgd import DecentralizedState, init_state
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.privacy import observe as O
+    dev = torch.device("cuda")
+    args = _path_args(train, 1)
+    gc.collect()
+    torch.cuda.synchronize()
+    step_off, bundle = _step_fn(torch, train, cfg, args, None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state0 = init_state(bundle.init(gen, dev), 4, device=dev)
+    X0 = state0.flat.clone()
+    layout = state0.layout
+    D, m = layout.size, 4
+    pipe = make_lm_pipeline(cfg.vocab_size, args.agents,
+                            args.per_agent_batch, args.seq_len,
+                            seed=args.seed)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in pipe.batch_at(0).items()}
+    key = prng.fold_in(prng.key(1), 0)
+
+    def run(step, label):
+        """CAPTURE_REPS steps from x^0, one at a time (the last one's
+        record kept): host ms each, ending in a sync, their median and
+        minimum; the peak over them; the last step's launches."""
+        times, peak, obs = [], 0, None
+        for _ in range(CAPTURE_REPS):
+            obs = None  # the previous record's V goes before the next
+            state0.flat.copy_(X0)
+            st = DecentralizedState(flat=state0.flat, layout=layout)
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            st, aux = step(st, batch, key)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            obs = aux.get("observation")
+            del aux
+        return st.flat, obs, {
+            "ms": statistics.median(times), "ms_min": min(times),
+            "ms_all": times, "peak": peak,
+            "launches": dict(K.launch_counts), "label": label}
+
+    runs = []
+    run(step_off, "warm-up")
+    out, _, r = run(step_off, "concat_off")
+    X_off = out.clone()
+    runs.append(r)
+    # the auditor: V from x^k and B3's own u
+    step_aud, _ = _step_fn(torch, train, cfg, args, O.auditor())
+    out, rec, r = run(step_aud, "concat_auditor")
+    runs.append(r)
+    check(same_bits(torch, out, X_off), "auditor capture changed x'")
+    check(rec["v"].shape == (m, m, D) and rec["v"].dtype == torch.float32,
+          "record shape")
+    check(torch.equal(rec["x"], X0[:, :D].float()), "record x is not x^k")
+    W, B = rec["W"], rec["B"]
+    formed = True
+    for s, e in _chunks(D, 1 << 22):
+        want = (W[:, :, None] * rec["x"][None, :, s:e]
+                - B[:, :, None] * rec["u"][None, :, s:e]) \
+            * (1.0 - torch.eye(m, device=dev))[:, :, None]
+        formed &= bool(torch.equal(rec["v"][:, :, s:e], want))
+    check(formed, "concat V is not w x - b u of the kernel's own u")
+    check(all(bool((rec["v"][i, i] == 0).all()) for i in range(m)),
+          "V's diagonal is not zero")
+    u_concat = rec["u"].to(X0.dtype)
+    check(torch.equal(u_concat.float(), rec["u"]),
+          "u is not B3's own u (in the parameters' dtype)")
+    half_ulp = torch.finfo(X0.dtype).eps / 2
+    del rec, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the external eavesdropper: V and the support only
+    step_eav, _ = _step_fn(torch, train, cfg, args,
+                           O.external_eavesdropper())
+    out, rec, r = run(step_eav, "concat_eavesdropper")
+    runs.append(r)
+    check(same_bits(torch, out, X_off), "eavesdropper capture changed x'")
+    check(set(rec) == {"v", "support"}, f"eavesdropper view {set(rec)}")
+    check(all(bool((rec["v"][i, i] == 0).all()) for i in range(m)),
+          "V's diagonal is not zero")
+    V_host = rec["v"].cpu()
+    del rec, out, X_off
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the ring layout, B9 once: its own staged messages scattered to V
+    ring_args = _path_args(train, 1, RING_FLAGS)
+    ring_off, _ = _step_fn(torch, train, cfg, ring_args, None)
+    out, _, r = run(ring_off, "ring_off")
+    runs.append(r)
+    X_ring_off = out.clone()
+    ring_eav, _ = _step_fn(torch, train, cfg, ring_args,
+                           O.external_eavesdropper())
+    out, rec, r = run(ring_eav, "ring_eavesdropper")
+    runs.append(r)
+    check(same_bits(torch, out, X_ring_off), "ring capture changed x'")
+    check(r["launches"].get("ring_obfuscate_gossip_krng", 0) == 1,
+          f"ring launches {r['launches']}")
+    Vr = rec["v"]
+    worst, bitwise = 0.0, True
+    x0 = X0[:, :D]
+    for i in range(m):
+        for j in range(m):
+            vc = V_host[i, j].to(dev)
+            d = (Vr[i, j] - vc).abs()
+            bitwise &= bool(torch.equal(Vr[i, j], vc))
+            wx = (W[i, j] * x0[j].float()).abs()
+            bu = (B[i, j] * u_concat[j].float()).abs()
+            tol = bu * half_ulp + (wx + bu) * 2.0 ** -22
+            check(bool((d <= tol).all()), f"ring V[{i}, {j}] off concat V")
+            worst = max(worst, float(d.max()))
+            del vc, d, wx, bu, tol
+    v_bytes = m * m * D * 4
+    emit({"phase": "privacy_capture_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "dtype": cfg.dtype, "agents": m,
+          "topology": "ring", "params_per_agent": D,
+          "v_shape": [m, m, D], "v_bytes": v_bytes,
+          "v_bytes_bound_ms": v_bytes / HBM_BYTES_PER_S * 1e3,
+          "steps": runs, "params_equal_capture_off": True,
+          "v_diagonal_zero": True, "concat_v_is_wx_minus_bu": formed,
+          "ring_v_equals_concat_bitwise": bitwise,
+          "ring_v_max_abs_diff": worst,
+          "ms_capture_on_minus_off": {
+              "concat_auditor": runs[1]["ms"] - runs[0]["ms"],
+              "concat_eavesdropper": runs[2]["ms"] - runs[0]["ms"],
+              "ring_eavesdropper": runs[4]["ms"] - runs[3]["ms"]},
+          "capture_reps": CAPTURE_REPS})
+    del Vr, rec, out, V_host, X0, X_ring_off, u_concat, state0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 # dsgd last but one: its state is held for the comparison with the graph
 BASELINE_RUNS = (
     ("dsgt", ("--algorithm", "dsgt"), BASELINE_STEPS),
@@ -2902,6 +3255,12 @@ def main(argv=None) -> int:
         phase_main_path_scanned(torch, K, train, main_cfg)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_dropout_path_scanned(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_privacy_audit(torch, K)
+        gc.collect()
+        torch.cuda.empty_cache()
         if opts.profile:
             phase_profile_scanned(torch, train, main_cfg)
             gc.collect()
@@ -2928,6 +3287,9 @@ def main(argv=None) -> int:
         rows.update(phase_bits_path(torch, K, train, prng, bits_cfg))
         torch.cuda.empty_cache()
         rows.update(phase_ring_bits_path(torch, K, train, prng, bits_cfg))
+        torch.cuda.empty_cache()
+        phase_privacy_capture_path(torch, K, train, prng, bits_cfg)
+        gc.collect()
         torch.cuda.empty_cache()
         phase_serve_parity(torch, serve)
         gc.collect()

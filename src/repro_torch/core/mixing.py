@@ -21,13 +21,19 @@ masks are the reference's bit for bit, and `metropolis_from_mask` sums
 each row in ascending order (`kernels.ref.metropolis_ref`), which is the
 reference's rounding.
 
-Where it runs.  A mask is m × m (m <= 32), so a time-varying process
-draws it on the host with `prng` and copies the (mask, W, support)
-triple to the device once per step through pinned memory, which does not
-wait for the device.  The static mode keeps its device constants cached
-per device, copied once.  The gossip kernels take the mask and recompute
-the Metropolis weights on the card (`kernels.gossip.masked_gossip_update`);
-`masked_gossip_update_krng` draws the same mask inside the kernel.
+Where it runs.  A mask is m × m (m <= 32).  For an int step (the eager
+loop) a time-varying process draws it on the host with `prng` and copies
+the (mask, W, support) triple to the device through pinned memory, which
+does not wait for the device.  For a 0-d int64 device counter (the CUDA
+graph of `core.pdsgd.make_scanned_steps`) the key, the bits, the mask and
+its Metropolis weights are all computed on the counter's device with
+torch ops, no host copy and no sync: int64 threefry is exact, the
+comparison and the one division per weight are correctly rounded, and
+the row sum runs in ascending j, so both give the same bits.  The static
+mode keeps its device constants cached per device, copied once.  The
+gossip kernels take the mask and recompute the Metropolis weights on the
+card (`kernels.gossip.masked_gossip_update`); `masked_gossip_update_krng`
+draws the same mask inside the kernel.
 """
 from __future__ import annotations
 
@@ -119,6 +125,8 @@ class MixingProcess:
         object.__setattr__(self, "_key", prng.key(self.seed))
         # device -> static (W, support), copied once
         object.__setattr__(self, "_on_device", {})
+        # device -> (key, mask_adj), for masks drawn on a device counter
+        object.__setattr__(self, "_draw_consts", {})
 
     @property
     def num_agents(self) -> int:
@@ -170,12 +178,19 @@ class MixingProcess:
             "seed": None if static else int(self.seed),
         }
 
-    def mask_key(self, step: int) -> torch.Tensor:
+    def mask_key(self, step) -> torch.Tensor:
         """The (2,) key step ``step``'s mask is drawn from: ``fold_in(
         key(seed), step)`` (dropout) or ``fold_in(key(seed), step //
-        resample_every)`` (resample)."""
+        resample_every)`` (resample).  ``step`` an int (a host key) or a
+        0-d int64 device counter (the key on its device)."""
         if self.is_static:
             raise ValueError("a static process draws no mask")
+        if isinstance(step, torch.Tensor):
+            idx = step.to(torch.int64)
+            if self.mode == "resample":
+                idx = torch.div(idx, self.resample_every,
+                                rounding_mode="floor")
+            return prng.fold_in(self._device_consts(idx.device)[0], idx)
         idx = int(step)
         if self.mode == "resample":
             idx //= self.resample_every
@@ -189,18 +204,34 @@ class MixingProcess:
             return 1.0 - torch.eye(m)
         return self._adj_off
 
-    def realize_mask(self, step: int) -> torch.Tensor:
-        """Step ``step``'s (m, m) edge mask on the CPU (time-varying
-        modes): `symmetric_edge_mask` gated by `mask_adj`, what the
-        in-kernel draw gives for the same key."""
+    def _device_consts(self, device) -> tuple[torch.Tensor, torch.Tensor]:
+        """(key, mask_adj) on ``device``, copied once: the eager chunk a
+        CUDA graph runs before its capture makes them, so the capture
+        copies nothing."""
+        device = torch.device(device)
+        if device not in self._draw_consts:
+            self._draw_consts[device] = (to_device(self._key, device),
+                                         to_device(self.mask_adj(), device))
+        return self._draw_consts[device]
+
+    def realize_mask(self, step) -> torch.Tensor:
+        """Step ``step``'s (m, m) edge mask (time-varying modes):
+        `symmetric_edge_mask` gated by `mask_adj`, what the in-kernel draw
+        gives for the same key.  On the CPU for an int step, on the
+        counter's device for a 0-d device counter."""
         m = self.num_agents
-        return mask_from_bits(prng.bits(self.mask_key(step), (m, m)),
-                              self.keep_prob, self.mask_adj())
+        key = self.mask_key(step)
+        adj = (self._device_consts(key.device)[1]
+               if isinstance(step, torch.Tensor) else self.mask_adj())
+        return mask_from_bits(prng.bits(key, (m, m)), self.keep_prob, adj)
 
     def realize(self, step, device=None):
-        """(W_k, support_k, mask_k) on ``device`` for the absolute
-        ``step``.  Static tensors are shared between calls: do not write
-        to them."""
+        """(W_k, support_k, mask_k) on ``device`` for the absolute ``step``:
+        an int, or a 0-d int64 counter tensor, whose device the draw then
+        runs on (``device`` defaults to it).  Static tensors are shared
+        between calls: do not write to them."""
+        if isinstance(step, torch.Tensor) and device is None:
+            device = step.device
         device = torch.device(device or "cpu")
         if self.is_static:
             if device not in self._on_device:
@@ -209,6 +240,11 @@ class MixingProcess:
                     torch.float32)
                 self._on_device[device] = (W.to(device), support.to(device))
             return (*self._on_device[device], None)
+        if isinstance(step, torch.Tensor):
+            mask = self.realize_mask(step.to(device))
+            W = metropolis_from_mask(mask)
+            support = mask + torch.eye(self.num_agents, device=device)
+            return W, support, mask
         mask = self.realize_mask(step)
         W = metropolis_from_mask(mask)
         support = mask + torch.eye(self.num_agents)

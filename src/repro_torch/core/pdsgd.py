@@ -53,6 +53,8 @@ from ..faults.process import FaultProcess, realize_coupling
 from ..kernels.build import launch_counts, to_device
 from ..kernels.obfuscate import obfuscate_update, obfuscate_update_krng
 from ..kernels.ops import FlatLayout, fused_pdsgd_flat, ring_pdsgd_flat
+from ..optim.base import tree_map
+from ..privacy import observe as O
 from . import prng
 from .mixing import MixingProcess, as_process
 from .privacy import (agent_key, clip_gradients, obfuscated_gradient,
@@ -62,7 +64,7 @@ from .topology import Topology
 
 __all__ = ["ALGORITHMS", "DecentralizedState", "init_state",
            "consensus_error", "lambda_key_table", "per_agent_bits",
-           "gossip_mix", "pdsgd_update", "dsgd_update", "dsgt_update",
+           "gossip_mix", "fma_gossip_mix", "oracle_mix", "pdsgd_update", "dsgd_update", "dsgt_update",
            "dp_dsgd_update", "dp_noise_", "obfuscate_flat",
            "make_decentralized_step", "make_scanned_steps"]
 
@@ -207,6 +209,57 @@ def gossip_mix(mat: torch.Tensor, p: torch.Tensor,
     return out.reshape(p.shape)
 
 
+def fma_f32(a: torch.Tensor, b: torch.Tensor,
+            c: torch.Tensor) -> torch.Tensor:
+    """C's ``fmaf(a, b, c)`` elementwise on f32 tensors: a * b + c rounded
+    once to f32, in f64 arithmetic, on any device.  a * b is exact in f64;
+    the f64 sum s and its exact error e (TwoSum) hold a * b + c; s
+    rounded to f32 is the answer unless s lies exactly halfway between
+    two f32 values and e is not 0, when the answer is the neighbour on
+    e's side."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    r = s.float()
+    rd = r.double()
+    toward = torch.where(s > rd, float("inf"), float("-inf")).float()
+    other = torch.nextafter(r, toward)
+    tie = (2.0 * s == rd + other.double()) & (err != 0)
+    wrong = tie & (((err > 0) & (rd < s)) | ((err < 0) & (rd > s)))
+    return torch.where(wrong, other, r)
+
+
+@torch.no_grad()
+def fma_gossip_mix(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """`gossip_mix` summed as the gossip kernels sum on the card (B2/B4,
+    ``csrc/gossip.cu``): per row one `fma_f32` chain over ascending j,
+    from 0, on the f32 products, cast to p's dtype."""
+    m = p.shape[0]
+    src = p.reshape(m, -1)
+    matf = mat.to(p.dtype).float()
+    out = torch.empty(src.shape, dtype=p.dtype, device=p.device)
+    # narrower pieces than gossip_mix's: each fma_f32 makes f64 temporaries
+    for s, e in _pieces(src.shape[1], _CHUNK >> 4):
+        acc = torch.zeros((m, e - s), dtype=torch.float32, device=p.device)
+        for j in range(m):
+            acc = fma_f32(matf[:, j:j + 1], src[j:j + 1, s:e].float(), acc)
+        out[:, s:e] = acc.to(p.dtype)
+    return out.reshape(p.shape)
+
+
+def oracle_mix(mat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The unfused oracle's mix: `fma_gossip_mix` on the card (the order
+    of B2's accumulation, so the oracle's x' is B2's bit for bit),
+    `gossip_mix` elsewhere (a matrix product, the order of the
+    reference's ``W @ x`` on the CPU, and of the kernels' plain
+    versions)."""
+    if p.device.type == "cuda":
+        return fma_gossip_mix(mat, p)
+    return gossip_mix(mat, p)
+
+
 def _descend(mixed: torch.Tensor, d: torch.Tensor, lam) -> torch.Tensor:
     """mixed - lam d in f32, cast to mixed's dtype.  In f32 it is the
     reference's ``a - lam * d`` operation for operation; the reference's
@@ -347,7 +400,8 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                  guard_clip: float | None = 1e3,
                  kernel_layout: str = "concat",
                  torus_shape: tuple[int, int] | None = None,
-                 partitionable: bool = True) -> torch.Tensor:
+                 partitionable: bool = True, observe: bool = False,
+                 fields: tuple[str, ...] = O.RECORD_FIELDS):
     """One iteration of Eq. (4) on flat (m, width) buffers; returns x'.
 
     ``W``/``support`` are this step's realized coupling and its support
@@ -381,17 +435,41 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     ``eager=True`` is the reference's unfused formula (its
     ``use_pallas=False`` branch, whatever the layout): per agent
     `privacy.obfuscated_gradient` over the leaves, then per leaf
-    `gossip_mix`, or `faults.inject.guarded_gossip_mix` when ``corrupt``
+    `oracle_mix`, or `faults.inject.guarded_gossip_mix` when ``corrupt``
     is given.  It realizes the same Lambda^k and B^k; it is the
     port-internal oracle the tests hold the fused branch against, and
     writes a new buffer.
 
     ``partitionable=False`` draws Lambda^k and B^k from jax's earlier
     threefry stream (`prng`; the concat layout only).
+
+    ``observe=True`` also returns the wire-tap record of
+    `privacy.observe.full_record`, ``(x', record)``, with the ``fields``
+    among the reference's (an adversary's view reads only its own: the
+    external eavesdropper's V and support need no x, u or g).  Each
+    route records what it realized: the fused route forms V between its
+    two kernels from x^k and the obfuscate kernel's own u; the ring route
+    scatters the kernel's own per-direction messages to the dense V; the
+    oracle forms V from its u.  x and g are copied before the in-place
+    writes.  Capture only reads the update's buffers, so x' is the same
+    bits as without it.  ``corrupt`` is refused with it (a poisoned wire
+    is not an audited scenario).
     """
     _check_layout(kernel_layout)
+    if observe and corrupt is not None:
+        raise ValueError("observation capture with corrupt links is not "
+                         "an audited scenario")
     B = sample_B(agent_key(prng.fold_in(key, 2), step, 0), support,
                  partitionable)
+    D = layout.size
+    rec = {}
+    if observe:
+        rec = {"support": support, "W": W if "W" in fields else None,
+               "B": B if "B" in fields else None}
+        if "g" in fields:
+            rec["g_flat"] = G[:, :D].to(torch.float32, copy=True)
+        if "x" in fields and (kernel_layout != "ring" or eager):
+            rec["x_flat"] = X[:, :D].to(torch.float32, copy=True)
     if kernel_layout == "ring" and not eager:
         if corrupt is not None:
             raise ValueError(_RING_CORRUPT)
@@ -405,10 +483,20 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
         tabs = C.directional_weights(W, n_data, n_pod)
         w_tab = torch.cat([tabs["w_self"][:, None], tabs["w_dir"]], dim=1)
         b_rows = C.rows_from_dense(B, n_data, n_pod)
-        return ring_pdsgd_flat(
+        out = ring_pdsgd_flat(
             w_tab, b_rows, C.source_table(n_data, n_pod), X, G, lam_bar,
             **_lambda_source(key, step, layout, X, kernel_rng),
-            in_place=in_place)
+            in_place=in_place, observe=observe, observe_fields=fields)
+        if not observe:
+            return out
+        out, flats = out
+        rec["v"] = O.scatter_directions(flats["v"],
+                                        C.perm_stack(n_data, n_pod), D)
+        if "x" in fields:
+            rec["x_flat"] = flats["x"][:, :D]
+        if "u" in fields:
+            rec["u_flat"] = flats["u"][:, :D]
+        return out, O.full_record(v=rec.pop("v"), **rec)
     if eager:
         u_rows = _obfuscated_rows(G, layout, key, step, lam_bar,
                                   partitionable)
@@ -421,15 +509,31 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                                            scale=corrupt_scale,
                                            clip=guard_clip))
             else:
-                o.copy_(gossip_mix(W, x) - gossip_mix(B, u))
-        return out
+                o.copy_(oracle_mix(W, x) - oracle_mix(B, u))
+        if not observe:
+            return out
+        _tap_record(rec, fields, W, B, X, u_rows, D)
+        return out, O.full_record(v=rec.pop("v"), **rec)
     out, _ = fused_pdsgd_flat(
         W, B, X, G, lam_bar, **_lambda_source(key, step, layout, X,
                                               kernel_rng, partitionable),
         mask=mask, corrupt=corrupt, corrupt_mode=corrupt_mode,
         corrupt_scale=corrupt_scale, guard_clip=guard_clip,
-        in_place=in_place, partitionable=partitionable)
-    return out
+        in_place=in_place, partitionable=partitionable,
+        tap=((lambda U: _tap_record(rec, fields, W, B, X, U, D))
+             if observe else None))
+    if not observe:
+        return out
+    return out, O.full_record(v=rec.pop("v"), **rec)
+
+
+def _tap_record(rec: dict, fields, W, B, X: torch.Tensor, U: torch.Tensor,
+                D: int) -> None:
+    """The wire and u of a concat-layout update into ``rec``: V from x^k
+    (X before the update writes it) and the update's own u."""
+    rec["v"] = O.wire_messages(W, B, X[:, :D], U[:, :D])
+    if "u" in fields:
+        rec["u_flat"] = U[:, :D].to(torch.float32, copy=True)
 
 
 @torch.no_grad()
@@ -516,14 +620,10 @@ def _trimmed_mean(flat: torch.Tensor, U: torch.Tensor, support, corrupt, *,
                                     scale=scale))
 
 
-def _graph_refusal(process: MixingProcess, faults, nan_policy: str,
-                   aggregation: str, kernel_layout: str,
-                   eager: bool) -> str | None:
+def _graph_refusal(faults, nan_policy: str, aggregation: str,
+                   kernel_layout: str, eager: bool) -> str | None:
     """What keeps a step out of the CUDA graph of `make_scanned_steps` (each
     realizes or decides on the host), or None."""
-    if not process.is_static:
-        return ("time-varying mixing (its W_k is realized on the host "
-                "each step)")
     if faults is not None:
         return "agent faults (realized on the host each step)"
     if nan_policy != "off":
@@ -549,7 +649,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                             eager: bool = False,
                             kernel_layout: str = "concat",
                             torus_shape: tuple[int, int] | None = None,
-                            partitionable: bool = True):
+                            partitionable: bool = True,
+                            observer: O.Adversary | None = None):
     """``step(state, batch, key) -> (state, aux)`` for one of `ALGORITHMS`.
 
     ``loss_fn(params_i, batch_i)`` is ONE agent's scalar loss; batch leaves
@@ -574,8 +675,21 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     the agent-mean parameters to aux (``params_mean``, a tree).
 
     ``topology`` may be a `MixingProcess`: the step realizes W_k from the
-    absolute step each iteration, and a time-varying one routes the
-    gossip through the masked kernel.
+    absolute step each iteration (on the card from the device counter
+    under the CUDA graph, `MixingProcess.realize`), and a time-varying one
+    routes the gossip through the masked kernel.
+
+    ``observer`` (a `privacy.observe.Adversary`) turns on the wire-tap:
+    ``aux["observation"]`` is that adversary's view of this step's
+    messages (pdsgd: the v_ij tensor of `pdsgd_update(observe=True)`,
+    built with only the fields the view reads; dsgd and dp_dsgd:
+    `privacy.observe.state_record`, the states broadcast in the clear and
+    the clean gradients, copied before the update).  Under
+    `make_scanned_steps` the views stack into (unroll_k, ...) aux.
+    Capture leaves the trajectory bit for bit as without it.  Refused for
+    dsgt (its two-variable exchange is not audited), corrupt-link faults
+    and trimmed-mean aggregation (a poisoned wire, a raw-state
+    broadcast); crash/restart faults compose with it.
 
     ``faults`` (a `faults.FaultProcess`, pdsgd only) composes the coupling
     per step through `faults.realize_coupling`; down agents keep their
@@ -613,6 +727,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     """
     if algorithm not in ALGORITHMS:
         raise ValueError(f"unknown algorithm {algorithm!r}")
+    if observer is not None and algorithm == "dsgt":
+        raise ValueError("observation capture supports pdsgd/dsgd/dp_dsgd; "
+                         "dsgt's two-variable exchange is not audited")
     if grad_clip is not None and not grad_clip > 0.0:
         raise ValueError(f"grad_clip must be > 0, got {grad_clip}")
     if nan_policy not in ("off", "warn", "skip"):
@@ -642,6 +759,14 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             raise ValueError(
                 f"faults built for {faults.num_agents} agents but the "
                 f"topology has {process.num_agents}")
+        if observer is not None and faults.has_corruption:
+            raise ValueError("observation capture with corrupt links is "
+                             "not an audited scenario")
+    if aggregation == "trimmed_mean" and observer is not None:
+        raise ValueError(
+            "trimmed-mean aggregation broadcasts raw neighbor states "
+            "(conventional-DSGD wire); capture of it is not an audited "
+            "scenario")
     m = process.num_agents
     if aggregation == "trimmed_mean":
         if algorithm != "pdsgd":
@@ -701,6 +826,16 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             losses = _agent_grads(loss_fn, state, batch, G)
             if grad_clip is not None:
                 clip_gradients(G[:, :layout.size], grad_clip)
+        observation = None
+        if observer is not None and algorithm != "pdsgd":
+            # the state-sharing baselines' wire carries x_j in the clear
+            # (dp_dsgd noises the gradient, not the state)
+            D = layout.size
+            observation = O.adversary_view(observer, O.state_record(
+                support=support, x_flat=X[:, :D].to(torch.float32,
+                                                    copy=True),
+                g_flat=G[:, :D].to(torch.float32, copy=True), W=W,
+                lam=lam_bar))
         with torch.profiler.record_function(f"{algorithm}_update"):
             if algorithm == "dsgd":
                 dsgd_update(X, G, W=W, lam=lam_bar, out=X)
@@ -733,7 +868,14 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                     else 1e4,
                     guard_clip=faults.guard_clip if corrupting else 1e3,
                     kernel_layout=kernel_layout, torus_shape=torus_shape,
-                    partitionable=partitionable)
+                    partitionable=partitionable,
+                    observe=observer is not None,
+                    fields=(observer.fields if observer is not None
+                            else O.RECORD_FIELDS))
+                if observer is not None:
+                    out, record = out
+                    observation = O.adversary_view(observer, record)
+                    del record
                 if out is not X:
                     X.copy_(out)
                 del out
@@ -763,6 +905,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             aux["consensus_error"] = consensus_error(X[:, :layout.size])
         if track_mean:
             aux["params_mean"] = layout.tree(X.mean(dim=0))
+        if observation is not None:
+            aux["observation"] = observation
         if alive is not None:
             aux["fault_down"] = int(m - alive.sum())
             aux["fault_corrupt"] = int(corrupt.sum())
@@ -774,17 +918,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         return inner(state, batch, key, state.step)
 
     step.inner = inner
-    step.graph_refusal = _graph_refusal(process, faults, nan_policy,
+    step.graph_refusal = _graph_refusal(faults, nan_policy,
                                         aggregation, kernel_layout, eager)
     return step
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return None if tree is None else fn(tree)
 
 
 def _tree_pairs(dst, src):
@@ -815,6 +951,19 @@ def _copy_in(dst: torch.Tensor, src) -> None:
     dst.copy_(src, non_blocking=True)
 
 
+_WARMUP_STREAMS: dict = {}
+
+
+def _warmup_stream(device) -> "torch.cuda.Stream":
+    """One side stream per device for every graph's warm-up chunk: cuBLAS
+    keeps a workspace per (handle, stream) for the process's life, so a
+    new stream per graph would leave one behind for each."""
+    device = torch.device(device)
+    if device not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[device] = torch.cuda.Stream(device)
+    return _WARMUP_STREAMS[device]
+
+
 class _StepGraph:
     """k steps of ``inner`` captured in one CUDA graph over one state's
     buffers: static inputs are a (k, m, ...) batch buffer, a (k, 2) key
@@ -831,7 +980,7 @@ class _StepGraph:
                  keys):
         dev = state.flat.device
         self.inner, self.k = inner, k
-        self.batches = _tree_map(
+        self.batches = tree_map(
             lambda t: torch.empty(tuple(t.shape), dtype=t.dtype,
                                   device=dev), batches)
         self.keys = torch.empty((k, 2), dtype=torch.int64, device=dev)
@@ -850,7 +999,7 @@ class _StepGraph:
     def _steps(self, state):
         auxes = []
         for i in range(self.k):
-            batch = _tree_map(lambda t: t[i], self.batches)
+            batch = tree_map(lambda t: t[i], self.batches)
             state, aux = self.inner(state, batch, self.keys[i],
                                     self.counter)
             self.counter += 1
@@ -860,7 +1009,7 @@ class _StepGraph:
     def __call__(self, state, batches, keys):
         self._load(state, batches, keys)
         if self.graph is None:
-            side = torch.cuda.Stream(state.flat.device)
+            side = _warmup_stream(state.flat.device)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 aux = self._steps(state)
@@ -878,7 +1027,7 @@ class _StepGraph:
         else:
             self.graph.replay()
             self.replays += 1
-            aux = _tree_map(torch.clone, self.aux)
+            aux = tree_map(torch.clone, self.aux)
         return aux
 
 
@@ -901,9 +1050,13 @@ def make_scanned_steps(step_fn, unroll_k: int):
     ran, each graph's captured launches times its replays (the wrappers'
     `launch_counts` hold the eager warm-up chunks' only).
 
-    A step the graph cannot hold (``step_fn.graph_refusal``: time-varying
-    mixing, faults, sentinels, the ring layout, trimmed-mean aggregation,
-    the unfused oracle) is refused on every device, so a run with
+    A time-varying mixing process realizes each W_k inside the graph from
+    the device counter (`MixingProcess.realize`), and the masked gossip
+    kernel runs there.  A step's observation (``observer``) stacks like
+    the other aux: (unroll_k, ...) outputs of the graph, copied out per
+    chunk.  A step the graph cannot hold (``step_fn.graph_refusal``:
+    faults, sentinels, the ring layout, trimmed-mean aggregation, the
+    unfused oracle) is refused on every device, so a run with
     ``--unroll-k > 1`` does not depend on where it runs; nothing falls
     back to the eager loop.
     """
@@ -924,7 +1077,7 @@ def make_scanned_steps(step_fn, unroll_k: int):
         if state.flat.device.type != "cuda":
             auxes = []
             for i in range(unroll_k):
-                state, aux = step_fn(state, _tree_map(lambda t: t[i],
+                state, aux = step_fn(state, tree_map(lambda t: t[i],
                                                       batches), keys[i])
                 auxes.append(aux)
             return state, _stack_aux(auxes)

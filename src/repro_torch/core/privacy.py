@@ -20,8 +20,8 @@ from . import entropy as E
 from . import prng
 
 __all__ = ["agent_key", "leaf_keys", "tree_leaves", "tree_unflatten",
-           "obfuscated_gradient", "sample_B", "clip_gradients",
-           "lambda_stats"]
+           "sample_lambda_tree", "obfuscated_gradient", "sample_B",
+           "clip_gradients", "lambda_stats"]
 
 Tree = Any
 
@@ -69,6 +69,23 @@ def leaf_keys(key: torch.Tensor, tree: Tree, partitionable: bool = True):
     return prng.split(key, len(leaves), partitionable), leaves
 
 
+def _lambda(k: torch.Tensor, g: torch.Tensor, lam_bar,
+            partitionable: bool) -> torch.Tensor:
+    """lambda ~ U[0, 2 lam_bar] elementwise, shaped like g, in f32."""
+    u01 = prng.uniform(k, g.shape, partitionable).to(g.device)
+    return (2.0 * torch.as_tensor(lam_bar, dtype=torch.float32).to(
+        g.device)) * u01
+
+
+def sample_lambda_tree(key: torch.Tensor, grads: Tree, lam_bar,
+                       partitionable: bool = True) -> Tree:
+    """The diagonal of Lambda for ONE agent, every gradient leaf, in f32:
+    the draws `obfuscated_gradient` multiplies g by."""
+    keys, leaves = leaf_keys(key, grads, partitionable)
+    return tree_unflatten(grads, [_lambda(k, g, lam_bar, partitionable)
+                                  for k, g in zip(keys, leaves)])
+
+
 def obfuscated_gradient(key: torch.Tensor, grads: Tree, lam_bar: float,
                         partitionable: bool = True) -> Tree:
     """u = Lambda ∘ g for ONE agent, lambda ~ U[0, 2 lam_bar] per element,
@@ -77,9 +94,7 @@ def obfuscated_gradient(key: torch.Tensor, grads: Tree, lam_bar: float,
     keys, leaves = leaf_keys(key, grads, partitionable)
     out = []
     for k, g in zip(keys, leaves):
-        u01 = prng.uniform(k, g.shape, partitionable).to(g.device)
-        lam = (2.0 * torch.as_tensor(lam_bar, dtype=torch.float32).to(
-            g.device)) * u01
+        lam = _lambda(k, g, lam_bar, partitionable)
         out.append((lam * g.float()).to(g.dtype))
     return tree_unflatten(grads, out)
 

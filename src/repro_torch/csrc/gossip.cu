@@ -51,7 +51,9 @@
 // upper triangle, mirrored), kept if u < keep_prob and adj says the edge
 // exists.  With the key fold_in(key(mix_seed), step) that is
 // core/mixing.py's MixingProcess.realize(step) mask bit for bit.  Each block
-// draws the same m^2 words (cheap); block 0 writes the mask out.
+// draws the same m^2 words (cheap); block 0 writes the mask out.  The key is
+// read from device memory, so a CUDA graph replays the launch with each
+// step's key (derived on the card from the graph's step counter).
 //
 // Guarded gossip.  x'_i = (w_ii x_i - b_ii u_i) + sum_j guard(w_ij xt_j -
 // b_ij ut_j), the sum over every j (the zero diagonal and non-neighbours
@@ -102,7 +104,7 @@ struct alignas(sizeof(T) * VEC) VecT {
 enum WeightSource { kWeightsGiven = 0, kMaskGiven = 1, kMaskDrawn = 2 };
 
 struct MaskDraw {
-  uint32_t k0, k1;      // threefry key of the step's mask
+  const uint32_t* key;  // (2,) threefry key of the step's mask, on device
   float keep_prob;      // per-edge keep probability
   const float* adj;     // (m, m) off-diagonal 0/1 gate
   float* mask_out;      // (m, m), written by block 0
@@ -129,7 +131,7 @@ __device__ __forceinline__ void draw_mask(const MaskDraw& d, float* mask_s,
     if (r < m && c < m && r != c) {
       // the upper-triangle draw of the edge {r, c}
       const uint32_t ctr = (uint32_t)(min(r, c) * m + max(r, c));
-      const uint32_t bits = threefry_bits(d.k0, d.k1, 0u, ctr);
+      const uint32_t bits = threefry_bits(d.key[0], d.key[1], 0u, ctr);
       const float u =
           __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
       v = __fmul_rn(u < d.keep_prob ? 1.0f : 0.0f, d.adj[r * m + c]);
@@ -448,17 +450,18 @@ extern "C" int masked_gossip_update(int dtype, const void* mask,
   return dispatch(dtype, kMaskGiven, a, MaskDraw{}, Guard{});
 }
 
-// (k0, k1): the mask's threefry key; adj: (m, m) off-diagonal 0/1 gate;
-// mask_out: (m, m) float32, written.
-extern "C" int masked_gossip_update_krng(int dtype, unsigned int k0,
-                                         unsigned int k1, float keep_prob,
+// key: the mask's threefry key, (2,) uint32 words in device memory; adj:
+// (m, m) off-diagonal 0/1 gate; mask_out: (m, m) float32, written.
+extern "C" int masked_gossip_update_krng(int dtype, const void* key,
+                                         float keep_prob,
                                          const void* adj, const void* B,
                                          const void* X, const void* U,
                                          void* out, void* mask_out, int m,
                                          long long n, void* stream) {
   const Args a{nullptr, (const float*)B, X, U, nullptr, nullptr, out, m, n,
                (cudaStream_t)stream};
-  const MaskDraw d{k0, k1, keep_prob, (const float*)adj, (float*)mask_out};
+  const MaskDraw d{(const uint32_t*)key, keep_prob, (const float*)adj,
+                   (float*)mask_out};
   return dispatch(dtype, kMaskDrawn, a, d, Guard{});
 }
 

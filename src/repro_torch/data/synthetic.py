@@ -2,7 +2,8 @@
 numpy only, so the same seed gives the same data in both packages).
 
 The LM corpus is a Zipf-distributed token stream with induced bigram
-structure; `estimation_problem` is the paper's Sec. VII-A workload.
+structure; `synthetic_digits` is the digit-like image corpus of the DLG
+attack; `estimation_problem` is the paper's Sec. VII-A workload.
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import dataclasses
 
 import numpy as np
 
-__all__ = ["SyntheticLMDataset", "estimation_problem"]
+__all__ = ["SyntheticLMDataset", "synthetic_digits", "estimation_problem"]
 
 
 @dataclasses.dataclass
@@ -43,6 +44,30 @@ class SyntheticLMDataset:
             out[:, t] = np.where(follow[:, t], self._perm[out[:, t - 1]],
                                  fresh[:, t])
         return out.astype(np.int32)
+
+
+def synthetic_digits(num: int, seed: int = 0, size: int = 8, classes: int = 10,
+                     template_seed: int = 0):
+    """Digit-like images: each class has a fixed random low-frequency template;
+    samples are template + Gaussian pixel noise, clipped to [0, 1].
+
+    ``template_seed`` fixes the class templates independently of ``seed`` so
+    that train/validation splits drawn with different ``seed``s come from the
+    SAME task (same class prototypes, fresh labels + noise)."""
+    rng = np.random.default_rng(seed)
+    freq = np.random.default_rng(template_seed).normal(size=(classes, 3, 3))
+    templates = np.zeros((classes, size, size))
+    yy, xx = np.meshgrid(np.linspace(0, 1, size), np.linspace(0, 1, size),
+                         indexing="ij")
+    for c in range(classes):
+        t = np.zeros((size, size))
+        for i in range(3):
+            for j in range(3):
+                t += freq[c, i, j] * np.cos(np.pi * i * yy) * np.cos(np.pi * j * xx)
+        templates[c] = (t - t.min()) / (np.ptp(t) + 1e-9)
+    labels = rng.integers(0, classes, size=num)
+    x = templates[labels] + 0.15 * rng.normal(size=(num, size, size))
+    return np.clip(x, 0, 1).astype(np.float32), labels.astype(np.int32)
 
 
 def estimation_problem(m: int, d: int = 2, s: int = 3, n_per_agent: int = 100,

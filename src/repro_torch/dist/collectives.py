@@ -200,24 +200,6 @@ def mask_b_draws(b: torch.Tensor, keep_dir: torch.Tensor) -> torch.Tensor:
     return e / _row_sum(e)
 
 
-def _flatten_agents(tree) -> torch.Tensor:
-    """(m, D) f32: each agent's leaves raveled and concatenated in tree
-    order (the capture layout)."""
-    leaves = tree_leaves(tree)
-    return torch.cat([l.reshape(l.shape[0], -1).float() for l in leaves],
-                     dim=1)
-
-
-def _wire_messages(W, B, x_flat, u_flat) -> torch.Tensor:
-    """V[i, j] = w_ij x_j - b_ij u_j for i != j, zero diagonal (what
-    crosses each link), (m, m, D) f32."""
-    m = W.shape[0]
-    off = 1.0 - torch.eye(m, device=x_flat.device)
-    V = (W.float()[:, :, None] * x_flat[None] - B.float()[:, :, None]
-         * u_flat[None])
-    return V * off[:, :, None]
-
-
 def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
                        n_data: int | None = None, n_pod: int | None = None,
                        leaf_specs: Pytree | None = None,
@@ -230,7 +212,8 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
 
     Only ``mesh=None`` is ported: the torus is (``n_data``, ``n_pod``)
     (default (m, 1), one ring).  Without ``fused`` the update runs as the
-    dense product with `dense_coupling`'s matrices (``finite_guard``:
+    dense product with `dense_coupling`'s matrices (`core.pdsgd.
+    oracle_mix`, summed as B2 sums on the card; ``finite_guard``:
     every link passed through ``where(isfinite(v), v, 0)`` by
     `faults.inject.guarded_gossip_mix`).  With ``fused=True`` it runs
     through the ring kernel `kernels.ring_gossip_update` over the leaves
@@ -238,9 +221,10 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
     and shifts, accumulated self first, then direction by direction.
 
     ``capture=True`` also returns V (m, m, D) f32, the message on every
-    link: with ``fused`` scattered from the kernel's own per-direction v,
-    else `_wire_messages` of the dense matrices.  ``schedule`` is the
-    mesh form's loop order; it is only validated here.
+    link: with ``fused`` scattered from the kernel's own per-direction v
+    (`privacy.observe.scatter_directions`), else `privacy.observe.
+    wire_messages` of the dense matrices.  ``schedule`` is the mesh
+    form's loop order; it is only validated here.
     """
     if schedule not in ("staged", "pipelined"):
         raise ValueError(f"unknown schedule {schedule!r}; "
@@ -297,14 +281,11 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
         out = layout.tree(out_flat)
         if not capture:
             return out
-        v_dir = res[1]  # (ndirs, m, width), sender-major
-        D = layout.size
-        P = to_device(perms, dev)
-        V = sum(P[di][:, :, None] * v_dir[di][None, :, :D]
-                for di in range(len(dirs)))
-        return out, V
+        from ..privacy import observe as O
+        # res[1]: (ndirs, m, width), sender-major
+        return out, O.scatter_directions(res[1], perms, layout.size)
 
-    from ..core.pdsgd import gossip_mix
+    from ..core.pdsgd import oracle_mix
     from ..faults.inject import guarded_gossip_mix
     Wd, B = dense_coupling(b, n_data, n_pod, W=W)
     u_leaves = tree_leaves(u)
@@ -314,10 +295,11 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
                                    scale=1.0, clip=float("inf"))
                 for p, v in zip(leaves, u_leaves)]
     else:
-        outs = [gossip_mix(Wd, p) - gossip_mix(B, v)
+        outs = [oracle_mix(Wd, p) - oracle_mix(B, v)
                 for p, v in zip(leaves, u_leaves)]
     out = tree_unflatten(params, outs)
     if not capture:
         return out
-    return out, _wire_messages(Wd, B, _flatten_agents(params),
-                               _flatten_agents(u))
+    from ..privacy import observe as O
+    return out, O.wire_messages(Wd, B, O.flatten_agents(params),
+                                O.flatten_agents(u))

@@ -3,8 +3,8 @@
 corrupt) vectors from the absolute step, `realize_coupling` composes them
 with a mixing realization, and `inject` holds the degradation mechanics
 (transmit poisoning, finite-guarded gossip, trimmed-mean aggregation,
-neighbour-average rejoin warm start).  The reference's rejoin leakage
-audit is not ported yet."""
+neighbour-average rejoin warm start); `audit` measures what that warm
+start leaks (import it from there)."""
 from .inject import (finite_guard, guarded_gossip_mix,
                      neighbor_avg_warmstart, poison_transmit,
                      trimmed_mean_mix)

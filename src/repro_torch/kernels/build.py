@@ -38,7 +38,7 @@ launch_counts: collections.Counter = collections.Counter()
 
 _loaded: dict[str, ctypes.CDLL] = {}
 _VOIDP, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_UINT, _FLOAT = ctypes.c_uint, ctypes.c_float
+_FLOAT = ctypes.c_float
 _SIGNATURES = {
     "obfuscate": {
         "obfuscate_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
@@ -52,7 +52,7 @@ _SIGNATURES = {
                           _LL, _VOIDP],
         "masked_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                  _VOIDP, _INT, _LL, _VOIDP],
-        "masked_gossip_update_krng": [_INT, _UINT, _UINT, _FLOAT, _VOIDP,
+        "masked_gossip_update_krng": [_INT, _VOIDP, _FLOAT, _VOIDP,
                                       _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                       _INT, _LL, _VOIDP],
         "guarded_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,

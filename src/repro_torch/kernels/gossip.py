@@ -131,13 +131,16 @@ def masked_gossip_update_krng(key: torch.Tensor, keep_prob,
     """`masked_gossip_update` on the mask drawn in the kernel: returns
     ``(out, mask)``.
 
-    ``key``: a (2,) threefry key (int64 words, on the CPU) — the mask is
-    that of ``prng.bits(key, (m, m))``: one U[0, 1) per undirected edge,
-    kept if below ``keep_prob`` (a float, compared in float32) and if
-    ``adj`` (m, m off-diagonal 0/1) has the edge.  With
-    ``MixingProcess.mask_key(step)``, ``keep_prob`` and ``mask_adj()`` it
-    is that process's realized mask bit for bit."""
-    key = torch.as_tensor(key)
+    ``key``: a (2,) threefry key (int64 words) — on the CPU, or on X's
+    device (a key derived there from a CUDA graph's step counter: the
+    kernel reads it from device memory, so the wrapper neither syncs nor
+    copies from the host) — the mask is that of ``prng.bits(key, (m,
+    m))``: one U[0, 1) per undirected edge, kept if below ``keep_prob`` (a
+    float, compared in float32) and if ``adj`` (m, m off-diagonal 0/1) has
+    the edge.  With ``MixingProcess.mask_key(step)``, ``keep_prob`` and
+    ``mask_adj()`` it is that process's realized mask bit for bit."""
+    if not isinstance(key, torch.Tensor):
+        key = torch.as_tensor(key)
     if key.shape != (2,):
         raise ValueError(f"key must be a (2,) threefry key, got "
                          f"{tuple(key.shape)}")
@@ -149,11 +152,11 @@ def masked_gossip_update_krng(key: torch.Tensor, keep_prob,
         out = torch.empty_like(X)
     _columns("masked_gossip_update_krng", X, U, out)
     m = X.shape[0]
-    k0, k1 = (int(w) & 0xFFFFFFFF for w in key.to(torch.int64).tolist())
+    key32 = to_device(key.to(torch.int64), X.device).to(torch.uint32)
     mask = torch.empty((m, m), dtype=torch.float32, device=X.device)
     adj, B = adj.contiguous(), B.contiguous()
     status = library("gossip").masked_gossip_update_krng(
-        dtype_code(X.dtype), k0, k1, keep_prob, adj.data_ptr(),
+        dtype_code(X.dtype), key32.data_ptr(), keep_prob, adj.data_ptr(),
         B.data_ptr(), X.data_ptr(), U.data_ptr(), out.data_ptr(),
         mask.data_ptr(), m, X.shape[1], stream_ptr(X.device))
     check_status("masked_gossip_update_krng", status)
@@ -321,7 +324,7 @@ def _ring_launch(fn: str, w_tab, b_tab, perms, X, out, capture: bool,
     X's stream and count it; every tensor the kernel reads stays referenced
     until the launch is queued.  ``args``: the arguments between X and out;
     ``tail``: those after the capture outputs.  Returns (v, u), None
-    without capture."""
+    without capture; ``capture="v"`` captures v alone (u None)."""
     m, n = X.shape
     ndirs = _ndirs(perms, m)
     src = to_device(_sources(perms, m), X.device)
@@ -329,7 +332,8 @@ def _ring_launch(fn: str, w_tab, b_tab, perms, X, out, capture: bool,
     v = (torch.empty((ndirs, m, n), dtype=torch.float32, device=X.device)
          if capture else None)
     u = (torch.empty((m, n), dtype=torch.float32, device=X.device)
-         if capture and fn != "ring_gossip_update" else None)
+         if capture and capture != "v" and fn != "ring_gossip_update"
+         else None)
     outs = [v.data_ptr() if v is not None else None]
     if fn != "ring_gossip_update":
         outs.append(u.data_ptr() if u is not None else None)
@@ -387,7 +391,9 @@ def ring_obfuscate_gossip(w_tab: torch.Tensor, b_tab: torch.Tensor,
     formed in the kernel (never stored), then `ring_gossip_update`'s
     accumulation (`ref.ring_obfuscate_gossip_ref`).  ``bits``: (m, n)
     uint32; ``lam_bar`` a float or a device scalar.  Returns out, or
-    ``(out, v, u)`` with ``capture`` (v (ndirs, m, n), u (m, n), f32)."""
+    ``(out, v, u)`` with ``capture`` (v (ndirs, m, n), u (m, n), f32;
+    ``capture="v"``: the kernel writes no u, which is then None on a
+    card)."""
     _check_bits(bits, X)
     if _ring_check("ring_obfuscate_gossip", w_tab, b_tab, perms, X, G, out):
         o, v, u = ref.ring_obfuscate_gossip_ref(
@@ -424,7 +430,8 @@ def ring_obfuscate_gossip_krng(w_tab: torch.Tensor, b_tab: torch.Tensor,
     kernel seeds the TPU's own generator from a (2,) seed, a stream no
     other device reproduces (and which the reference refuses on the CPU).
 
-    Returns out, then ``(v, u)`` with ``capture``, then the drawn (m, n)
+    Returns out, then ``(v, u)`` with ``capture`` (``capture="v"``: u
+    None on a card, as `ring_obfuscate_gossip`), then the drawn (m, n)
     uint32 bits with ``export_bits``, as one tuple when either is on."""
     m, n = X.shape
     offsets = torch.as_tensor(offsets, dtype=torch.int64)

@@ -106,7 +106,7 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                      corrupt_mode: str = "nan",
                      corrupt_scale: float = 1e4,
                      guard_clip: float | None = 1e3,
-                     partitionable: bool = True):
+                     partitionable: bool = True, tap=None):
     """Eq. (4) on flat (m, width) buffers.  Returns ``(x', u)``.
 
     With ``keys`` (m, n_leaves, 2) and ``offsets`` the obfuscate stage
@@ -128,6 +128,10 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
       ``mask_adj`` (None: the complete graph); ``mask`` is ignored;
     * ``mask`` -> W_k computed on chip from the edge mask (``W`` ignored);
     * otherwise W X - B U with the given W.
+
+    ``tap(U)``, when given, is called between the two kernels, X still
+    x^k and U the obfuscate kernel's u: the wire-tap capture of
+    `core.pdsgd.pdsgd_update` forms the messages there.
     """
     if (keys is None) == (bits is None):
         raise ValueError("pass exactly one of keys (in-kernel Lambda) or "
@@ -150,6 +154,8 @@ def fused_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                                   out=u_out, partitionable=partitionable)
     else:
         U = obfuscate_update(X, G, bits, lam_bar, 0.0, -1.0, out=u_out)
+    if tap is not None:
+        tap(U)
     x_out = X if in_place else None
     if corrupt is not None:
         out = guarded_gossip_update(mask, B, X, U, clip=guard_clip,
@@ -190,7 +196,8 @@ def ring_pdsgd_flat(w_tab: torch.Tensor, b_tab: torch.Tensor,
                     lam_bar, *, keys: torch.Tensor | None = None,
                     offsets: torch.Tensor | None = None,
                     bits: torch.Tensor | None = None,
-                    in_place: bool = False, observe: bool = False):
+                    in_place: bool = False, observe: bool = False,
+                    observe_fields: tuple = ("x", "u", "v")):
     """Eq. (4) on flat (m, width) buffers through ONE ring kernel: Lambda
     drawn in it from ``keys``/``offsets`` (`ring_obfuscate_gossip_krng`) or
     read from ``bits`` (`ring_obfuscate_gossip`), the obfuscation and the
@@ -201,23 +208,30 @@ def ring_pdsgd_flat(w_tab: torch.Tensor, b_tab: torch.Tensor,
 
     Returns x', or with ``observe`` ``(x', {"x", "u", "v"})``: the f32
     input x (copied before an in-place write), the kernel's own u (m,
-    width) and v (ndirs, m, width), the wire messages sender-major."""
+    width) and v (ndirs, m, width), the wire messages sender-major; only
+    the ``observe_fields`` among them (v always: the kernel writes no u
+    without "u")."""
     if (keys is None) == (bits is None):
         raise ValueError("pass exactly one of keys (in-kernel Lambda) or "
                          "bits")
-    x_obs = X.to(torch.float32, copy=True) if observe else None
+    x_obs = (X.to(torch.float32, copy=True)
+             if observe and "x" in observe_fields else None)
+    capture = (False if not observe
+               else True if "u" in observe_fields else "v")
     out = X if in_place else None
     if keys is not None:
         res = ring_obfuscate_gossip_krng(w_tab, b_tab, perms, X, G, keys,
-                                         offsets, lam_bar, capture=observe,
+                                         offsets, lam_bar, capture=capture,
                                          out=out)
     else:
         res = ring_obfuscate_gossip(w_tab, b_tab, perms, X, G, bits, lam_bar,
-                                    capture=observe, out=out)
+                                    capture=capture, out=out)
     if not observe:
         return res
     x_new, v, u = res
-    return x_new, {"x": x_obs, "u": u, "v": v}
+    flats = {"x": x_obs, "u": u, "v": v}
+    return x_new, {k: t for k, t in flats.items()
+                   if k in observe_fields or k == "v"}
 
 
 def ring_pdsgd_tree(w_tab, b_tab, perms, x_tree, g_tree, lam_bar, *,

@@ -25,7 +25,11 @@ CORRUPT_MODES = ("nan", "inf", "scale")
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32).to(device)
+    """v as an f32 tensor on ``device``; a python number is a fill there,
+    not a host copy (legal inside a CUDA graph's capture)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
 def obfuscate_ref(x: torch.Tensor, g: torch.Tensor, bits: torch.Tensor,
@@ -95,7 +99,7 @@ def masked_gossip_krng_ref(key: torch.Tensor, keep_prob, adj: torch.Tensor,
     """`masked_gossip_ref` on the mask drawn from ``prng.bits(key, (m,
     m))``: ``(out, mask)``."""
     m = X.shape[0]
-    bits = prng.bits(key.to(torch.int64).cpu(), (m, m)).to(X.device)
+    bits = prng.bits(key.to(device=X.device, dtype=torch.int64), (m, m))
     mask = mask_from_bits(bits, keep_prob, adj.to(X.device))
     return masked_gossip_ref(mask, B, X, U), mask
 

@@ -6,7 +6,7 @@
         [--algorithm pdsgd|dsgd|dsgt|dp_dsgd] [--sigma-dp 0.01]
         [--grad-clip-kappa 1.0] [--unroll-k 4]
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
-        [--kernel-layout ring]
+        [--kernel-layout ring] [--privacy-audit]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
@@ -22,10 +22,15 @@ the same trajectory bit for bit, and the history keeps one record per
 logged step either way.  The time-varying topology (``--topology-*``),
 agent faults (``--fault-*``) and the ``--nan-policy`` sentinels are the
 reference's flags, and so is ``--kernel-layout ring`` (the whole update
-as one ring kernel; needs ``--topology ring``); none of them, nor the
-xLSTM family, runs under ``--unroll-k > 1`` yet (ROADMAP 0a).  The
-leafwise layout of sharded agents, checkpoints, resume, rollback,
-prefetch and the privacy audit are not ported yet.
+as one ring kernel; needs ``--topology ring``).  A time-varying topology
+runs under ``--unroll-k > 1`` (its W_k realized in the graph from the
+device step counter); faults, the sentinels, the ring layout and the
+xLSTM family do not yet (ROADMAP 0a).  ``--privacy-audit`` runs
+`launch.audit` after training with the run's agents, clip, dropout and
+seed, writes ``privacy_report.json`` to the working directory and prints
+the reference's summary line.  The leafwise layout of sharded agents,
+checkpoints (and with them the audit's ``run_meta`` stamp), resume,
+rollback and prefetch are not ported yet.
 """
 from __future__ import annotations
 
@@ -49,8 +54,8 @@ from ..kernels.build import to_device
 from ..models import build_model
 from .steps import per_step_keys
 
-__all__ = ["build_parser", "build_mixing", "build_faults", "run_training",
-           "main"]
+__all__ = ["build_parser", "build_mixing", "build_faults", "audit_config",
+           "run_training", "main"]
 
 FAULT_COUNTERS = ("fault_down", "fault_corrupt", "fault_rejoin",
                   "fault_nonfinite")
@@ -120,6 +125,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "before the update (Theorem 5's bounded-gradient "
                         "premise; see core.privacy.clip_gradients / "
                         "lambda_stats)")
+    p.add_argument("--privacy-audit", action="store_true",
+                   help="after training, run the launch.audit adversary "
+                        "suite (parity, Theorem-5 estimators, inversion "
+                        "attacks) with this run's agents, clip, dropout "
+                        "and seed, and write privacy_report.json to the "
+                        "working directory")
     p.add_argument("--sigma-dp", type=float, default=0.0,
                    help="noise scale of --algorithm dp_dsgd")
     p.add_argument("--unroll-k", type=int, default=1,
@@ -166,12 +177,22 @@ def build_faults(args):
                        seed=fault_seed)
 
 
+def audit_config(args):
+    """The `launch.audit.AuditConfig` of ``--privacy-audit``: the paper's
+    estimation workload under this run's agents, clip, dropout and seed,
+    as the reference builds it."""
+    from .audit import AuditConfig
+    return AuditConfig(agents=args.agents, kappa=args.grad_clip_kappa,
+                       dropout=args.topology_dropout, seed=args.seed)
+
+
 def run_training(args, cfg=None, init_params=None,
                  kernel_rng: bool = True) -> dict:
     """Run the training loop (chunks of ``--unroll-k`` steps through the
     scanned step, then the eager loop); returns ``{"state", "history",
-    "fault_totals", "replayed_launches"}`` (the last: the kernels the
-    CUDA graph's replays ran, from its capture, `make_scanned_steps`).
+    "fault_totals", "replayed_launches", "privacy_audit"}`` (the kernels
+    the CUDA graph's replays ran, from its capture, `make_scanned_steps`;
+    the ``--privacy-audit`` report, or None).
 
     ``cfg`` overrides ``--arch`` (e.g. a depth-cut config object);
     ``init_params`` (a single-agent tree) replaces the random init from a
@@ -287,10 +308,25 @@ def run_training(args, cfg=None, init_params=None,
         summary = {"fault_summary": dict(fault_totals)}
         history.append(summary)
         print(json.dumps(summary), flush=True)
+    audit_report = None
+    if args.privacy_audit:
+        from .audit import run_audit
+        out_path = "privacy_report.json"
+        audit_report = run_audit(audit_config(args), out=out_path,
+                                 device=device)
+        print(json.dumps({
+            "privacy_audit": "ok" if audit_report["ok"] else "FAILED",
+            "parity_all_pass": audit_report["parity"]["all_pass"],
+            "pdsgd_recovery_mse":
+                audit_report["attacks"]["pdsgd_ls_recovery_mse"],
+            "theorem5_mse_bound":
+                audit_report["attacks"]["theorem5_mse_bound"],
+            "report": out_path}), flush=True)
     return {"state": state, "history": history,
             "fault_totals": fault_totals,
             "replayed_launches": (scanned.replayed_launches()
-                                  if scanned is not None else {})}
+                                  if scanned is not None else {}),
+            "privacy_audit": audit_report}
 
 
 def main(argv=None) -> int:

@@ -192,11 +192,29 @@ def test_run_training_unroll_2_equals_unroll_1_bitwise(extra):
 @pytest.mark.parametrize("extra", [
     ("--topology-dropout", "0.25"),
     ("--topology-resample-every", "2"),
+    ("--topology-resample-every", "3")],
+    ids=["dropout", "resample", "resample_3"])
+def test_unroll_k_runs_time_varying_mixing_bitwise(extra):
+    """A time-varying topology under --unroll-k 4: two chunks of 4 through
+    the scanned step (on the card a CUDA graph realizing each W_k from the
+    device counter) against 8 eager steps — the same state bits and the
+    same history.  Resample periods 2 and 3 put a redraw inside a chunk
+    (3 at a different offset in each chunk)."""
+    a = run_training(_train_flags(8, *extra))
+    b = run_training(_train_flags(8, "--unroll-k", "4", *extra))
+    assert _same(a["state"].flat, b["state"].flat)
+    strip = lambda h: [{k: v for k, v in r.items() if k != "elapsed_s"}
+                       for r in h]
+    assert strip(a["history"]) == strip(b["history"])
+    assert [r["step"] for r in b["history"]] == list(range(8))
+
+
+@pytest.mark.parametrize("extra", [
     ("--fault-crash-rate", "0.2", "--fault-restart-rate", "0.5"),
     ("--nan-policy", "warn"),
     ("--kernel-layout", "ring"),
     ("--arch", "xlstm-125m-tiny")],
-    ids=["dropout", "resample", "faults", "nan_policy", "ring", "xlstm"])
+    ids=["faults", "nan_policy", "ring", "xlstm"])
 def test_unroll_k_refuses_what_the_graph_does_not_hold(extra):
     """--unroll-k > 1 raises a ValueError naming ROADMAP 0a, on any
     device, before a step runs."""
@@ -261,12 +279,18 @@ def test_cuda_graph_replay_equals_eager_bitwise(kw):
 
 
 @pytest.mark.gpu
-def test_cuda_run_training_unroll_equals_eager_smoke_model():
+@pytest.mark.parametrize("extra", [(), ("--topology-dropout", "0.3"),
+                                   ("--topology-resample-every", "3")],
+                         ids=["static", "dropout", "resample"])
+def test_cuda_run_training_unroll_equals_eager_smoke_model(extra):
     """stablelm-3b-smoke on the card: --unroll-k 2 over 4 steps (a warm-up
-    chunk and a replay) against 4 eager steps, the same state bits."""
+    chunk and a replay) against 4 eager steps, the same state bits; with
+    a time-varying topology the replay realizes W_k on the card (resample
+    3: the redraw at step 3 falls inside the replayed chunk)."""
     _need_cuda()
     flags = ["--arch", "stablelm-3b-smoke", "--agents", "4", "--steps",
-             "4", "--log-every", "1", "--seq-len", "32", "--seed", "2"]
+             "4", "--log-every", "1", "--seq-len", "32", "--seed", "2",
+             *extra]
     a = run_training(build_parser().parse_args(flags))
     b = run_training(build_parser().parse_args(flags + ["--unroll-k",
                                                         "2"]))
