@@ -46,6 +46,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               --topology-resample-every 4 and 3 (3: redraws inside the
               replayed chunks); the states equal bit for bit;
               B4's launches from the capture
+  checkpoint_path  the main path with --unroll-k 4: 12 steps
+              uninterrupted; 4 with --checkpoint-every 4 --keep-last 1,
+              then --resume to 12 (a new graph's warm-up chunk, then one
+              replay); gates: the manifest holds [4] and no staging
+              debris, the resumed state equal to the uninterrupted one
+              bit for bit, the losses of steps 4-11 equal, the warm-up's
+              and the replay's launches; then 8 steps under
+              --checkpoint-sync, the thread and the subprocess writer: ms
+              a replayed step beside checkpointing off, the caller's ms a
+              save, the writer's s a commit, bytes, peak device memory,
+              host peak RSS and each child's, load s; gate: the
+              three step-8 archives equal leaf for leaf
+              (build/chip_checkpoints/, removed after; it fails without
+              room for three archives)
+  rollback_path  stablelm-3b-smoke f32: nan-corrupt senders, guard off,
+              --nan-policy warn, checkpoints every 2 steps: two rollbacks,
+              then the exhaustion error (B3 + B6); gate: records and
+              error equal to a CPU run's
   privacy_audit  launch/audit.main on the card at the reference's defaults
               (m 5, dim 3, 8 parity steps, 40 attack steps, 200,000
               samples; B3 + B2), then with --topology-dropout 0.3 (B4 in
@@ -187,6 +205,7 @@ import gc
 import itertools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1985,11 +2004,12 @@ def phase_fig2_path(torch, K, prng):
           "replays": replays, "traced_replay": trace})
 
 
-def _ms_per_step(hist, first: int) -> float:
-    """Host ms a step between the records of steps ``first`` and the last
-    (each record's time is taken after its step's, or chunk's, sync)."""
+def _ms_per_step(hist, first: int, last: int | None = None) -> float:
+    """Host ms a step between the records of steps ``first`` and ``last``
+    (default: the last; each record's time is taken after its step's, or
+    chunk's, sync)."""
     recs = {r["step"]: r["elapsed_s"] for r in hist if "step" in r}
-    last = max(recs)
+    last = max(recs) if last is None else last
     return (recs[last] - recs[first]) / (last - first) * 1e3
 
 
@@ -2103,6 +2123,332 @@ def phase_dropout_path_scanned(torch, K, train, cfg):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+CKPT_EVERY = 4
+CKPT_DIR = ROOT / "build" / "chip_checkpoints"
+CKPT_WRITERS = (("sync", ("--checkpoint-sync",)),
+                ("thread", ("--checkpoint-writer", "thread")),
+                ("subprocess", ("--checkpoint-writer", "subprocess")))
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def _peak_rss() -> int:
+    """This process's peak resident bytes on the host."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+class _ChildPeaks:
+    """Polls this process's children (the subprocess writer's commit
+    child, multiprocessing's resource tracker) while a run goes on and
+    keeps each one's peak resident bytes (shared memory it touched
+    included) from /proc/<pid>/status: VmHWM, its high-water mark since
+    its exec, where the kernel gives it, else the largest VmRSS seen by
+    the polls (a sampled peak; the field is recorded).  RUSAGE_CHILDREN
+    cannot tell them: an exec'd child's ru_maxrss starts from its
+    parent's peak.  Children are the processes whose parent pid is this
+    one's, and multiprocessing's live children."""
+
+    def __init__(self, every_s: float = 0.2):
+        import threading
+        self.peaks: dict[int, dict] = {}
+        self.polls = 0
+        self._stop = threading.Event()
+        self._every = every_s
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+    @staticmethod
+    def _children() -> set[str]:
+        import multiprocessing as mp
+        me = str(os.getpid())
+        pids = {str(p.pid) for p in mp.active_children()}
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if stat[stat.rindex(")") + 2:].split()[1] == me:
+                pids.add(pid)
+        return pids
+
+    def _poll(self) -> None:
+        while True:
+            for pid in self._children():
+                try:
+                    with open(f"/proc/{pid}/status") as f:
+                        vm = dict(l.split(":", 1) for l in f
+                                  if l.startswith(("VmHWM:", "VmRSS:")))
+                    field = "VmHWM" if "VmHWM" in vm else "VmRSS"
+                    peak = int(vm[field].split()[0]) * 1024
+                    with open(f"/proc/{pid}/cmdline", "rb") as f:
+                        cmd = f.read().replace(b"\0", b" ").decode()[:120]
+                except (OSError, ValueError, KeyError):
+                    continue  # gone, or a kernel thread without either
+                rec = self.peaks.setdefault(
+                    int(pid), {"cmd": cmd, "field": field, "peak_rss": 0})
+                rec["peak_rss"] = max(rec["peak_rss"], peak)
+            self.polls += 1
+            if self._stop.wait(self._every):
+                return
+
+
+def _archive_digests(step_dir: Path) -> dict:
+    """sha256 of every entry of a step's arrays.npz (one leaf's npy
+    header and words each), read as a stream, and of its tree.json."""
+    import hashlib
+    import zipfile
+    out = {}
+    with zipfile.ZipFile(step_dir / "arrays.npz") as zf:
+        for name in zf.namelist():
+            h = hashlib.sha256()
+            with zf.open(name) as f:
+                for block in iter(lambda: f.read(1 << 26), b""):
+                    h.update(block)
+            out[name] = h.hexdigest()
+    out["tree.json"] = hashlib.sha256(
+        (step_dir / "tree.json").read_bytes()).hexdigest()
+    return out
+
+
+def _step_dirs(d: Path) -> list[str]:
+    return sorted(p.name for p in d.iterdir())
+
+
+def _writer_record(res, step_dir: Path, wall, peak, children) -> dict:
+    times, hist = res["checkpoint"], res["history"]
+    return {"ms_per_step_replayed_3_7": _ms_per_step(hist, 3, 7),
+            "save_ms": [t * 1e3 for t in times["save_s"]],
+            "commit_s": times["commit_s"],
+            "archive_bytes": (step_dir / "arrays.npz").stat().st_size,
+            "run_wall_s": wall, "max_memory_allocated": peak,
+            "host_peak_rss": _peak_rss(),
+            "children_peak_rss": list(children.peaks.values()),
+            "children_polls": children.polls}
+
+
+def phase_checkpoint_path(torch, K, train, cfg):
+    """Checkpoints of the main path's configuration (stablelm-3b, depth 8,
+    m 4 on a ring, bf16, --unroll-k 4), one archive the whole 7.15 GB
+    state: 12 steps uninterrupted (checkpointing off); 4 steps with
+    --checkpoint-every 4 --keep-last 1 and the thread writer, then
+    --steps 12 --resume: the load, a new graph's eager warm-up chunk
+    (steps 4-7) and one replay (steps 8-11, its device step counter
+    restarted from the loaded step); gates: the manifest holds [4] and no
+    staging debris, resumed_from 4, the resumed state equal to the
+    uninterrupted one bit for bit (the whole flat buffer, padding
+    included) at step 12, the losses of steps 4-11 equal, B3 and B2
+    counted once a step of the warm-up chunk and replayed once a step of
+    the replay.  Then 8 steps under each writer (--checkpoint-sync, the
+    thread and the subprocess writer); gate: the three writers' step-8
+    archives equal entry by entry (sha256 of each leaf's npy bytes),
+    tree.json too.  Printed for each writer: ms a replayed step over
+    steps 3-7 (one save inside) beside checkpointing off, the caller's ms
+    a save, the writer's seconds a commit, bytes an archive, peak device
+    memory, the host's peak RSS and each child's; and the seconds to
+    load a checkpoint.  At most two checkpoints are on disk at once; the
+    phase fails if the disk has no room for three."""
+    import shutil
+    from repro_torch import checkpoint as ckpt
+    steps, k = SCANNED_STEPS, SCANNED_UNROLL
+    scanned = ("--unroll-k", str(k))
+    every = ("--checkpoint-every", str(CKPT_EVERY), "--keep-last", "1")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    CKPT_DIR.mkdir(parents=True)
+    try:
+        full, _, off_wall, off_peak = _run_path(torch, K, train, cfg, steps,
+                                                True, scanned)
+        ref_state = full["state"]
+        layout = ref_state.layout
+        archive_bytes = sum(
+            math.prod((4,) + s) for s in layout.shapes) * 2 + 4
+        free = shutil.disk_usage(CKPT_DIR).free
+        machine = {"disk_free_bytes": free,
+                   "mem_available_bytes": _mem_available(),
+                   "archive_bytes_estimate": archive_bytes,
+                   "checkpoint_dir": str(CKPT_DIR)}
+        print(json.dumps({"checkpoint_machine": machine}), flush=True)
+        check(free >= 3 * archive_bytes,
+              f"checkpoint_path: {free} B free under {CKPT_DIR}, three "
+              f"archives of the main path need {3 * archive_bytes} B")
+        off = {"ms_per_step_replayed_3_7": _ms_per_step(full["history"], 3,
+                                                        7),
+               "run_wall_s": off_wall, "max_memory_allocated": off_peak}
+        full_losses = {r["step"]: r["loss"] for r in full["history"]}
+        del full
+        # the thread writer: 4 steps, one save at 4, then the resume
+        d = CKPT_DIR / "resume"
+        _run_path(torch, K, train, cfg, CKPT_EVERY, True,
+                  (*scanned, "--checkpoint-dir", str(d), *every), held=True)
+        manifest = json.loads((d / "manifest.json").read_text())
+        on_disk = _step_dirs(d)
+        check(manifest["completed"] == [CKPT_EVERY],
+              f"checkpoint_path manifest {manifest}")
+        check(on_disk == ["manifest.json", ckpt.step_dirname(CKPT_EVERY)],
+              f"checkpoint_path left {on_disk}")
+        res, r_counts, r_wall, r_peak = _run_path(
+            torch, K, train, cfg, steps, True,
+            (*scanned, "--checkpoint-dir", str(d), *every, "--resume"),
+            held=True)
+        state = res["state"]
+        check(res["resumed_from"] == CKPT_EVERY and state.step == steps,
+              f"resumed_from {res['resumed_from']}, step {state.step}")
+        same = same_bits(torch, state.flat, ref_state.flat)
+        check(same, "checkpoint_path: the resumed state differs from the "
+                    "uninterrupted run's")
+        r_losses = {r["step"]: r["loss"] for r in res["history"]
+                    if "step" in r}
+        check(r_losses == {s: full_losses[s]
+                           for s in range(CKPT_EVERY, steps)},
+              f"checkpoint_path losses {r_losses} vs {full_losses}")
+        # steps 4-7: the new graph's warm-up, counted; 8-11: one replay
+        r_replayed = res["replayed_launches"]
+        for what, c in (("counted", r_counts), ("replayed", r_replayed)):
+            check(all(c.get(b, 0) == k for b in TRACE_NAMES),
+                  f"checkpoint_path resumed {what} launches {c}")
+        check(json.loads((d / "manifest.json").read_text())["completed"]
+              == [steps], "checkpoint_path resumed run's manifest")
+        resume = {"resumed_wall_s": r_wall, "max_memory_allocated": r_peak,
+                  "commit_s": res["checkpoint"]["commit_s"],
+                  "state_equals_uninterrupted_bitwise": same}
+        del res
+        # the seconds to load the step-12 checkpoint into the state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.load_checkpoint(str(d), steps, like=state)
+        torch.cuda.synchronize()
+        resume["load_s"] = time.perf_counter() - t0
+        check(same_bits(torch, state.flat, ref_state.flat),
+              "checkpoint_path: a reload changed the state")
+        del state
+        shutil.rmtree(d)
+        writers, digests = {}, {}
+        for name, flags in CKPT_WRITERS:
+            gc.collect()
+            wd = CKPT_DIR / name
+            with _ChildPeaks() as children:
+                res, _, wall, peak = _run_path(
+                    torch, K, train, cfg, 8, True,
+                    (*scanned, "--checkpoint-dir", str(wd), *every, *flags),
+                    held=True)
+            step8 = wd / ckpt.step_dirname(8)
+            writers[name] = _writer_record(res, step8, wall, peak, children)
+            del res
+            digests[name] = _archive_digests(step8)
+            shutil.rmtree(wd)
+        equal = all(v == digests["thread"] for v in digests.values())
+        check(equal, "checkpoint_path: the writers' step-8 archives differ")
+        check(all(len(v) == layout.n_leaves + 2 for v in digests.values()),
+              "checkpoint_path archive entries")
+        rec = {"phase": "checkpoint_path", "arch": cfg.name,
+               "num_layers": cfg.num_layers, "dtype": cfg.dtype,
+               "agents": 4, "topology": "ring", "per_agent_batch": 2,
+               "seq_len": 512, "unroll_k": k,
+               "checkpoint_every": CKPT_EVERY, "machine": machine,
+               "off": off, "writers": writers, "resume": resume,
+               "archives_equal_leaf_by_leaf": equal,
+               "launches_resumed_counted": r_counts,
+               "launches_resumed_replayed": r_replayed}
+        emit(rec)
+        return rec
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
+ROLLBACK_FLAGS = ("--fault-corrupt-rate", "0.25", "--fault-corrupt-mode",
+                  "nan", "--fault-guard-clip", "0", "--nan-policy", "warn",
+                  "--checkpoint-every", "2", "--rollback-patience", "2",
+                  "--max-rollbacks", "2", "--rollback-backoff", "0")
+ROLLBACK_STEPS = 8
+
+
+def rollback_seed(train, steps: int) -> int:
+    """The first fault seed whose first corrupt sender comes at step 3 or
+    later, so step 2 is a durable, finite checkpoint."""
+    for seed in range(100):
+        faults = train.build_faults(_path_args(
+            train, steps, (*ROLLBACK_FLAGS, "--fault-seed", str(seed))))
+        first = next((s for s in range(steps)
+                      if bool(faults.realize(s)[1].any())), None)
+        if first is not None and 3 <= first <= 5:
+            return seed
+    raise AssertionError("no fault seed below 100 fits the rollback path")
+
+
+def _rollback_run(train, cfg, argv_extra, device, d: Path):
+    """run_training, which must fail with the exhaustion RuntimeError;
+    returns its rollback records and the error's text."""
+    import contextlib
+    import io as _io
+    import shutil
+    shutil.rmtree(d, ignore_errors=True)
+    args = _path_args(train, ROLLBACK_STEPS,
+                      (*argv_extra, "--checkpoint-dir", str(d)), seq_len=32)
+    args.device = device
+    out = _io.StringIO()
+    err = None
+    try:
+        with contextlib.redirect_stdout(out):
+            train.run_training(args, cfg=cfg)
+    except RuntimeError as e:
+        err = str(e)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    recs = [json.loads(ln) for ln in out.getvalue().splitlines()
+            if ln.startswith("{") and '"rollback"' in ln]
+    return recs, err
+
+
+def phase_rollback_path(torch, K, train, cfg):
+    """stablelm-3b-smoke in f32 on the card with nan-corrupt senders, the
+    guard off, --nan-policy warn, --checkpoint-every 2,
+    --rollback-patience 2, --max-rollbacks 2, --rollback-backoff 0 (B3 +
+    B6 every step).  Gates: the run fails with the exhaustion error after
+    two rollbacks, and its rollback records and error equal a CPU run's
+    of the port."""
+    seed = rollback_seed(train, ROLLBACK_STEPS)
+    extra = (*ROLLBACK_FLAGS, "--fault-seed", str(seed))
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs, err = _rollback_run(train, cfg, extra, "cuda",
+                              CKPT_DIR / "rollback_cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    cpu_recs, cpu_err = _rollback_run(train, cfg, extra, "cpu",
+                                      CKPT_DIR / "rollback_cpu")
+    check(err is not None and "stayed non-finite through 2 rollback(s)"
+          in err, f"rollback_path error {err!r}")
+    check([r["rollback"] for r in recs] == [1, 2],
+          f"rollback_path records {recs}")
+    check((recs, err) == (cpu_recs, cpu_err),
+          f"rollback_path: card {recs} {err!r}, CPU {cpu_recs} {cpu_err!r}")
+    check(counts.get("obfuscate_update_krng", 0) > 0
+          and counts.get("guarded_gossip_update", 0) > 0,
+          f"rollback_path launches {counts}")
+    rec = {"phase": "rollback_path", "arch": cfg.name, "dtype": cfg.dtype,
+           "agents": 4, "seq_len": 32, "steps": ROLLBACK_STEPS,
+           "flags": list(extra), "records": recs, "error": err,
+           "records_equal_cpu": True, "run_wall_s": wall,
+           "launches": counts}
+    emit(rec)
+    return rec
 
 
 # theta of Theorem 5 at kappa = 5 (Remark 5), the estimators' target
@@ -3256,6 +3602,12 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_dropout_path_scanned(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_checkpoint_path(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_rollback_path(torch, K, train, get_config("stablelm-3b-smoke"))
         gc.collect()
         torch.cuda.empty_cache()
         phase_privacy_audit(torch, K)

@@ -522,6 +522,10 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
         in_place=in_place, partitionable=partitionable,
         tap=((lambda U: _tap_record(rec, fields, W, B, X, U, D))
              if observe else None))
+    if corrupt is not None:
+        # a poisoned transmit covers the row's padding too; the padding
+        # stays zero (a checkpoint does not hold it: the reference has none)
+        out[:, layout.size:].zero_()
     if not observe:
         return out
     return out, O.full_record(v=rec.pop("v"), **rec)

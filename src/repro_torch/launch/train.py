@@ -7,6 +7,7 @@
         [--grad-clip-kappa 1.0] [--unroll-k 4]
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
         [--kernel-layout ring] [--privacy-audit]
+        [--checkpoint-dir ck --checkpoint-every 50 [--resume]]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
@@ -27,20 +28,41 @@ runs under ``--unroll-k > 1`` (its W_k realized in the graph from the
 device step counter); faults, the sentinels, the ring layout and the
 xLSTM family do not yet (ROADMAP 0a).  ``--privacy-audit`` runs
 `launch.audit` after training with the run's agents, clip, dropout and
-seed, writes ``privacy_report.json`` to the working directory and prints
-the reference's summary line.  The leafwise layout of sharded agents,
-checkpoints (and with them the audit's ``run_meta`` stamp), resume,
-rollback and prefetch are not ported yet.
+seed, writes ``privacy_report.json`` next to the checkpoints (or to the
+working directory) and prints the reference's summary line.
+
+Checkpoints (``--checkpoint-dir``, ``--checkpoint-every``) hold the whole
+`DecentralizedState` (parameters, the step counter, DSGT's tracker) in
+the reference's ``arrays.npz`` + ``tree.json`` layout (`checkpoint`).
+A save clones the state on the card and a writer thread (or, with
+``--checkpoint-writer subprocess``, a child process) commits it;
+``--checkpoint-sync`` commits on the loop's thread.  ``--keep-last`` /
+``--keep-every`` bound the disk, and a terminal checkpoint is always
+written.  ``--resume`` restores the newest complete step into the
+state's own buffers and continues from its step counter, so batches,
+keys and draws of consumed steps are never re-issued; it refuses a
+checkpoint written under other mixing or fault flags.  The mixing and
+fault fingerprints and the audit's configuration go into every
+checkpoint's ``run`` metadata, as in the reference.  With a checkpoint
+directory, ``--rollback-patience`` non-finite steps in a row restore the
+newest durable checkpoint (after ``--rollback-backoff`` seconds,
+doubling), at most ``--max-rollbacks`` times before the run fails; the
+sentinels run only in the eager loop, so rollback does too (ROADMAP 0a).
+The scanned loop takes its chunks from `data.prefetch_chunks`, built
+``--prefetch-depth`` chunks ahead on a worker thread.  The leafwise
+layout of sharded agents is not ported yet (ROADMAP 7).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
-import numpy as np
 import torch
 
+from ..checkpoint import (CheckpointManager, latest_step, load_checkpoint,
+                          read_run_meta)
 from ..configs import get_config
 from ..core import prng
 from ..core.mixing import make_mixing
@@ -48,14 +70,14 @@ from ..core.pdsgd import (ALGORITHMS, init_state, make_decentralized_step,
                           make_scanned_steps)
 from ..core.schedules import warmup_harmonic
 from ..core.topology import make_topology
-from ..data import make_lm_pipeline
+from ..data import make_lm_pipeline, make_placer, prefetch_chunks
 from ..faults import make_faults
 from ..kernels.build import to_device
 from ..models import build_model
 from .steps import per_step_keys
 
 __all__ = ["build_parser", "build_mixing", "build_faults", "audit_config",
-           "run_training", "main"]
+           "run_meta", "run_training", "main"]
 
 FAULT_COUNTERS = ("fault_down", "fault_corrupt", "fault_rejoin",
                   "fault_nonfinite")
@@ -129,13 +151,45 @@ def build_parser() -> argparse.ArgumentParser:
                    help="after training, run the launch.audit adversary "
                         "suite (parity, Theorem-5 estimators, inversion "
                         "attacks) with this run's agents, clip, dropout "
-                        "and seed, and write privacy_report.json to the "
-                        "working directory")
+                        "and seed, and write privacy_report.json next to "
+                        "the checkpoints (or to the working directory); "
+                        "the audit config goes into checkpoint run_meta")
+    p.add_argument("--max-rollbacks", type=int, default=3,
+                   help="checkpoint rollbacks attempted on a sustained "
+                        "non-finite streak before the run fails")
+    p.add_argument("--rollback-patience", type=int, default=2,
+                   help="consecutive non-finite steps before a rollback "
+                        "fires")
+    p.add_argument("--rollback-backoff", type=float, default=0.5,
+                   help="base rollback delay in seconds, doubling per "
+                        "rollback")
     p.add_argument("--sigma-dp", type=float, default=0.0,
                    help="noise scale of --algorithm dp_dsgd")
     p.add_argument("--unroll-k", type=int, default=1,
                    help="steps per call of the scanned step (a CUDA graph "
                         "of K steps on the card); 1 = eager")
+    p.add_argument("--prefetch-depth", type=int, default=2,
+                   help="chunks built ahead by the prefetch thread")
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=50)
+    p.add_argument("--checkpoint-sync", action="store_true",
+                   help="commit checkpoints on the loop's thread (blocks "
+                        "the loop; default is the writer thread)")
+    p.add_argument("--checkpoint-writer", default=None,
+                   choices=["thread", "subprocess"],
+                   help="async writer: 'thread' (default) commits on a "
+                        "daemon thread; 'subprocess' ships the "
+                        "serialization to a spawned child (same manifest "
+                        "and retention)")
+    p.add_argument("--keep-last", type=int, default=None,
+                   help="retain only this many newest checkpoints "
+                        "(default: keep all)")
+    p.add_argument("--keep-every", type=int, default=None,
+                   help="additionally pin every step divisible by this, "
+                        "exempt from --keep-last")
+    p.add_argument("--resume", action="store_true",
+                   help="restore the latest full state (with its step "
+                        "counter) from --checkpoint-dir and continue")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--per-agent-batch", type=int, default=2)
     p.add_argument("--seq-len", type=int, default=64)
@@ -186,13 +240,29 @@ def audit_config(args):
                        dropout=args.topology_dropout, seed=args.seed)
 
 
+def run_meta(args, mixing, faults) -> dict:
+    """The ``run`` metadata every checkpoint records: the mixing
+    fingerprint, the fault fingerprint when faults are on, and under
+    ``--privacy-audit`` the audit's fingerprint (the reference's keys)."""
+    meta = {"mixing": mixing.fingerprint()}
+    if faults is not None:
+        meta["faults"] = faults.fingerprint()
+    if args.privacy_audit:
+        from .audit import audit_fingerprint
+        meta["privacy_audit"] = audit_fingerprint(audit_config(args))
+    return meta
+
+
 def run_training(args, cfg=None, init_params=None,
                  kernel_rng: bool = True) -> dict:
     """Run the training loop (chunks of ``--unroll-k`` steps through the
     scanned step, then the eager loop); returns ``{"state", "history",
-    "fault_totals", "replayed_launches", "privacy_audit"}`` (the kernels
-    the CUDA graph's replays ran, from its capture, `make_scanned_steps`;
-    the ``--privacy-audit`` report, or None).
+    "resumed_from", "rollbacks", "checkpoint", "fault_totals",
+    "replayed_launches", "privacy_audit"}`` (``checkpoint``: the
+    manager's save and commit seconds, `CheckpointManager.timings`, or
+    None; ``replayed_launches``: the kernels the CUDA graph's replays ran,
+    from its capture, `make_scanned_steps`; the ``--privacy-audit``
+    report, or None).
 
     ``cfg`` overrides ``--arch`` (e.g. a depth-cut config object);
     ``init_params`` (a single-agent tree) replaces the random init from a
@@ -200,8 +270,8 @@ def run_training(args, cfg=None, init_params=None,
     the obfuscate kernel gets Lambda's bits (`core.pdsgd.pdsgd_update`).
     A step record carries the B-connectivity window fields when a window
     is on and the cumulative fault counters when faults or sentinels are;
-    with either, a last record ``{"fault_summary": ...}`` closes the
-    history.
+    with either, a last record ``{"fault_summary": ..., "rollbacks": ...}``
+    closes the history.
     """
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -227,6 +297,14 @@ def run_training(args, cfg=None, init_params=None,
         raise ValueError("--unroll-k > 1: the xLSTM family does not run "
                          "under the CUDA graph of steps yet (ROADMAP 0a); "
                          "use --unroll-k 1")
+    if args.checkpoint_dir and args.checkpoint_every < 1:
+        raise ValueError("--checkpoint-every must be >= 1 (omit "
+                         "--checkpoint-dir to disable checkpoints)")
+    if args.resume and not args.checkpoint_dir:
+        raise ValueError("--resume requires --checkpoint-dir")
+    if args.checkpoint_sync and args.checkpoint_writer:
+        raise ValueError("--checkpoint-sync and --checkpoint-writer "
+                         "are mutually exclusive")
     bundle = build_model(cfg)
     mixing = build_mixing(args)
     faults = build_faults(args)
@@ -248,6 +326,7 @@ def run_training(args, cfg=None, init_params=None,
     pipeline = make_lm_pipeline(cfg.vocab_size, args.agents,
                                 args.per_agent_batch, args.seq_len,
                                 seed=args.seed)
+    place = make_placer(device)
     if init_params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
@@ -257,8 +336,25 @@ def run_training(args, cfg=None, init_params=None,
     del init_params
     key = prng.key(args.seed + 1)
 
+    # Opened before resume is selected: opening recovers a predecessor's
+    # crash debris (a step parked mid-re-save is renamed back), so
+    # latest_step sees everything recoverable; a fresh run clears stale
+    # steps, which would otherwise poison retention or a later --resume.
+    meta = run_meta(args, mixing, faults)
+    manager = None
+    if args.checkpoint_dir:
+        manager = CheckpointManager(
+            args.checkpoint_dir, keep_last=args.keep_last,
+            keep_every=args.keep_every,
+            writer=("sync" if args.checkpoint_sync
+                    else args.checkpoint_writer or "thread"),
+            fresh=not args.resume, run_meta=meta)
+
     history: list[dict] = []
     fault_totals: dict[str, int] = {}
+    rollbacks = 0
+    streak = 0  # consecutive non-finite steps
+    warned_no_rollback = False
     t0 = time.perf_counter()
 
     def logged(k: int) -> bool:
@@ -276,42 +372,133 @@ def run_training(args, cfg=None, init_params=None,
         history.append(rec)
         print(json.dumps(rec), flush=True)
 
-    k = 0
-    # the scanned loop: whole chunks of --unroll-k steps, one sync a chunk
-    while scanned is not None and args.steps - k >= args.unroll_k:
-        with torch.profiler.record_function(f"train_chunk_{k}"):
-            per_step = [pipeline.batch_at(k + i)
-                        for i in range(args.unroll_k)]
-            batches = {name: torch.from_numpy(np.stack(
-                [b[name] for b in per_step])) for name in per_step[0]}
-            state, aux = scanned(state, batches,
-                                 per_step_keys(key, k, args.unroll_k))
-        losses = aux["loss"].tolist()
-        cons = aux["consensus_error"].tolist()
-        for i in range(args.unroll_k):
-            if logged(k + i):
-                log(k + i, losses[i], cons[i])
-        k += args.unroll_k
-    # the eager loop: the whole run at --unroll-k 1, the tail otherwise
-    for k in range(k, args.steps):
-        # the range names each step in a torch.profiler trace
-        with torch.profiler.record_function(f"train_step_{k}"):
-            batch = {name: to_device(torch.from_numpy(v), device)
-                     for name, v in pipeline.batch_at(k).items()}
-            state, aux = step(state, batch, prng.fold_in(key, k))
-        for name in FAULT_COUNTERS:
-            if name in aux:
-                fault_totals[name] = fault_totals.get(name, 0) + aux[name]
-        if logged(k):
-            log(k, float(aux["loss"]), float(aux["consensus_error"]))
+    def checkpoint_due(k_prev: int, k_next: int) -> bool:
+        # (k_prev, k_next] crosses a --checkpoint-every boundary; the
+        # scanned loop saves at chunk ends only
+        return manager is not None and (
+            k_next // args.checkpoint_every > k_prev // args.checkpoint_every)
+
+    def warn_once(text: str) -> None:
+        nonlocal warned_no_rollback
+        if not warned_no_rollback:
+            warned_no_rollback = True
+            print(json.dumps({"warning": text}), flush=True)
+
+    def try_rollback(state):
+        """After --rollback-patience non-finite steps in a row, restore the
+        newest durable checkpoint in place after an exponential backoff,
+        at most --max-rollbacks times (batches, keys and fault draws come
+        from the absolute step, so a replay meets the same failure; the
+        retries buy time for transient causes, then the run fails).
+        Returns ``(state, restored_step or None)``."""
+        nonlocal rollbacks, streak
+        if streak < args.rollback_patience:
+            return state, None
+        if manager is None:
+            warn_once("sustained non-finite state but no --checkpoint-dir; "
+                      "rollback unavailable (nan-policy sentinels still "
+                      "hold the last finite state)")
+            return state, None
+        if rollbacks >= args.max_rollbacks:
+            raise RuntimeError(
+                f"training state stayed non-finite through {rollbacks} "
+                f"rollback(s) (--max-rollbacks={args.max_rollbacks}); "
+                "the failure replays deterministically — fix the fault "
+                "config instead of retrying")
+        manager.wait()  # only committed steps are rollback targets
+        last = latest_step(args.checkpoint_dir)
+        if last is None:
+            warn_once("sustained non-finite state before any durable "
+                      "checkpoint; rollback unavailable")
+            return state, None
+        time.sleep(args.rollback_backoff * (2 ** rollbacks))
+        rollbacks += 1
+        streak = 0
+        state = load_checkpoint(args.checkpoint_dir, last, like=state)
+        rec = {"rollback": rollbacks, "restored_step": last}
+        history.append(rec)
+        print(json.dumps(rec), flush=True)
+        return state, last
+
+    start = 0
+    try:
+        if args.resume:
+            state = _resume(args, state, meta)
+            start = state.step
+        k = start
+        # the scanned loop: whole chunks of --unroll-k steps, one sync a
+        # chunk, built ahead by the prefetch thread
+        n_chunks = (args.steps - k) // args.unroll_k if scanned else 0
+        if n_chunks > 0:
+            if manager is not None and args.checkpoint_every % args.unroll_k:
+                print(json.dumps({
+                    "warning": f"checkpoint_every={args.checkpoint_every} "
+                               f"is not a multiple of unroll_k="
+                               f"{args.unroll_k}: checkpoints land on chunk "
+                               "boundaries only"}), flush=True)
+            with prefetch_chunks(pipeline, args.unroll_k, start_step=k,
+                                 num_chunks=n_chunks, place=place,
+                                 depth=args.prefetch_depth) as chunks:
+                for chunk in chunks:
+                    with torch.profiler.record_function(f"train_chunk_{k}"):
+                        state, aux = scanned(
+                            state, chunk, per_step_keys(key, k, args.unroll_k))
+                    losses = aux["loss"].tolist()
+                    cons = aux["consensus_error"].tolist()
+                    for i in range(args.unroll_k):
+                        if logged(k + i):
+                            log(k + i, losses[i], cons[i])
+                    k_next = k + args.unroll_k
+                    if checkpoint_due(k, k_next):
+                        manager.save(k_next, state)
+                    k = k_next
+        # the eager loop: the whole run at --unroll-k 1, the tail otherwise
+        while k < args.steps:
+            # the range names each step in a torch.profiler trace
+            with torch.profiler.record_function(f"train_step_{k}"):
+                batch = {name: to_device(v, device)
+                         for name, v in place(pipeline.batch_at(k)).items()}
+                state, aux = step(state, batch, prng.fold_in(key, k))
+            for name in FAULT_COUNTERS:
+                if name in aux:
+                    fault_totals[name] = fault_totals.get(name, 0) + aux[name]
+            nonf = aux.get("fault_nonfinite", 0)
+            streak = streak + 1 if nonf else 0
+            if logged(k):
+                log(k, float(aux["loss"]), float(aux["consensus_error"]))
+            if nonf:
+                state, restored = try_rollback(state)
+                if restored is not None:
+                    k = restored
+                    continue
+            # under 'warn' a non-finite step may have poisoned the state:
+            # never make it a rollback target ('skip' held the last finite)
+            if checkpoint_due(k, k + 1) and not (
+                    nonf and args.nan_policy == "warn"):
+                manager.save(k + 1, state)
+            k += 1
+        if manager is not None:
+            # the terminal checkpoint: a finished run resumes from its end
+            # (save is idempotent; max(start, steps) is what state.step
+            # holds even when a resume starts past --steps)
+            manager.save(max(start, args.steps), state)
+    finally:
+        if manager is not None:
+            # lands the queued writes; re-raises a writer failure, so the
+            # loop never reports success on a checkpoint that never landed
+            manager.close()
     if faults is not None or args.nan_policy != "off":
-        summary = {"fault_summary": dict(fault_totals)}
+        summary = {"fault_summary": dict(fault_totals),
+                   "rollbacks": rollbacks}
+        if manager is not None:
+            summary["checkpoint_retries"] = manager.retries
         history.append(summary)
         print(json.dumps(summary), flush=True)
     audit_report = None
     if args.privacy_audit:
         from .audit import run_audit
-        out_path = "privacy_report.json"
+        out_path = os.path.join(args.checkpoint_dir or ".",
+                                "privacy_report.json")
         audit_report = run_audit(audit_config(args), out=out_path,
                                  device=device)
         print(json.dumps({
@@ -323,10 +510,56 @@ def run_training(args, cfg=None, init_params=None,
                 audit_report["attacks"]["theorem5_mse_bound"],
             "report": out_path}), flush=True)
     return {"state": state, "history": history,
+            "resumed_from": start or None, "rollbacks": rollbacks,
+            "checkpoint": manager.timings if manager is not None else None,
             "fault_totals": fault_totals,
             "replayed_launches": (scanned.replayed_launches()
                                   if scanned is not None else {}),
             "privacy_audit": audit_report}
+
+
+def _resume(args, state, meta: dict):
+    """``--resume``: the newest complete checkpoint, restored into
+    ``state``'s buffers, after the reference's checks (a checkpoint
+    exists; fault and mixing fingerprints match; its state.step is its
+    directory's step)."""
+    last = latest_step(args.checkpoint_dir)
+    if last is None:
+        # never restart at step 0 silently: re-deriving the keys of
+        # consumed steps is the key reuse the privacy argument forbids
+        raise FileNotFoundError(
+            f"--resume: no checkpoint found under {args.checkpoint_dir!r}; "
+            "drop --resume for a fresh run")
+    stored = read_run_meta(args.checkpoint_dir, last)
+    faults_fp = meta.get("faults")
+    if stored.get("faults") != faults_fp:
+        # a missing key means the run had no faults: None against a
+        # fingerprint refuses too
+        raise ValueError(
+            f"--resume: checkpoint step_{last:08d} was written with fault "
+            f"config {stored.get('faults')}, but this run built "
+            f"{faults_fp}; pass matching --fault-* flags (or start a fresh "
+            "run without --resume)")
+    stored_fp = stored.get("mixing")
+    if stored_fp is None:
+        print(json.dumps({
+            "warning": "checkpoint records no mixing fingerprint "
+                       "(written pre-PR4); cannot verify the --topology* "
+                       "flags match the original run"}), flush=True)
+    elif stored_fp != meta["mixing"]:
+        raise ValueError(
+            f"--resume: checkpoint step_{last:08d} was written with mixing "
+            f"config {stored_fp}, but this run built {meta['mixing']}; "
+            "pass matching --topology* flags (or start a fresh run without "
+            "--resume)")
+    state = load_checkpoint(args.checkpoint_dir, last, like=state)
+    if int(state.step) != last:
+        raise ValueError(
+            f"checkpoint step_{last:08d} holds state.step={int(state.step)}; "
+            "refusing to resume from a mislabeled checkpoint")
+    print(json.dumps({"resumed_from": last, "state_step": int(state.step)}),
+          flush=True)
+    return state
 
 
 def main(argv=None) -> int:

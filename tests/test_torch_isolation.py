@@ -1,6 +1,7 @@
 """The port stands alone: no file under ``src/repro_torch/`` nor
-``chip_smoke.py`` imports jax or the reference package ``repro``, importing
-every port module pulls in no jax, and the entry points default to CUDA."""
+``chip_smoke.py`` imports jax, ml_dtypes (absent on the card's machine) or
+the reference package ``repro``, importing every port module pulls in no
+jax, and the entry points default to CUDA."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,7 @@ import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "ml_dtypes")
 
 
 def _port_files():

@@ -103,3 +103,46 @@ def test_per_agent_bits_bitwise_on_tiny_tree(step):
     D = layout.size
     np.testing.assert_array_equal(got[:, :D], flat_ref)
     assert (got[:, D:] == 0).all()
+
+
+def _normal_oracle(seed, shape, partitionable):
+    """jax's normal from the same threefry words, the inverse error
+    function taken in float64 (scipy)."""
+    from scipy.special import erfinv
+    b = prng._bits64(prng.key(seed), shape, False, partitionable)
+    lo = prng._NORMAL_LO[torch.float32]
+    u = torch.clamp_min(prng.bits_to_uniform(b) * 2.0 + lo, lo).numpy()
+    return erfinv(u.astype(np.float64)) * np.sqrt(2.0)
+
+
+@pytest.mark.parametrize("partitionable", [True, False])
+def test_normal_is_thread_invariant_and_near_float64_oracle(partitionable):
+    """The port's float32 normal does not move with torch's thread count
+    (bitwise over 1-4 threads), and each side of
+    `test_torch_baselines.py::test_normal_against_jax` lies within 92 ulps
+    of a float64 oracle built from the same words, the port no farther
+    than jax plus 3 ulps at any element.  92: XLA's algorithm squares u
+    in float32 before log1p(-u^2), which costs up to 91 ulps in the tails
+    (measured); an element 3524 ulps off, as in that test's one
+    unexplained failure (ROADMAP §C), would show here as the side that
+    moved."""
+    shape = (400, 500)
+    before = torch.get_num_threads()
+    try:
+        draws = []
+        for n in (1, 2, 3, 4):
+            torch.set_num_threads(n)
+            draws.append(prng.normal(prng.key(7), shape,
+                                     partitionable=partitionable).numpy())
+    finally:
+        torch.set_num_threads(before)
+    for d in draws[1:]:
+        np.testing.assert_array_equal(d, draws[0])
+    with jax.threefry_partitionable(partitionable):
+        want = np.asarray(jax.random.normal(jax.random.key(7), shape))
+    oracle = _normal_oracle(7, shape, partitionable)
+    ulp = np.spacing(np.abs(oracle).astype(np.float32)).astype(np.float64)
+    port_gap = np.abs(draws[0] - oracle) / ulp
+    jax_gap = np.abs(want - oracle) / ulp
+    assert port_gap.max() <= 92 and jax_gap.max() <= 92
+    assert (port_gap <= jax_gap + 3).all()
