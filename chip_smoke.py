@@ -10,9 +10,11 @@ all through the port's entry points, and reports what ran.
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # main-, dropout-, fault-, ring- and
                                      # xLSTM train-path steps, of the
-                                     # scanned main path's replayed chunks
-                                     # and of both serve paths' prefills
-                                     # and decode chunks
+                                     # scanned main, fault and ring
+                                     # paths' replayed chunks, of a Fig. 2
+                                     # trimmed-mean replay and of both
+                                     # serve paths' prefills and decode
+                                     # chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -60,10 +62,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               three step-8 archives equal leaf for leaf
               (build/chip_checkpoints/, removed after; it fails without
               room for three archives)
+  fig2_trimmed_mean  the Fig. 2 workload with trimmed-mean aggregation,
+              Markov crash/restart and scale-corrupt senders: 200 steps
+              eager and through a CUDA graph of 100 steps (B3; the
+              trimmed mean is plain torch), bitwise, losses and fault
+              counters equal; --profile traces a replay (idle share)
+  fault_realize  FaultProcess realized on the card from a device counter
+              against the CPU's realization, steps 0-511, Markov,
+              failstop and corrupt, bitwise; the card's log1p against the
+              CPU's over all 2^23 uniforms (diagnostic)
+  fault_path_scanned  the fault path (below) with --unroll-k 4: a warm-up
+              chunk and two replayed chunks (faults realized in the
+              graph, down rows and the skip as where on one held anchor)
+              beside the same 12 steps eager; bitwise, records and fault
+              counters equal; B3 and B6 4 counted + 8 replayed
+  ring_path_scanned  the ring path (below) with --unroll-k 4, static and
+              with Markov crash/restart, each beside 12 eager steps;
+              bitwise; B9 4 + 8
   rollback_path  stablelm-3b-smoke f32: nan-corrupt senders, guard off,
               --nan-policy warn, checkpoints every 2 steps: two rollbacks,
               then the exhaustion error (B3 + B6); gate: records and
               error equal to a CPU run's
+  rollback_path_scanned  the same with --unroll-k 2: non-finite chunks
+              count toward the patience, the prefetch stream restarts at
+              the restored step and the one captured graph replays on
+              (B3 and B6 counted on one warm-up chunk); records and error
+              equal to the CPU's
   privacy_audit  launch/audit.main on the card at the reference's defaults
               (m 5, dim 3, 8 parity steps, 40 attack steps, 200,000
               samples; B3 + B2), then with --topology-dropout 0.3 (B4 in
@@ -157,6 +181,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               4 agents on a ring, bf16, PDSGD, per-agent batch 2, seq 128
               (cut for the sLSTM's host loop), 1 warm-up + 3 timed steps:
               B3 + B2 every step, B11 48 times a step
+  xlstm_train_scanned  xlstm-125m (not cut), 4 agents, seq 128, with
+              --unroll-k 2: a warm-up chunk and two replays of one CUDA
+              graph holding the sLSTM token loop, beside 6 eager steps;
+              bitwise; B11 48 a step counted and replayed; the capture's
+              seconds and the graph's nodes
   xlstm_serve_parity  xlstm-125m-smoke f32, 4 requests on 2 slots: card vs
               CPU
   xlstm_serve_path  launch/serve with --arch xlstm-125m --slots 8
@@ -588,7 +617,7 @@ def phase_kernels_coupled(torch, K):
                   f"B5 m={m} {mode}: differs from the plain version")
             rec[f"B5_{mode}_mask_bitwise"] = True
         # B6: every corrupt mode, guard clip 1e3 and none
-        corrupt = torch.zeros(m)
+        corrupt = torch.zeros(m, device=dev)
         corrupt[1] = corrupt[m - 1] = 1.0
         for dtype in (torch.float32, torch.bfloat16):
             Xg = torch.randn(m, gcols, generator=g, device=dev).to(dtype)
@@ -1521,9 +1550,9 @@ def phase_fault_path(torch, K, train, prng, cfg):
         X, V, lambda_key_table(key_k, k, m, state.layout.n_leaves),
         torch.tensor(state.layout.offsets, dtype=torch.int64),
         torch.tensor(0.01, device=dev), 0.0, -1.0, out=V)
-    Y = K.guarded_gossip_update(mask, B, X, V, clip=1e3, corrupt=corrupt,
-                                mode="nan", scale=1e4)
     cdev = corrupt.to(dev)
+    Y = K.guarded_gossip_update(mask, B, X, V, clip=1e3, corrupt=cdev,
+                                mode="nan", scale=1e4)
     err = ulps = 0.0
     for s, e in _chunks(width):
         x, v = X[:, s:e], V[:, s:e]
@@ -1546,7 +1575,7 @@ def phase_fault_path(torch, K, train, prng, cfg):
             K.ref.poison_transmit(v, cdev, "nan", 1e4), 1e3)
 
     b6 = {"ms": time_ms(torch, lambda: K.guarded_gossip_update(
-              mask, B, X, V, clip=1e3, corrupt=corrupt, mode="nan",
+              mask, B, X, V, clip=1e3, corrupt=cdev, mode="nan",
               scale=1e4, out=Y), iters=10),
           "max_abs_err": err, "max_bf16_ulps_vs_f32": ulps,
           "plain_ms": _plain_ms(torch, plain, width),
@@ -1838,12 +1867,13 @@ SCANNED_STEPS = 12  # a warm-up chunk, then two replayed chunks
 BASELINE_STEPS = 3
 
 
-def _fig2_workload(torch, prng, dev, partitionable: bool):
+def _fig2_workload(torch, prng, dev, partitionable: bool, **step_kw):
     """`benchmarks/run.py::bench_step_path`'s workload on the card: m = 5,
     d = 2, paper_fig1, paper_experiment(0.05), estimation_problem(5, d=2,
     s=3, n_per_agent=100, seed=0), sample indices from default_rng(0),
     keys split(key(0), 600); every draw in the threefry stream
-    ``partitionable`` names."""
+    ``partitionable`` names; ``step_kw`` go to the step (faults,
+    aggregation)."""
     import numpy as np
     from repro_torch.core.pdsgd import make_decentralized_step
     from repro_torch.core.schedules import paper_experiment
@@ -1862,7 +1892,7 @@ def _fig2_workload(torch, prng, dev, partitionable: bool):
 
     step = make_decentralized_step(loss, make_topology("paper_fig1", m),
                                    paper_experiment(0.05),
-                                   partitionable=partitionable)
+                                   partitionable=partitionable, **step_kw)
     keys = prng.split(prng.key(0), FIG2_ITERS, partitionable)
 
     def err(state):
@@ -2123,6 +2153,358 @@ def phase_dropout_path_scanned(torch, K, train, cfg):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+# the fault modes a FaultProcess realizes on the card against the CPU
+FAULT_REALIZE_MODES = {"markov": {"crash_rate": 0.2, "restart_rate": 0.5},
+                       "failstop": {"crash_rate": 0.05},
+                       "corrupt": {"corrupt_rate": 0.25}}
+FAULT_REALIZE_STEPS = 512
+
+
+def phase_fault_realize(torch, prng):
+    """`FaultProcess.realize` from a 0-d int64 counter on the card against
+    the CPU's realization from the int, steps 0..511, 4 agents, in the
+    Markov (FAULT_FLAGS' rates), failstop and corrupt modes: the gate is
+    bitwise.  Diagnostic: the float32 outage-length formula the Markov
+    draw stands for (``1 + floor(log1p(-u) / log1p(-0.5))``), evaluated by
+    the card and by the CPU over all 2^23 uniforms, and log1p's own
+    differences there (the realization compares u with thresholds instead,
+    so it takes no log1p on the card)."""
+    from repro_torch.faults import make_faults
+    dev = torch.device("cuda")
+    rec = {"phase": "fault_realize", "agents": 4,
+           "steps": FAULT_REALIZE_STEPS, "modes": {}}
+    ctr = torch.zeros((), dtype=torch.int64, device=dev)
+    for name, kw in FAULT_REALIZE_MODES.items():
+        faults = make_faults(4, seed=0, **kw)
+        dev_rows, host_rows = [], []
+        for k in range(FAULT_REALIZE_STEPS):
+            ctr.fill_(k)
+            dev_rows.append(torch.stack(faults.realize(ctr)))
+            host_rows.append(torch.stack(faults.realize(k)))
+        got = torch.stack(dev_rows).cpu()
+        want = torch.stack(host_rows)
+        forks = int((got != want).any(dim=2).any(dim=1).sum())
+        check(forks == 0, f"fault_realize {name}: {forks} of "
+                          f"{FAULT_REALIZE_STEPS} steps differ from the CPU")
+        rec["modes"][name] = {
+            "down_agent_steps": int((want[:, 0] == 0).sum()),
+            "corrupt_agent_steps": int((want[:, 1] > 0).sum()),
+            "steps_differing": forks}
+    u_cpu = prng.bits_to_uniform(torch.arange(1 << 23, dtype=torch.int64)
+                                 << 9)
+    c = torch.tensor(math.log1p(-0.5), dtype=torch.float32)
+    lg_cpu = torch.log1p(-u_cpu)
+    lg_dev = torch.log1p(-u_cpu.to(dev)).cpu()
+    ulps = (lg_cpu.view(torch.int32).long()
+            - lg_dev.view(torch.int32).long()).abs()
+    dur_cpu = torch.clamp(1.0 + torch.floor(lg_cpu / c), 1.0, 64.0)
+    dur_dev = torch.clamp(1.0 + torch.floor(
+        lg_dev.to(dev) / c.to(dev)), 1.0, 64.0).cpu()
+    rec["log1p_card_vs_cpu"] = {
+        "uniforms": 1 << 23, "log1p_differing": int((ulps > 0).sum()),
+        "log1p_max_ulps": int(ulps.max()),
+        "outage_lengths_differing": int((dur_cpu != dur_dev).sum())}
+    emit(rec)
+    return rec
+
+
+def fault_seed_replayed(train, flags, steps: int, first: int) -> int:
+    """The first fault seed whose realization has a down agent (and, with
+    a corrupt rate, a corrupt sender) in steps ``first``..``steps - 1``,
+    the replayed chunks of a scanned run."""
+    for seed in range(100):
+        faults = train.build_faults(_path_args(
+            train, steps, (*flags, "--fault-seed", str(seed))))
+        rows = [faults.realize(k) for k in range(first, steps)]
+        if any(bool((a == 0).any()) for a, _ in rows) and (
+                faults.corrupt_rate == 0.0
+                or any(bool(c.any()) for _, c in rows)):
+            return seed
+    raise AssertionError(f"no fault seed below 100 fires in the replays "
+                         f"of {flags}")
+
+
+def _strip_times(hist) -> list[str]:
+    """Step records without their times, as JSON (nan equals nan)."""
+    return [json.dumps({k: v for k, v in r.items() if k != "elapsed_s"})
+            for r in hist]
+
+
+def _scanned_beside_eager(torch, K, train, cfg, extra, kernels: dict,
+                          steps: int = SCANNED_STEPS,
+                          unroll: int = SCANNED_UNROLL,
+                          seq_len: int = 512) -> dict:
+    """run_training with ``extra`` at ``--unroll-k unroll`` (a warm-up chunk,
+    then replayed chunks), then the same steps eagerly.  Gates: finite
+    losses, the states equal bit for bit, the step records (losses,
+    consensus errors, cumulative fault counters) and the fault totals
+    equal; each of ``kernels`` (name -> launches a step) counted that
+    many times a step of the warm-up chunk and, from the capture, of each
+    replay.  Returns the phase's numbers."""
+    res, counts, wall, peak = _run_path(
+        torch, K, train, cfg, steps, True, (*extra, "--unroll-k",
+                                            str(unroll)), seq_len)
+    hist = _step_records(res)
+    losses = [r["loss"] for r in hist]
+    check(all(math.isfinite(l) for l in losses), f"losses {losses}")
+    check(len(hist) == steps and res["state"].step == steps, "steps run")
+    replayed = res["replayed_launches"]
+    for what, c, n in (("counted", counts, unroll),
+                       ("replayed", replayed, steps - unroll)):
+        check(all(c.get(b, 0) == per * n for b, per in kernels.items()),
+              f"scanned {list(extra)} {what} launches {c}")
+    scanned_state, graphs = res["state"], res["graphs"]
+    totals = res["fault_totals"]
+    ms_scanned = _ms_per_step(hist, unroll - 1)
+    del res
+    eager, _, e_wall, e_peak = _run_path(torch, K, train, cfg, steps, True,
+                                         extra, seq_len, held=True)
+    e_hist = _step_records(eager)
+    same = same_bits(torch, scanned_state.flat, eager["state"].flat)
+    check(same, f"scanned {list(extra)}: the graph's state differs from "
+                f"the eager loop's")
+    check(_strip_times(hist) == _strip_times(e_hist),
+          f"scanned {list(extra)}: step records differ from the eager "
+          f"loop's")
+    check(totals == eager["fault_totals"],
+          f"scanned {list(extra)}: fault totals {totals} against "
+          f"{eager['fault_totals']}")
+    out = {"flags": list(extra), "unroll_k": unroll, "steps": steps,
+           "losses": losses, "fault_totals": totals,
+           "ms_per_step_replayed": ms_scanned,
+           "ms_per_step_eager_same_steps": _ms_per_step(e_hist, unroll - 1),
+           "first_chunk_s": hist[unroll - 1]["elapsed_s"],
+           "graphs": graphs, "run_wall_s": wall, "eager_wall_s": e_wall,
+           "max_memory_allocated": peak,
+           "max_memory_allocated_eager": e_peak,
+           "idle_share": "not measured (--profile)",
+           "state_equals_eager_bitwise": same,
+           "records_equal_eager": True,
+           "launches_warmup_counted": counts,
+           "launches_replays_from_capture": replayed}
+    del scanned_state, eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_fault_path_scanned(torch, K, train, cfg):
+    """The fault path (FAULT_FLAGS: Markov crash 0.2 / restart 0.5,
+    nan-corrupt 0.25, guard clip 1e3, --nan-policy skip) through
+    `--unroll-k 4`: a warm-up chunk, then two chunks replayed from the CUDA
+    graph (faults realized in it from the device counter, down rows and
+    the skip as ``where`` on one held anchor), beside the same 12 steps
+    eager; the fault seed puts down agents and corrupt senders in the
+    replays.  Gates: states, step records and fault counters equal; B3
+    and B6 counted 4 on the warm-up and 8 on the replays."""
+    seed = fault_seed_replayed(train, FAULT_FLAGS, SCANNED_STEPS,
+                               SCANNED_UNROLL)
+    extra = (*FAULT_FLAGS, "--fault-seed", str(seed))
+    rec = _scanned_beside_eager(torch, K, train, cfg, extra,
+                                {"obfuscate_update_krng": 1,
+                                 "guarded_gossip_update": 1,
+                                 "gossip_update": 0})
+    check(rec["fault_totals"].get("fault_down", 0) > 0
+          and rec["fault_totals"].get("fault_corrupt", 0) > 0,
+          f"fault_path_scanned totals {rec['fault_totals']}")
+    rec = {"phase": "fault_path_scanned", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "dtype": cfg.dtype, "agents": 4,
+           "topology": "ring", "per_agent_batch": 2, "seq_len": 512,
+           "fault_seed": seed, **rec}
+    emit(rec)
+    return rec
+
+
+RING_FAULT_FLAGS = ("--fault-crash-rate", "0.2", "--fault-restart-rate",
+                    "0.5")
+
+
+def phase_ring_path_scanned(torch, K, train, cfg):
+    """The ring layout (--kernel-layout ring: B9 once a step) through
+    `--unroll-k 4`, static and with Markov crash/restart (the faults the
+    ring carries; the seed puts down agents in the replays), each beside
+    the same 12 steps eager.  Gates: states and step records equal; B9
+    counted 4 on the warm-up and 8 on the replays, no B3 or B2."""
+    out = {}
+    for name, flags in (("static", ()), ("crash_restart", RING_FAULT_FLAGS)):
+        extra = (*RING_FLAGS, *flags)
+        if flags:
+            extra += ("--fault-seed", str(fault_seed_replayed(
+                train, flags, SCANNED_STEPS, SCANNED_UNROLL)))
+        rec = _scanned_beside_eager(torch, K, train, cfg, extra,
+                                    {"ring_obfuscate_gossip_krng": 1,
+                                     "obfuscate_update_krng": 0,
+                                     "gossip_update": 0})
+        rec = {"phase": "ring_path_scanned", "mode": name,
+               "arch": cfg.name, "num_layers": cfg.num_layers,
+               "dtype": cfg.dtype, "agents": 4, "topology": "ring",
+               "per_agent_batch": 2, "seq_len": 512, **rec}
+        emit(rec)
+        out[name] = rec
+    return out
+
+
+def phase_rollback_path_scanned(torch, K, train, cfg):
+    """ROLLBACK_FLAGS with --unroll-k 2 on stablelm-3b-smoke f32: the
+    scanned loop counts non-finite chunks toward --rollback-patience,
+    closes its prefetch stream and restarts it from the restored step,
+    which is loaded into the graph's own buffers.  Gates: the exhaustion
+    error after two rollbacks; the records and the error equal the port's
+    CPU run of the same flags; B3 and B6 counted on one warm-up chunk only
+    (2 steps), so every chunk after it, those after each rollback too,
+    replayed the one captured graph."""
+    seed = rollback_seed(train, ROLLBACK_STEPS)
+    extra = (*ROLLBACK_FLAGS, "--fault-seed", str(seed), "--unroll-k", "2")
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs, err = _rollback_run(train, cfg, extra, "cuda",
+                              CKPT_DIR / "rollback_scanned_cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    cpu_recs, cpu_err = _rollback_run(train, cfg, extra, "cpu",
+                                      CKPT_DIR / "rollback_scanned_cpu")
+    check(err is not None and "stayed non-finite through 2 rollback(s)"
+          in err, f"rollback_path_scanned error {err!r}")
+    check([r["rollback"] for r in recs] == [1, 2],
+          f"rollback_path_scanned records {recs}")
+    check((recs, err) == (cpu_recs, cpu_err),
+          f"rollback_path_scanned: card {recs} {err!r}, CPU {cpu_recs} "
+          f"{cpu_err!r}")
+    check(counts.get("obfuscate_update_krng", 0) == 2
+          and counts.get("guarded_gossip_update", 0) == 2,
+          f"rollback_path_scanned launches {counts}")
+    rec = {"phase": "rollback_path_scanned", "arch": cfg.name,
+           "dtype": cfg.dtype, "agents": 4, "seq_len": 32,
+           "steps": ROLLBACK_STEPS, "flags": list(extra), "records": recs,
+           "error": err, "records_equal_cpu": True, "run_wall_s": wall,
+           "launches_warmup_counted": counts}
+    emit(rec)
+    return rec
+
+
+XLSTM_SCANNED_STEPS = 6
+XLSTM_SCANNED_UNROLL = 2
+
+
+def phase_xlstm_train_scanned(torch, K, train, cfg):
+    """xlstm-125m (12 blocks, not cut), 4 agents, per-agent batch 2, seq
+    128, through `--unroll-k 2`: a warm-up chunk, then two chunks replayed
+    from one CUDA graph that holds the sLSTM token loop unrolled and B11's
+    autograd Function, beside the same 6 steps eager.  Gates: states and
+    step records equal; B3 and B2 counted once a step and B11 48 times a
+    step (4 agents x 6 mLSTM blocks x 2 calls) on the warm-up, and from
+    the capture on the replays.  Reports the capture's seconds and the
+    graph's nodes."""
+    m = 4
+    n_m = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every != 1)
+    check(cfg.num_layers == 12 and cfg.d_model == 768, "full xlstm-125m")
+    rec = _scanned_beside_eager(
+        torch, K, train, cfg, (),
+        {"obfuscate_update_krng": 1, "gossip_update": 1,
+         "ssd_intra_chunk": m * n_m * 2},
+        steps=XLSTM_SCANNED_STEPS, unroll=XLSTM_SCANNED_UNROLL,
+        seq_len=XLSTM_TRAIN_SEQ)
+    graph = rec["graphs"][0] if rec["graphs"] else {}
+    rec = {"phase": "xlstm_train_scanned", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "agents": m, "topology": "ring",
+           "per_agent_batch": 2, "seq_len": XLSTM_TRAIN_SEQ,
+           "capture_s": graph.get("capture_s"),
+           "warmup_chunk_s": graph.get("warmup_s"),
+           "graph_nodes": graph.get("nodes"), **rec}
+    emit(rec)
+    return rec
+
+
+# scale 2: at 50 (or 1e4) the trimmed mean over paper_fig1's two or three
+# neighbours lets scaled states through and the run diverges, in the
+# reference as in the port (final error 1.3e14 after 200 steps at 50)
+TRIMMED_FAULTS = {"crash_rate": 0.1, "restart_rate": 0.5,
+                  "corrupt_rate": 0.1, "corrupt_mode": "scale",
+                  "corrupt_scale": 2.0, "seed": 4}
+TRIMMED_ITERS = 200
+
+
+def phase_fig2_trimmed_mean(torch, K, prng, profile: bool = False):
+    """Trimmed-mean aggregation (trim 1) on the Fig. 2 workload with Markov
+    crash/restart and scale-corrupt faults (TRIMMED_FAULTS): 200 steps
+    eager, then through a CUDA graph of 100 steps (a warm-up chunk and a
+    replay); with ``profile`` one more replay traced by torch.profiler
+    (the device's idle share a replayed step; its ~300,000 events take
+    tens of seconds to collect).  Gates: the graph's state equal to the
+    eager loop's bit for bit, with the same losses and fault counters; B3
+    counted 100 on the warm-up and 100 on the replay from the capture
+    (the trimmed mean is plain torch, as the reference's is jnp)."""
+    from repro_torch.core.pdsgd import init_state, make_scanned_steps
+    from repro_torch.faults import make_faults
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    step, zb, M, keys, err = _fig2_workload(
+        torch, prng, dev, True, faults=make_faults(5, **TRIMMED_FAULTS),
+        aggregation="trimmed_mean")
+    _fig2_eager(torch, K, step, zb, M, keys, 3)  # warm-up
+    state = init_state(torch.zeros(2), 5, device=dev)
+    torch.cuda.synchronize()
+    auxes = []
+    t0 = time.perf_counter()
+    for k in range(TRIMMED_ITERS):
+        state, aux = step(state, (zb[k], M), keys[k])
+        auxes.append(aux)
+    torch.cuda.synchronize()
+    us_eager = (time.perf_counter() - t0) / TRIMMED_ITERS * 1e6
+    eager = {n: torch.stack([a[n] for a in auxes]) for n in auxes[0]}
+    scanned = make_scanned_steps(step, FIG2_UNROLL)
+    gstate = init_state(torch.zeros(2), 5, device=dev)
+    Mk = M.expand(FIG2_UNROLL, *M.shape)
+    K.reset_launch_counts()
+    chunk_us, stacks = [], []
+    for c in range(TRIMMED_ITERS // FIG2_UNROLL):
+        sl = slice(c * FIG2_UNROLL, (c + 1) * FIG2_UNROLL)
+        t0 = time.perf_counter()
+        gstate, aux = scanned(gstate, (zb[sl], Mk), keys[sl])
+        torch.cuda.synchronize()
+        chunk_us.append((time.perf_counter() - t0) / FIG2_UNROLL * 1e6)
+        stacks.append(aux)
+    counts = dict(K.launch_counts)
+    replayed = scanned.replayed_launches()
+    check(same_bits(torch, gstate.flat, state.flat),
+          "fig2_trimmed_mean: the graph's state differs from the eager "
+          "loop's")
+    for n, want in eager.items():
+        check(same_bits(torch, torch.cat([a[n] for a in stacks]), want),
+              f"fig2_trimmed_mean: {n} differs from the eager loop's")
+    totals = {n: int(v.sum()) for n, v in eager.items()
+              if n.startswith("fault_")}
+    check(totals["fault_down"] > 0 and totals["fault_corrupt"] > 0,
+          f"fig2_trimmed_mean fault totals {totals}")
+    for what, c in (("warm-up", counts), ("replay", replayed)):
+        check(c.get("obfuscate_update_krng", 0) == FIG2_UNROLL
+              and c.get("gossip_update", 0) == 0
+              and c.get("guarded_gossip_update", 0) == 0,
+              f"fig2_trimmed_mean {what} launches {c}")
+    trace = {"idle_share": "not measured (--profile)"}
+    if profile:
+        last = slice(TRIMMED_ITERS - FIG2_UNROLL, TRIMMED_ITERS)
+        trace = _trace_replay(torch, lambda: scanned(
+            gstate, (zb[last], Mk), keys[last]), FIG2_UNROLL)
+    rec = {"phase": "fig2_trimmed_mean", "workload": "fig2_estimation d=2 "
+           "m=5, paper_fig1, paper_experiment(0.05), aggregation="
+           "trimmed_mean trim=1", "faults": TRIMMED_FAULTS,
+           "iters": TRIMMED_ITERS, "unroll_k": FIG2_UNROLL,
+           "us_per_step_eager": us_eager,
+           "us_per_step_graph_first_chunk": chunk_us[0],
+           "us_per_step_graph_replay": sum(chunk_us[1:]) / len(chunk_us[1:]),
+           "final_err": err(gstate), "fault_totals": totals,
+           "graph_equals_eager_bitwise": True,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches_warmup_counted": counts,
+           "launches_replays_from_capture": replayed,
+           "idle_share": trace.get("idle_share"), "traced_replay": trace}
+    emit(rec)
+    return rec
 
 
 CKPT_EVERY = 4
@@ -2825,14 +3207,17 @@ def _baseline_updates(torch, shape, dtype) -> dict:
     return out
 
 
-def phase_profile_scanned(torch, train, cfg):
-    """Device busy and idle within the replayed chunks of the scanned main
-    path (--unroll-k 4, 12 steps: kernels that start after the second
-    chunk's range opened), from a torch.profiler trace; written to
-    chiprun_out/profile_main_path_scanned.json."""
+def phase_profile_scanned(torch, train, cfg, path: str = "main_path_scanned",
+                          extra=(), trace_names=None):
+    """Device busy and idle within the replayed chunks of a scanned path
+    (``extra``: its flags; --unroll-k 4, 12 steps: kernels that start
+    after the second chunk's range opened), from a torch.profiler trace;
+    ``trace_names`` (default B3's and B2's) the kernels counted once a
+    replayed step in it; written to chiprun_out/profile_<path>.json."""
     from torch.profiler import ProfilerActivity, profile
+    trace_names = TRACE_NAMES if trace_names is None else trace_names
     args = _path_args(train, SCANNED_STEPS,
-                      ("--unroll-k", str(SCANNED_UNROLL)))
+                      (*extra, "--unroll-k", str(SCANNED_UNROLL)))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         train.run_training(args, cfg=cfg)
@@ -2852,20 +3237,20 @@ def phase_profile_scanned(torch, train, cfg):
         by_name[e.name] = by_name.get(e.name, 0.0) + (
             e.time_range.end - e.time_range.start) / 1e3
     n = SCANNED_STEPS - SCANNED_UNROLL
-    # B3's and B2's kernels in the replays: launches no wrapper counts
+    # the path's kernels in the replays: launches no wrapper counts
     traced = {b: sum(1 for e in kernels if sub in e.name)
-              for b, sub in TRACE_NAMES.items()}
-    check(traced == {b: n for b in TRACE_NAMES},
-          f"main_path_scanned traced replays {traced}")
+              for b, sub in trace_names.items()}
+    check(traced == {b: n for b in trace_names},
+          f"{path} traced replays {traced}")
     window = (hi - lo) / 1e3
     top = [{"kernel": k[:120], "ms_per_step": v / n}
            for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])]
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_main_path_scanned.json").write_text(json.dumps(
+    (out / f"profile_{path}.json").write_text(json.dumps(
         {"steps": n, "window_ms": window, "busy_ms": busy,
          "kernel_events": len(kernels), "kernels": top}, indent=1))
-    emit({"phase": "profile", "path": "main_path_scanned",
+    emit({"phase": "profile", "path": path,
           "steps_profiled": n, "kernel_events": len(kernels),
           "b_kernels_traced": traced,
           "step_ms": window / n, "device_busy_ms_per_step": busy / n,
@@ -3557,8 +3942,9 @@ def main(argv=None) -> int:
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile main-, dropout-, fault-, ring- and "
-                         "xLSTM train-path steps, the scanned main path's "
-                         "replayed chunks and both serve paths with "
+                         "xLSTM train-path steps, the scanned main, fault "
+                         "and ring paths' replayed chunks, a Fig. 2 "
+                         "trimmed-mean replay and both serve paths with "
                          "torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
@@ -3598,16 +3984,28 @@ def main(argv=None) -> int:
         phase_fig2_path(torch, K, prng)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_fig2_trimmed_mean(torch, K, prng, opts.profile)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_main_path_scanned(torch, K, train, main_cfg)
         gc.collect()
         torch.cuda.empty_cache()
         phase_dropout_path_scanned(torch, K, train, main_cfg)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_fault_realize(torch, prng)
+        phase_fault_path_scanned(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_ring_path_scanned(torch, K, train, main_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_checkpoint_path(torch, K, train, main_cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_rollback_path(torch, K, train, get_config("stablelm-3b-smoke"))
+        smoke = get_config("stablelm-3b-smoke")
+        phase_rollback_path(torch, K, train, smoke)
+        phase_rollback_path_scanned(torch, K, train, smoke)
         gc.collect()
         torch.cuda.empty_cache()
         phase_privacy_audit(torch, K)
@@ -3615,6 +4013,19 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         if opts.profile:
             phase_profile_scanned(torch, train, main_cfg)
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_scanned(
+                torch, train, main_cfg, "fault_path_scanned",
+                (*FAULT_FLAGS, "--fault-seed", str(fault_seed_replayed(
+                    train, FAULT_FLAGS, SCANNED_STEPS, SCANNED_UNROLL))),
+                {"obfuscate_update_krng": "obfuscate_krng_kernel",
+                 "guarded_gossip_update": "guarded_kernel"})
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_scanned(
+                torch, train, main_cfg, "ring_path_scanned", RING_FLAGS,
+                {"ring_obfuscate_gossip_krng": "ring_krng_kernel"})
             gc.collect()
             torch.cuda.empty_cache()
         phase_baselines_path(torch, K, train, main_cfg)
@@ -3657,6 +4068,9 @@ def main(argv=None) -> int:
         phase_xlstm_step_parity(torch, K, train)
         xlstm_cfg = get_config("xlstm-125m")
         train_counts = phase_xlstm_train_path(torch, K, train, xlstm_cfg)
+        torch.cuda.empty_cache()
+        phase_xlstm_train_scanned(torch, K, train, xlstm_cfg)
+        gc.collect()
         torch.cuda.empty_cache()
         if opts.profile:
             gc.collect()

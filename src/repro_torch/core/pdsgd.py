@@ -31,17 +31,20 @@ DP-DSGD's noise is ``normal(split(fold_in(key, 3), n_leaves)[l])`` over
 each leaf's (m, ...) view.  ``partitionable=False`` on the step draws all
 of them from jax's earlier threefry stream (`prng`).
 
-The scanned step.  `make_scanned_steps` runs k steps per call: on the CPU
-a loop over the eager step; on the card one CUDA graph of k steps, whose
-keys, schedule and draws come from a device step counter
-(`make_decentralized_step`'s ``step.inner``).  Threefry in int64 torch
-ops is exact on any device, and B^k and the noise are drawn on the
+The scanned step.  `make_scanned_steps` runs k steps per call of
+`make_decentralized_step`'s ``step.inner`` at a step counter tensor: on
+the CPU a loop, on the card one CUDA graph of k steps, whose keys,
+schedule, coupling, faults and draws come from the device counter.
+Threefry in int64 torch ops is exact on any device, a fault's outage
+length is a float32 comparison, and B^k and the noise are drawn on the
 buffer's device on either path, so the graph's steps are the eager
 steps bit for bit.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import time
 from typing import Any, Callable
 
 import torch
@@ -612,6 +615,20 @@ def _warm_start(flat: torch.Tensor, mask: torch.Tensor, alive: torch.Tensor,
 
 
 @torch.no_grad()
+def _keep_where(flat: torch.Tensor, keep: torch.Tensor,
+                held: torch.Tensor) -> None:
+    """``flat = where(keep, flat, held)`` in place (no temporary): ``keep``
+    a device bool, () for the whole buffer or (m, 1) by rows.  The
+    selection moves bits, so it runs on both contiguous buffers viewed as
+    8-byte words where their rows allow it (a quarter of a bf16 buffer's
+    elements); where ``keep`` holds, the entry is ``flat``'s own, bit for
+    bit."""
+    if (flat.shape[-1] * flat.element_size()) % 8 == 0:
+        flat, held = flat.view(torch.int64), held.view(torch.int64)
+    torch.where(keep, flat, held, out=flat)
+
+
+@torch.no_grad()
 def _trimmed_mean(flat: torch.Tensor, U: torch.Tensor, support, corrupt, *,
                   trim: int, mode: str, scale: float,
                   chunk: int = 1 << 22) -> None:
@@ -624,21 +641,11 @@ def _trimmed_mean(flat: torch.Tensor, U: torch.Tensor, support, corrupt, *,
                                     scale=scale))
 
 
-def _graph_refusal(faults, nan_policy: str, aggregation: str,
-                   kernel_layout: str, eager: bool) -> str | None:
-    """What keeps a step out of the CUDA graph of `make_scanned_steps` (each
-    realizes or decides on the host), or None."""
-    if faults is not None:
-        return "agent faults (realized on the host each step)"
-    if nan_policy != "off":
-        return f"nan_policy={nan_policy!r} (its sentinels sync the host)"
-    if kernel_layout == "ring":
-        return "kernel_layout='ring' (its tables are built on the host)"
-    if aggregation != "gossip":
-        return f"aggregation={aggregation!r}"
-    if eager:
-        return "the unfused oracle (eager=True)"
-    return None
+def _graph_refusal(eager: bool) -> str | None:
+    """What keeps a step out of the CUDA graph of `make_scanned_steps`, or
+    None: only the port's unfused oracle (``eager=True``), which is the
+    tests' reference for the kernels' route, not a route to train by."""
+    return "the unfused oracle (eager=True)" if eager else None
 
 
 def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
@@ -708,19 +715,25 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     of the neighbours' states (`faults.inject.trimmed_mean_mix`) with each
     agent's own obfuscated descent.
 
-    Held state and the in-place update.  The reference freezes a down
-    agent's row to the held state after the gossip; here the gossip
-    writes x' over the buffer, so the step copies the down agents' rows
-    (at most m of them) before it and writes them back after.  Under
-    ``nan_policy="skip"`` it copies the whole held buffer first (one more
-    (m, width) buffer for the step, two more with a tracker).  The
-    neighbour-average warm start changes the held rows before the
-    gradients, as the reference's.
+    Held state and the in-place update.  The step follows the reference's
+    structure with no host sync on any branch.  The held anchor (the
+    reference's ``held``) is one clone of the buffer, taken after the
+    neighbour-average warm start (which changes the rejoining rows before
+    the gradients and writes the others back unchanged) when faults have
+    crashes or ``nan_policy="skip"`` (one more (m, width) buffer for the
+    step; with a tracker under "skip", two more).  The gossip writes x'
+    over the buffer; then the down agents' rows are restored from the
+    anchor by a ``where`` on the agent rows, the sentinel flag is formed
+    on the device, and "skip" restores the whole buffer (and the tracker)
+    by a ``where`` on it.  The fault counters and ``fault_nonfinite`` are
+    0-d int32 tensors on the buffer's device.
 
     ``step.inner(state, batch, key, k)`` is the same step at absolute step
-    ``k``, an int or a 0-d int64 device counter: what `make_scanned_steps`
-    captures.  ``step.graph_refusal`` names what keeps this step out of a
-    CUDA graph (None when the graph holds it).
+    ``k``, an int or a 0-d int64 counter tensor (the draws of the
+    coupling, the faults, B^k and Lambda^k then run on its device): what
+    `make_scanned_steps` runs and captures.  ``step.graph_refusal`` names
+    what keeps this step out of a CUDA graph (the unfused oracle only;
+    None when the graph holds it).
 
     ``partitionable=False`` draws every random number of the step
     (Lambda^k, B^k, DP-DSGD's noise) from jax's earlier threefry stream
@@ -785,6 +798,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         raise ValueError(_RING_CORRUPT)
     rejoining = (faults is not None and faults.has_crash
                  and not faults.is_failstop)
+    holding = (faults is not None and faults.has_crash) \
+        or nan_policy == "skip"
 
     def inner(state: DecentralizedState, batch, key: torch.Tensor, k):
         if state.num_agents != m:
@@ -806,25 +821,23 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
             else:
                 W, support, mask, alive, corrupt = realize_coupling(
                     process, faults, k, dev)
+                alive, corrupt = to_device(alive, dev), to_device(corrupt,
+                                                                  dev)
             k_f32 = (k.to(torch.float32) if isinstance(k, torch.Tensor)
                      else torch.full((), float(k), dtype=torch.float32,
                                      device=dev))
             lam_bar = schedule(k_f32)
         with torch.profiler.record_function("held_state"):
-            # the held anchor: the buffer with rejoiners warm started
             if rejoining:
-                prev = faults.alive_before(k)
+                prev = to_device(faults.alive_before(k), dev)
                 rejoin = alive * (1.0 - prev)
-                if faults.rejoin == "neighbor-avg" and bool(rejoin.any()):
+                if faults.rejoin == "neighbor-avg":
                     _warm_start(X, mask, alive, prev)
-            down = ([] if alive is None else
-                    [int(i) for i in torch.nonzero(alive == 0).flatten()])
-            held_rows = {i: X[i].clone() for i in down}
-            held = held_tracker = None
-            if nan_policy == "skip":
-                held = X.clone()
-                if state.tracker is not None:
-                    held_tracker = tuple(t.clone() for t in state.tracker)
+            # the held anchor: the buffer with rejoiners warm started
+            held = X.clone() if holding else None
+            held_tracker = (tuple(t.clone() for t in state.tracker)
+                            if nan_policy == "skip"
+                            and state.tracker is not None else None)
         G = torch.empty_like(X)
         with torch.profiler.record_function("agent_grads"):
             losses = _agent_grads(loss_fn, state, batch, G)
@@ -855,7 +868,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                                    eager=eager, partitionable=partitionable)
                 _trimmed_mean(
                     X, U, support,
-                    corrupt if corrupt is not None else torch.zeros(m),
+                    corrupt if corrupt is not None
+                    else torch.zeros(m, device=dev),
                     trim=trim,
                     mode=faults.corrupt_mode if faults else "nan",
                     scale=faults.corrupt_scale if faults else 1e4)
@@ -888,20 +902,19 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         with torch.profiler.record_function("held_state"):
             # down agents neither transmit (the coupling saw to that) nor
             # update; restored before the sentinels, as in the reference
-            for i, row in held_rows.items():
-                X[i].copy_(row)
-            del held_rows
+            if faults is not None and faults.has_crash:
+                _keep_where(X, (alive > 0)[:, None], held)
             if nan_policy != "off":
                 finite = (torch.isfinite(losses).all()
                           & _finite(X[:, :layout.size]))
                 for t in state.tracker or ():
                     finite &= _finite(t[:, :layout.size])
-                finite = bool(finite)
-                aux["fault_nonfinite"] = int(not finite)
-                if nan_policy == "skip" and not finite:
-                    X.copy_(held)
+                aux["fault_nonfinite"] = (~finite).to(torch.int32)
+                if nan_policy == "skip":
+                    # where(True, new, held) is new bit for bit
+                    _keep_where(X, finite, held)
                     for t, h in zip(state.tracker or (), held_tracker or ()):
-                        t.copy_(h)
+                        _keep_where(t, finite, h)
             del held, held_tracker
         new = DecentralizedState(flat=X, layout=layout, step=state.step + 1,
                                  tracker=state.tracker)
@@ -912,18 +925,18 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         if observation is not None:
             aux["observation"] = observation
         if alive is not None:
-            aux["fault_down"] = int(m - alive.sum())
-            aux["fault_corrupt"] = int(corrupt.sum())
-            aux["fault_rejoin"] = (int(rejoin.sum()) if rejoin is not None
-                                   else 0)
+            aux["fault_down"] = (m - alive.sum()).to(torch.int32)
+            aux["fault_corrupt"] = corrupt.sum().to(torch.int32)
+            aux["fault_rejoin"] = (
+                rejoin.sum().to(torch.int32) if rejoin is not None
+                else torch.zeros((), dtype=torch.int32, device=dev))
         return new, aux
 
     def step(state: DecentralizedState, batch, key: torch.Tensor):
         return inner(state, batch, key, state.step)
 
     step.inner = inner
-    step.graph_refusal = _graph_refusal(faults, nan_policy,
-                                        aggregation, kernel_layout, eager)
+    step.graph_refusal = _graph_refusal(eager)
     return step
 
 
@@ -968,6 +981,38 @@ def _warmup_stream(device) -> "torch.cuda.Stream":
     return _WARMUP_STREAMS[device]
 
 
+def _capture_nodes(stream) -> int | None:
+    """The nodes of the graph ``stream`` is capturing, from libcuda
+    (``cuStreamGetCaptureInfo``, ``cuGraphGetNodes``), or None where
+    libcuda does not answer.  A query only: no sync, no launch."""
+    P = ctypes.POINTER
+    vp, sz = ctypes.c_void_p, ctypes.c_size_t
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+        v3 = hasattr(cuda, "cuStreamGetCaptureInfo_v3")  # CUDA >= 12.3
+        info = (cuda.cuStreamGetCaptureInfo_v3 if v3
+                else cuda.cuStreamGetCaptureInfo_v2)
+        get_nodes = cuda.cuGraphGetNodes
+    except (OSError, AttributeError):
+        return None
+    # (stream, status, id, graph, dependencies[, edge data], count)
+    info.argtypes = [vp, P(ctypes.c_int), P(ctypes.c_uint64), P(vp), P(vp),
+                     *([P(vp)] if v3 else []), P(sz)]
+    info.restype = ctypes.c_int
+    get_nodes.argtypes = [vp, vp, P(sz)]
+    get_nodes.restype = ctypes.c_int
+    status, cid = ctypes.c_int(), ctypes.c_uint64()
+    graph, deps, edges = vp(), vp(), vp()
+    ndeps, nodes = sz(), sz()
+    rc = info(stream.cuda_stream, ctypes.byref(status), ctypes.byref(cid),
+              ctypes.byref(graph), ctypes.byref(deps),
+              *([ctypes.byref(edges)] if v3 else []), ctypes.byref(ndeps))
+    if rc != 0 or not graph.value or get_nodes(
+            graph, None, ctypes.byref(nodes)) != 0:
+        return None
+    return int(nodes.value)
+
+
 class _StepGraph:
     """k steps of ``inner`` captured in one CUDA graph over one state's
     buffers: static inputs are a (k, m, ...) batch buffer, a (k, 2) key
@@ -978,7 +1023,10 @@ class _StepGraph:
     every later chunk replays.  The wrappers count a launch where they
     launch a kernel, and a replay goes through no wrapper: what they count
     during capture (no kernel runs) is taken back and kept as
-    ``launches``, what one replay launches, beside ``replays``."""
+    ``launches``, what one replay launches, beside ``replays``.
+    ``warmup_s`` and ``capture_s`` are the host seconds of the warm-up
+    chunk and of the capture with its instantiation; ``nodes`` the nodes
+    the captured graph holds (None where libcuda does not say)."""
 
     def __init__(self, inner, k: int, state: DecentralizedState, batches,
                  keys):
@@ -993,6 +1041,8 @@ class _StepGraph:
         self.aux = None
         self.launches: dict[str, int] = {}
         self.replays = 0
+        self.warmup_s = self.capture_s = None
+        self.nodes = None
 
     def _load(self, state, batches, keys) -> None:
         for d, s in _tree_pairs(self.batches, batches):
@@ -1013,16 +1063,20 @@ class _StepGraph:
     def __call__(self, state, batches, keys):
         self._load(state, batches, keys)
         if self.graph is None:
+            t0 = time.perf_counter()
             side = _warmup_stream(state.flat.device)
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
                 aux = self._steps(state)
             torch.cuda.current_stream().wait_stream(side)
             torch.cuda.synchronize()
+            t1 = time.perf_counter()
             before = dict(launch_counts)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.aux = self._steps(state)
+                self.nodes = _capture_nodes(torch.cuda.current_stream())
+            self.warmup_s, self.capture_s = t1 - t0, time.perf_counter() - t1
             self.launches = {n: c - before.get(n, 0)
                              for n, c in launch_counts.items()
                              if c != before.get(n, 0)}
@@ -1043,8 +1097,10 @@ def make_scanned_steps(step_fn, unroll_k: int):
     `launch.steps.per_step_keys`); each aux value comes out stacked
     (unroll_k, ...).
 
-    On the CPU it is a loop over the eager step, bitwise the eager loop by
-    construction.  On the card it is one CUDA graph of ``unroll_k`` steps
+    On the CPU it is a loop over ``step.inner`` at a 0-d int64 counter
+    tensor, the form the graph captures (the draws of the coupling, the
+    faults, B^k and Lambda^k from the counter), bitwise the eager loop's
+    int form.  On the card it is one CUDA graph of ``unroll_k`` steps
     (`_StepGraph`), captured once per state's buffers and batch shapes
     and replayed per chunk; the keys, the schedule, B^k, Lambda^k and
     DP-DSGD's noise are derived inside it from the device step counter,
@@ -1052,17 +1108,21 @@ def make_scanned_steps(step_fn, unroll_k: int):
     place; the aux stacks are copies, so they outlive the next replay.
     ``scanned.replayed_launches()`` gives the kernel launches the replays
     ran, each graph's captured launches times its replays (the wrappers'
-    `launch_counts` hold the eager warm-up chunks' only).
+    `launch_counts` hold the eager warm-up chunks' only);
+    ``scanned.graph_stats()`` each graph's warm-up and capture seconds and
+    node count (`_StepGraph`).
 
-    A time-varying mixing process realizes each W_k inside the graph from
-    the device counter (`MixingProcess.realize`), and the masked gossip
-    kernel runs there.  A step's observation (``observer``) stacks like
-    the other aux: (unroll_k, ...) outputs of the graph, copied out per
-    chunk.  A step the graph cannot hold (``step_fn.graph_refusal``:
-    faults, sentinels, the ring layout, trimmed-mean aggregation, the
-    unfused oracle) is refused on every device, so a run with
-    ``--unroll-k > 1`` does not depend on where it runs; nothing falls
-    back to the eager loop.
+    The graph holds every step configuration the reference's ``lax.scan``
+    holds: a time-varying mixing process (each W_k realized in the graph
+    from the device counter, the masked gossip kernel there), agent
+    faults (realized from the counter, down rows and the rejoin warm start
+    as ``where``), the ``nan_policy`` sentinels (a device flag, "skip" as
+    a ``where``; the counters come out stacked (unroll_k,), read once a
+    chunk), trimmed-mean aggregation, the ring layout and any model whose
+    forward and backward launch no host sync.  A step's observation
+    (``observer``) stacks like the other aux.  The one step it refuses,
+    on every device and before any step runs, is the port's unfused
+    oracle (``eager=True``); nothing falls back to the eager loop.
     """
     inner = getattr(step_fn, "inner", None)
     if inner is None:
@@ -1073,16 +1133,18 @@ def make_scanned_steps(step_fn, unroll_k: int):
     if step_fn.graph_refusal is not None:
         raise ValueError(
             f"the scanned step (unroll_k > 1, a CUDA graph on the card) "
-            f"does not hold {step_fn.graph_refusal} yet: ROADMAP 0a; run "
-            f"the eager loop (--unroll-k 1)")
+            f"does not hold {step_fn.graph_refusal}: it is the tests' "
+            f"oracle for the kernels' route; run it eagerly (--unroll-k 1)")
     graphs: dict = {}
 
     def scanned(state: DecentralizedState, batches, keys):
         if state.flat.device.type != "cuda":
+            counter = torch.full((), state.step, dtype=torch.int64)
             auxes = []
             for i in range(unroll_k):
-                state, aux = step_fn(state, tree_map(lambda t: t[i],
-                                                      batches), keys[i])
+                state, aux = inner(state, tree_map(lambda t: t[i], batches),
+                                   keys[i], counter)
+                counter = counter + 1
                 auxes.append(aux)
             return state, _stack_aux(auxes)
         ptrs = (state.flat.data_ptr(),) + tuple(
@@ -1105,5 +1167,13 @@ def make_scanned_steps(step_fn, unroll_k: int):
                 out[n] = out.get(n, 0) + c * g.replays
         return out
 
+    def graph_stats() -> list[dict]:
+        """Per captured graph: the warm-up chunk's and the capture's host
+        seconds, the graph's nodes and its replays."""
+        return [{"warmup_s": g.warmup_s, "capture_s": g.capture_s,
+                 "nodes": g.nodes, "replays": g.replays}
+                for g in graphs.values()]
+
     scanned.replayed_launches = replayed_launches
+    scanned.graph_stats = graph_stats
     return scanned

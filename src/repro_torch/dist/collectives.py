@@ -9,10 +9,13 @@ splits the step's realized (W_k, B^k) into (m, 1 + ndirs) tables — column
 d's neighbour — and a static shift per direction.  Agent id = pod *
 n_data + data, as in the reference.
 
-The tables are built on the host from numpy, cached per (n_data, n_pod)
-(and per device for the index tensors the gathers use); the per-step
-tables are gathers from the realized dense matrices, so every entry is
-copied, never recombined, and bitwise the reference's.
+The tables are built on the host from numpy once per (n_data, n_pod) and
+copied once per device (the index tensors the gathers use, the
+permutation matrices, the torus weights); the per-step tables are
+gathers from the realized dense matrices on their device, so every entry
+is copied, never recombined, and bitwise the reference's, and no step of
+the ring layout, static or time-varying, reads numpy or the host after
+its first (which a CUDA graph's eager warm-up chunk runs).
 
 Only the single-device forms are here: `torus_gossip_pdsgd` with
 ``mesh=None`` (the dense fallback, or the ring kernel with
@@ -141,6 +144,25 @@ def _targets_on(n_data: int, n_pod: int, device: str) -> torch.Tensor:
     return to_device(torch.from_numpy(_targets(n_data, n_pod)), device)
 
 
+@functools.lru_cache(maxsize=None)
+def _dense_on(n_data: int, n_pod: int, device: str) -> dict:
+    """The torus' dense float32 constants on ``device``, copied once: the
+    identity ``eye``, the (ndirs, m, m) permutation matrices ``perms``,
+    the Metropolis matrix ``W`` and the ring kernel's (1, 1 + ndirs)
+    weight row ``w_row``."""
+    m = n_data * n_pod
+    mats = _perm_matrices(n_data, n_pod)
+    eye = np.eye(m, dtype=np.float32)
+    wts = torus_weights(n_data, n_pod)
+    W = wts["w_self"] * eye + wts["w_edge"] * sum(mats, np.zeros_like(eye))
+    w_row = np.array([[wts["w_self"]] + [wts["w_edge"]] * len(mats)],
+                     dtype=np.float32)
+    return {name: to_device(torch.from_numpy(np.ascontiguousarray(a)),
+                            device)
+            for name, a in (("eye", eye), ("perms", perm_stack(
+                n_data, n_pod).numpy()), ("W", W), ("w_row", w_row))}
+
+
 def _per_direction(M: torch.Tensor, n_data: int, n_pod: int) -> torch.Tensor:
     """(m, ndirs): out[j, d] = M[dst_d(j), j], the entry of the dense
     (m, m) ``M`` on agent j's direction-d link."""
@@ -153,17 +175,12 @@ def dense_coupling(b: torch.Tensor, n_data: int, n_pod: int,
     """The (W, B^k) pair the ring tables stand for: W the torus
     Metropolis matrix (or the step's realized W_k, passed through), B^k
     the column-stochastic matrix whose column j is row j of ``b``."""
-    m = n_data * n_pod
-    mats = _perm_matrices(n_data, n_pod)
-    eye = np.eye(m, dtype=np.float32)
-    dev = b.device
+    c = _dense_on(n_data, n_pod, str(b.device))
     if W is None:
-        wts = torus_weights(n_data, n_pod)
-        W = torch.from_numpy(wts["w_self"] * eye + wts["w_edge"]
-                             * sum(mats, np.zeros_like(eye))).to(dev)
-    B = to_device(torch.from_numpy(eye), dev) * b[None, :, 0]
-    for di, Pm in enumerate(mats):
-        B = B + to_device(torch.from_numpy(Pm), dev) * b[None, :, 1 + di]
+        W = c["W"]
+    B = c["eye"] * b[None, :, 0]
+    for di in range(c["perms"].shape[0]):
+        B = B + c["perms"][di] * b[None, :, 1 + di]
     return W, B
 
 
@@ -264,10 +281,7 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
                              "(leaf_specs=None)")
         dev = leaves[0].device
         if W is None:
-            wts = torus_weights(n_data, n_pod)
-            w_tab = torch.tensor([wts["w_self"]] + [wts["w_edge"]]
-                                 * len(dirs), dtype=torch.float32)
-            w_tab = to_device(w_tab, dev)[None].expand(m, -1)
+            w_tab = _dense_on(n_data, n_pod, str(dev))["w_row"].expand(m, -1)
         else:
             tabs = directional_weights(W, n_data, n_pod)
             w_tab = torch.cat([tabs["w_self"][:, None], tabs["w_dir"]], 1)
@@ -290,7 +304,7 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
     Wd, B = dense_coupling(b, n_data, n_pod, W=W)
     u_leaves = tree_leaves(u)
     if finite_guard:
-        zeros = torch.zeros(m)
+        zeros = torch.zeros(m, device=leaves[0].device)
         outs = [guarded_gossip_mix(Wd, B, p, v, zeros, mode="nan",
                                    scale=1.0, clip=float("inf"))
                 for p, v in zip(leaves, u_leaves)]

@@ -27,13 +27,23 @@ The draws use `core.prng`, so each realization is the reference's bit for
 bit — up to the one transcendental: a Markov outage length is
 ``1 + floor(log1p(-u) / log1p(-restart_rate))`` in float32, and torch's
 ``log1p`` may differ from XLA's by an ulp, which moves a length only
-where the quotient sits on an integer.  A realization is m numbers, so it
-is computed on the host (one batched threefry pass over the lookback)
-and memoized for the last few steps.
+where the quotient sits on an integer.  The lookback only asks whether a
+length exceeds d, and u takes the 2^23 values k 2^-23, so that formula is
+evaluated once, on the CPU, over all of them (`_duration_thresholds`):
+"length > d" is then ``u >= t_d``, a float32 comparison that is exact on
+every device.  So a realization drawn on the card is the host's bit for
+bit, whatever the card's ``log1p``.
+
+``realize(step)`` takes an int (a host realization: one batched threefry
+pass over the lookback, memoized for the last few steps) or a 0-d int64
+device counter: the draws then run on the counter's device, nothing is
+memoized and nothing is read back, which is what a CUDA graph of steps
+captures.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -50,14 +60,38 @@ REJOIN_POLICIES = ("hold", "neighbor-avg")
 _MEMO = 8  # realizations kept: the step and its predecessor, with room
 
 
-def _f32(v) -> torch.Tensor:
-    return torch.tensor(float(v), dtype=torch.float32)
+def _f32(v) -> float:
+    """``v`` rounded to float32, as a python float (a comparison with a
+    float32 tensor then takes place in float32 on any device)."""
+    return float(np.float32(v))
+
+
+@functools.lru_cache(maxsize=None)
+def _duration_thresholds(restart_rate: float,
+                         max_outage: int) -> torch.Tensor:
+    """(max_outage,) float32 t_d with ``dur(u) > d  <=>  u >= t_d`` for
+    every uniform u = k 2^-23, dur the reference's truncated geometric
+    length ``clamp(1 + floor(log1p(-u) / log1p(-restart_rate)), 1,
+    max_outage)`` in float32, evaluated on the CPU over all 2^23 values of
+    u (t_d = 1.0, never reached, where no u gives a length above d)."""
+    d = torch.arange(max_outage, dtype=torch.float32)
+    if restart_rate >= 1.0:  # every outage lasts one step
+        return torch.where(d < 1.0, 0.0, 1.0)
+    u = prng.bits_to_uniform(torch.arange(1 << 23, dtype=torch.int64) << 9)
+    log_keep = torch.tensor(np.log1p(-restart_rate), dtype=torch.float32)
+    dur = 1.0 + torch.floor(torch.log1p(-u) / log_keep)
+    dur = torch.clamp(dur, 1.0, float(max_outage))
+    if not bool((dur[1:] >= dur[:-1]).all()):
+        raise ValueError("the outage length is not monotone in u")
+    count = torch.searchsorted(dur, d, right=True)  # how many u give <= d
+    return (count.double() / float(1 << 23)).float()
 
 
 def _uniforms(key: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
-    """Row l is ``prng.uniform(fold_in(key, idx[l]), (n,))``: (L, n)."""
+    """Row l is ``prng.uniform(fold_in(key, idx[l]), (n,))``: (L, n), on
+    key's device."""
     keys = prng.fold_in(key, idx)
-    ctr = torch.arange(n, dtype=torch.int64)[None, :]
+    ctr = torch.arange(n, dtype=torch.int64, device=key.device)[None, :]
     y0, y1 = prng.threefry2x32(keys[:, 0:1], keys[:, 1:2],
                                (ctr >> 32) & prng.MASK32, ctr & prng.MASK32)
     return torch.clamp_min(prng.bits_to_uniform(y0 ^ y1), 0.0)
@@ -67,10 +101,11 @@ def _uniforms(key: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 # with fingerprint().
 @dataclasses.dataclass(frozen=True, eq=False)
 class FaultProcess:
-    """``realize(step) -> (alive, corrupt)``, both (m,) float32 0/1 on the
-    CPU: ``alive`` 1 for agents up this step (a down agent neither
-    transmits nor updates); ``corrupt`` 1 for live agents whose outgoing
-    messages are poisoned this step (a subset of ``alive``)."""
+    """``realize(step) -> (alive, corrupt)``, both (m,) float32 0/1 — on the
+    CPU for an int step, on the counter's device for a 0-d int64 counter:
+    ``alive`` 1 for agents up this step (a down agent neither transmits
+    nor updates); ``corrupt`` 1 for live agents whose outgoing messages
+    are poisoned this step (a subset of ``alive``)."""
 
     num_agents: int
     crash_rate: float = 0.0
@@ -130,8 +165,12 @@ class FaultProcess:
             consts["t_fail"] = torch.from_numpy(
                 rng.geometric(self.crash_rate, size=self.num_agents)
                 .astype(np.int64))
+        elif self.crash_rate > 0.0:
+            consts["dur_thresholds"] = _duration_thresholds(
+                float(self.restart_rate), int(self.max_outage))
         object.__setattr__(self, "_consts", consts)
         object.__setattr__(self, "_memo", {})
+        object.__setattr__(self, "_on_device", {})
 
     @property
     def is_inert(self) -> bool:
@@ -172,61 +211,86 @@ class FaultProcess:
             "seed": None if self.is_inert else int(self.seed),
         }
 
-    def _markov_down(self, step: int) -> torch.Tensor:
+    def _consts_on(self, device) -> dict:
+        """The keys, failstop times and duration thresholds on ``device``,
+        copied once: the eager chunk a CUDA graph runs before its capture
+        makes them, so the capture copies nothing."""
+        device = torch.device(device)
+        if device.type == "cpu":
+            return self._consts
+        if device not in self._on_device:
+            self._on_device[device] = {n: to_device(t, device)
+                                       for n, t in self._consts.items()}
+        return self._on_device[device]
+
+    def _markov_down(self, step) -> torch.Tensor:
         """(m,) bool: the union of the outages active at ``step`` — every
         onset in the last ``max_outage`` steps with its own geometric
-        duration."""
-        c = self._consts
+        duration (``dur > d`` as ``u >= t_d``, `_duration_thresholds`).
+        ``step`` an int or a 0-d int64 tensor, on whose device the draws
+        run."""
+        dev = step.device if isinstance(step, torch.Tensor) else None
+        c = self._consts_on(dev or "cpu")
         m = self.num_agents
-        d = torch.arange(self.max_outage, dtype=torch.int64)
+        d = torch.arange(self.max_outage, dtype=torch.int64, device=dev)
         s = step - d
         sc = torch.clamp_min(s, 0)
         onset = _uniforms(c["key_crash"], sc, m) < _f32(self.crash_rate)
-        rr = float(self.restart_rate)
-        if rr >= 1.0:
-            dur = torch.ones((self.max_outage, m))
-        else:
-            u = _uniforms(c["key_dur"], sc, m)
-            dur = 1.0 + torch.floor(torch.log1p(-u) / _f32(np.log1p(-rr)))
-            dur = torch.clamp(dur, 1.0, float(self.max_outage))
+        lasts = (_uniforms(c["key_dur"], sc, m)
+                 >= c["dur_thresholds"][:, None])
         live = (s >= 0)[:, None]
-        return (onset & (dur > d[:, None].float()) & live).any(dim=0)
+        return (onset & lasts & live).any(dim=0)
 
-    def realize(self, step: int):
-        """(alive, corrupt) at the absolute ``step``: (m,) float32 0/1 on
-        the CPU.  Do not write to them (they are memoized)."""
+    def realize(self, step):
+        """(alive, corrupt) at the absolute ``step``: (m,) float32 0/1.  An
+        int gives them on the CPU, memoized (do not write to them); a 0-d
+        int64 counter tensor on its device, drawn there from the counter
+        without a host sync (what a CUDA graph of steps captures), bit
+        for bit the int form's."""
+        if isinstance(step, torch.Tensor):
+            return self._realize(step.to(torch.int64), step.device)
         step = int(step)
         hit = self._memo.get(step)
         if hit is not None:
             return hit
-        c = self._consts
+        out = self._realize(step, torch.device("cpu"))
+        if len(self._memo) >= _MEMO:
+            self._memo.pop(next(iter(self._memo)))
+        self._memo[step] = out
+        return out
+
+    def _realize(self, step, dev: torch.device):
+        c = self._consts_on(dev)
         m = self.num_agents
         if self.crash_rate == 0.0:
-            alive = torch.ones(m)
+            alive = torch.ones(m, device=dev)
         elif self.is_failstop:
             alive = (step < c["t_fail"]).float()
         else:
             alive = (~self._markov_down(step)).float()
         if self.corrupt_rate == 0.0:
-            corrupt = torch.zeros(m)
+            corrupt = torch.zeros(m, device=dev)
         else:
-            draws = _uniforms(c["key_corrupt"], torch.tensor([step]), m)[0]
+            idx = (step.reshape(1) if isinstance(step, torch.Tensor)
+                   else torch.tensor([step]))
+            draws = _uniforms(c["key_corrupt"], idx, m)[0]
             corrupt = (draws < _f32(self.corrupt_rate)).float() * alive
-        if len(self._memo) >= _MEMO:
-            self._memo.pop(next(iter(self._memo)))
-        self._memo[step] = (alive, corrupt)
         return alive, corrupt
 
-    def alive_at(self, step: int) -> torch.Tensor:
+    def alive_at(self, step) -> torch.Tensor:
         return self.realize(step)[0]
 
-    def alive_before(self, step: int) -> torch.Tensor:
-        """Who was up at ``step - 1`` (everyone, before step 0)."""
+    def alive_before(self, step) -> torch.Tensor:
+        """Who was up at ``step - 1`` (everyone, before step 0); for a
+        counter tensor a ``where`` on its device."""
+        if isinstance(step, torch.Tensor):
+            prev = self.alive_at(torch.clamp_min(step - 1, 0))
+            return torch.where(step > 0, prev, torch.ones_like(prev))
         if int(step) <= 0:
             return torch.ones(self.num_agents)
         return self.alive_at(int(step) - 1)
 
-    def rejoin_mask(self, step: int) -> torch.Tensor:
+    def rejoin_mask(self, step) -> torch.Tensor:
         """1 for agents up at ``step`` that were down at ``step - 1``
         (nothing rejoins at step 0)."""
         return self.alive_at(step) * (1.0 - self.alive_before(step))
@@ -252,21 +316,33 @@ def make_faults(num_agents: int, *, crash_rate: float = 0.0,
 
 
 def realize_coupling(process: MixingProcess, faults: FaultProcess,
-                     step: int, device=None):
+                     step, device=None):
     """Compose a mixing realization with a fault realization:
     ``(W, support, mask, alive, corrupt)``.
 
     ``mask`` is the mixing mask (the base graph for a static process) with
     every down agent's links dropped; W its Metropolis weights (a dead
     agent's row is e_i), ``support = mask + I`` (what B^k is drawn on, so
-    a dead agent's B column is e_i and nobody receives from it).  W,
-    support and mask are on ``device``; alive and corrupt stay on the CPU,
-    where the step reads them without waiting for the device."""
+    a dead agent's B column is e_i and nobody receives from it).
+
+    ``step`` an int: realized on the host, W, support and mask copied to
+    ``device``, alive and corrupt left on the CPU.  ``step`` a 0-d int64
+    counter tensor: all five drawn and composed on its device, with no
+    host sync or copy."""
     if process.num_agents != faults.num_agents:
         raise ValueError(
             f"mixing has {process.num_agents} agents but faults were "
             f"built for {faults.num_agents}")
     alive, corrupt = faults.realize(step)
+    if isinstance(step, torch.Tensor):
+        dev = step.device
+        # the base graph's copy on the device (made by the eager chunk)
+        base = (process._device_consts(dev)[1] if process.is_static
+                else process.realize_mask(step))
+        mask = base * (alive[:, None] * alive[None, :])
+        return (metropolis_from_mask(mask),
+                mask + torch.eye(process.num_agents, device=dev), mask,
+                alive, corrupt)
     base = (process.base_mask if process.is_static
             else process.realize_mask(step))
     mask = base * (alive[:, None] * alive[None, :])

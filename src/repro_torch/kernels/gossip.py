@@ -184,7 +184,9 @@ def guarded_gossip_update(mask: torch.Tensor, B: torch.Tensor,
     The transmit buffers are either given (``XT``, ``UT``, the reference's
     form) or formed from X, U and the (m,) 0/1 ``corrupt`` vector by
     ``mode``/``scale`` (`ref.poison_transmit`) — on the card in registers,
-    so the step stages no transmit buffer."""
+    so the step stages no transmit buffer.  On the card ``corrupt`` lies on
+    X's device and the kernel reads it there (no host copy: a CUDA graph
+    replays the launch on the vector its step realized)."""
     if (XT is None) != (UT is None):
         raise ValueError("pass both XT and UT, or neither")
     if XT is not None and corrupt is not None:
@@ -213,8 +215,11 @@ def guarded_gossip_update(mask: torch.Tensor, B: torch.Tensor,
     staged = XT is not None
     _columns("guarded_gossip_update", X, U, out,
              *((XT, UT) if staged else ()))
-    corrupt_dev = (to_device(corrupt.to(torch.float32).contiguous(),
-                             X.device) if corrupt is not None else None)
+    if corrupt is not None and corrupt.device != X.device:
+        raise ValueError(f"corrupt must lie on X's device {X.device}, got "
+                         f"{corrupt.device}")
+    corrupt_dev = (corrupt.to(torch.float32).contiguous()
+                   if corrupt is not None else None)
     # the scale as the buffer's dtype holds it (bf16: 1e4 -> 9984)
     scale_t = float(torch.tensor(scale, dtype=X.dtype))
     mask, B = mask.contiguous(), B.contiguous()
@@ -309,6 +314,25 @@ def _sources(perms: torch.Tensor, m: int) -> torch.Tensor:
     return p.to(torch.int32).contiguous()
 
 
+# (perms' dtype, shape and bytes, device) -> the checked source table there
+_SOURCES_ON: dict = {}
+
+
+def _sources_on(perms: torch.Tensor, device) -> torch.Tensor:
+    """`_sources` of ``perms`` on ``device``, built, checked and copied once
+    per (perms, device) and reused: a CUDA graph's launch reads the same
+    table at every replay, and a launch neither checks nor copies it
+    again.  Keyed by the host ``perms``' bytes (a few hundred at most),
+    so a rewritten ``perms`` gets its own table."""
+    p = perms.cpu()
+    key = (p.dtype, tuple(p.shape), p.numpy().tobytes(),
+           torch.device(device))
+    src = _SOURCES_ON.get(key)
+    if src is None:
+        src = _SOURCES_ON[key] = to_device(_sources(p, p.shape[-1]), device)
+    return src
+
+
 def _lam(lam_bar, device) -> torch.Tensor:
     """lam_bar as a (1,) f32 tensor on ``device``; a python number becomes
     a device fill, not a host-to-device copy."""
@@ -327,7 +351,7 @@ def _ring_launch(fn: str, w_tab, b_tab, perms, X, out, capture: bool,
     without capture; ``capture="v"`` captures v alone (u None)."""
     m, n = X.shape
     ndirs = _ndirs(perms, m)
-    src = to_device(_sources(perms, m), X.device)
+    src = _sources_on(perms, X.device)
     w_tab, b_tab = w_tab.contiguous(), b_tab.contiguous()
     v = (torch.empty((ndirs, m, n), dtype=torch.float32, device=X.device)
          if capture else None)

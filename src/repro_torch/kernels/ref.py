@@ -117,7 +117,7 @@ def poison_transmit(x: torch.Tensor, corrupt: torch.Tensor, mode: str,
     elif mode == "inf":
         bad = torch.full_like(x, float("inf"))
     elif mode == "scale":
-        bad = x * torch.tensor(scale, dtype=x.dtype, device=x.device)
+        bad = x * torch.full((), scale, dtype=x.dtype, device=x.device)
     else:
         raise ValueError(f"unknown corrupt mode {mode!r}; have "
                          f"{CORRUPT_MODES}")

@@ -23,13 +23,15 @@ the same trajectory bit for bit, and the history keeps one record per
 logged step either way.  The time-varying topology (``--topology-*``),
 agent faults (``--fault-*``) and the ``--nan-policy`` sentinels are the
 reference's flags, and so is ``--kernel-layout ring`` (the whole update
-as one ring kernel; needs ``--topology ring``).  A time-varying topology
-runs under ``--unroll-k > 1`` (its W_k realized in the graph from the
-device step counter); faults, the sentinels, the ring layout and the
-xLSTM family do not yet (ROADMAP 0a).  ``--privacy-audit`` runs
-`launch.audit` after training with the run's agents, clip, dropout and
-seed, writes ``privacy_report.json`` next to the checkpoints (or to the
-working directory) and prints the reference's summary line.
+as one ring kernel; needs ``--topology ring``).  Every one of them runs
+under ``--unroll-k > 1``, as under the reference's ``lax.scan``, and so
+do trimmed-mean steps and the xLSTM family: W_k, the faults and the
+sentinel flag are realized in the graph from the device step counter,
+and the fault counters come back stacked, read once a chunk.
+``--privacy-audit`` runs `launch.audit` after training with the run's
+agents, clip, dropout and seed, writes ``privacy_report.json`` next to
+the checkpoints (or to the working directory) and prints the
+reference's summary line.
 
 Checkpoints (``--checkpoint-dir``, ``--checkpoint-every``) hold the whole
 `DecentralizedState` (parameters, the step counter, DSGT's tracker) in
@@ -44,12 +46,14 @@ keys and draws of consumed steps are never re-issued; it refuses a
 checkpoint written under other mixing or fault flags.  The mixing and
 fault fingerprints and the audit's configuration go into every
 checkpoint's ``run`` metadata, as in the reference.  With a checkpoint
-directory, ``--rollback-patience`` non-finite steps in a row restore the
-newest durable checkpoint (after ``--rollback-backoff`` seconds,
-doubling), at most ``--max-rollbacks`` times before the run fails; the
-sentinels run only in the eager loop, so rollback does too (ROADMAP 0a).
-The scanned loop takes its chunks from `data.prefetch_chunks`, built
-``--prefetch-depth`` chunks ahead on a worker thread.  The leafwise
+directory, ``--rollback-patience`` non-finite observations in a row
+(chunks in the scanned loop, steps in the eager loop) restore the newest
+durable checkpoint (after ``--rollback-backoff`` seconds, doubling), at
+most ``--max-rollbacks`` times before the run fails.  The scanned loop
+takes its chunks from `data.prefetch_chunks`, built ``--prefetch-depth``
+chunks ahead on a worker thread; a rollback there closes that stream and
+opens a new one at the restored step, and the restore writes into the
+graph's own buffers, so the captured graph replays on.  The leafwise
 layout of sharded agents is not ported yet (ROADMAP 7).
 """
 from __future__ import annotations
@@ -158,8 +162,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint rollbacks attempted on a sustained "
                         "non-finite streak before the run fails")
     p.add_argument("--rollback-patience", type=int, default=2,
-                   help="consecutive non-finite steps before a rollback "
-                        "fires")
+                   help="consecutive non-finite observations (chunks in "
+                        "the scanned loop, steps in the eager loop) "
+                        "before a rollback fires")
     p.add_argument("--rollback-backoff", type=float, default=0.5,
                    help="base rollback delay in seconds, doubling per "
                         "rollback")
@@ -258,10 +263,11 @@ def run_training(args, cfg=None, init_params=None,
     """Run the training loop (chunks of ``--unroll-k`` steps through the
     scanned step, then the eager loop); returns ``{"state", "history",
     "resumed_from", "rollbacks", "checkpoint", "fault_totals",
-    "replayed_launches", "privacy_audit"}`` (``checkpoint``: the
+    "replayed_launches", "graphs", "privacy_audit"}`` (``checkpoint``: the
     manager's save and commit seconds, `CheckpointManager.timings`, or
     None; ``replayed_launches``: the kernels the CUDA graph's replays ran,
-    from its capture, `make_scanned_steps`; the ``--privacy-audit``
+    from its capture, and ``graphs`` each graph's warm-up and capture
+    seconds and nodes, `make_scanned_steps`; the ``--privacy-audit``
     report, or None).
 
     ``cfg`` overrides ``--arch`` (e.g. a depth-cut config object);
@@ -293,10 +299,6 @@ def run_training(args, cfg=None, init_params=None,
                              "concat")
     if args.unroll_k < 1:
         raise SystemExit("--unroll-k must be >= 1")
-    if args.unroll_k > 1 and cfg.family == "xlstm":
-        raise ValueError("--unroll-k > 1: the xLSTM family does not run "
-                         "under the CUDA graph of steps yet (ROADMAP 0a); "
-                         "use --unroll-k 1")
     if args.checkpoint_dir and args.checkpoint_every < 1:
         raise ValueError("--checkpoint-every must be >= 1 (omit "
                          "--checkpoint-dir to disable checkpoints)")
@@ -353,7 +355,7 @@ def run_training(args, cfg=None, init_params=None,
     history: list[dict] = []
     fault_totals: dict[str, int] = {}
     rollbacks = 0
-    streak = 0  # consecutive non-finite steps
+    streak = 0  # consecutive non-finite observations (chunks or steps)
     warned_no_rollback = False
     t0 = time.perf_counter()
 
@@ -385,8 +387,9 @@ def run_training(args, cfg=None, init_params=None,
             print(json.dumps({"warning": text}), flush=True)
 
     def try_rollback(state):
-        """After --rollback-patience non-finite steps in a row, restore the
-        newest durable checkpoint in place after an exponential backoff,
+        """After --rollback-patience non-finite observations in a row (chunks
+        in the scanned loop, steps in the eager loop), restore the newest
+        durable checkpoint in place after an exponential backoff,
         at most --max-rollbacks times (batches, keys and fault draws come
         from the absolute step, so a replay meets the same failure; the
         retries buy time for transient causes, then the run fails).
@@ -428,14 +431,19 @@ def run_training(args, cfg=None, init_params=None,
         k = start
         # the scanned loop: whole chunks of --unroll-k steps, one sync a
         # chunk, built ahead by the prefetch thread
-        n_chunks = (args.steps - k) // args.unroll_k if scanned else 0
-        if n_chunks > 0:
-            if manager is not None and args.checkpoint_every % args.unroll_k:
-                print(json.dumps({
-                    "warning": f"checkpoint_every={args.checkpoint_every} "
-                               f"is not a multiple of unroll_k="
-                               f"{args.unroll_k}: checkpoints land on chunk "
-                               "boundaries only"}), flush=True)
+        if scanned is not None and args.steps - k >= args.unroll_k \
+                and manager is not None \
+                and args.checkpoint_every % args.unroll_k:
+            print(json.dumps({
+                "warning": f"checkpoint_every={args.checkpoint_every} "
+                           f"is not a multiple of unroll_k="
+                           f"{args.unroll_k}: checkpoints land on chunk "
+                           "boundaries only"}), flush=True)
+        # a rollback abandons the in-flight prefetch stream (its chunks lie
+        # past the restored step) and opens a new one from there
+        while scanned is not None and args.steps - k >= args.unroll_k:
+            rolled = False
+            n_chunks = (args.steps - k) // args.unroll_k
             with prefetch_chunks(pipeline, args.unroll_k, start_step=k,
                                  num_chunks=n_chunks, place=place,
                                  depth=args.prefetch_depth) as chunks:
@@ -445,13 +453,32 @@ def run_training(args, cfg=None, init_params=None,
                             state, chunk, per_step_keys(key, k, args.unroll_k))
                     losses = aux["loss"].tolist()
                     cons = aux["consensus_error"].tolist()
+                    # the chunk's counters in one host read; the records
+                    # carry the running totals step by step
+                    names = [n for n in FAULT_COUNTERS if n in aux]
+                    counters = dict(zip(names, torch.stack(
+                        [aux[n] for n in names]).tolist() if names else []))
                     for i in range(args.unroll_k):
+                        for n, v in counters.items():
+                            fault_totals[n] = fault_totals.get(n, 0) + v[i]
                         if logged(k + i):
                             log(k + i, losses[i], cons[i])
+                    nonf = sum(counters.get("fault_nonfinite", ()))
+                    streak = streak + 1 if nonf else 0
                     k_next = k + args.unroll_k
-                    if checkpoint_due(k, k_next):
+                    if nonf:
+                        state, restored = try_rollback(state)
+                        if restored is not None:
+                            k, rolled = restored, True
+                            break
+                    # under 'warn' a non-finite chunk may have poisoned the
+                    # state: never make it a rollback target
+                    if checkpoint_due(k, k_next) and not (
+                            nonf and args.nan_policy == "warn"):
                         manager.save(k_next, state)
                     k = k_next
+            if not rolled:
+                break
         # the eager loop: the whole run at --unroll-k 1, the tail otherwise
         while k < args.steps:
             # the range names each step in a torch.profiler trace
@@ -461,8 +488,9 @@ def run_training(args, cfg=None, init_params=None,
                 state, aux = step(state, batch, prng.fold_in(key, k))
             for name in FAULT_COUNTERS:
                 if name in aux:
-                    fault_totals[name] = fault_totals.get(name, 0) + aux[name]
-            nonf = aux.get("fault_nonfinite", 0)
+                    fault_totals[name] = (fault_totals.get(name, 0)
+                                          + int(aux[name]))
+            nonf = int(aux.get("fault_nonfinite", 0))
             streak = streak + 1 if nonf else 0
             if logged(k):
                 log(k, float(aux["loss"]), float(aux["consensus_error"]))
@@ -515,6 +543,7 @@ def run_training(args, cfg=None, init_params=None,
             "fault_totals": fault_totals,
             "replayed_launches": (scanned.replayed_launches()
                                   if scanned is not None else {}),
+            "graphs": scanned.graph_stats() if scanned is not None else [],
             "privacy_audit": audit_report}
 
 

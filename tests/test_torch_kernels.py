@@ -438,7 +438,7 @@ def test_cuda_guarded_gossip_kernel_vs_plain(m, mode, clip):
     UT = ref.poison_transmit(U, corrupt, mode, 1e4)
     want = ref.guarded_gossip_ref(mask, B, X, U, XT, UT, clip)
     got = guarded_gossip_update(mask.to(dev), B.to(dev), X.to(dev),
-                                U.to(dev), clip=clip, corrupt=corrupt,
+                                U.to(dev), clip=clip, corrupt=corrupt.to(dev),
                                 mode=mode, scale=1e4).cpu()
     staged = guarded_gossip_update(mask.to(dev), B.to(dev), X.to(dev),
                                    U.to(dev), XT.to(dev), UT.to(dev),

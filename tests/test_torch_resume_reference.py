@@ -16,7 +16,8 @@ agents, float32; the port on one torch thread, as
 * ``run_meta`` equals the reference's for the same flags: static,
   dropout, resample, faults and ``--privacy-audit``.
 * A rollback scenario (nan-corrupt senders, guard off, ``--nan-policy
-  warn``) gives the reference's rollback records and exhaustion error.
+  warn``) gives the reference's rollback records and exhaustion error,
+  in the eager loop and at chunk grain in the scanned loop.
 """
 import json
 import os
@@ -175,9 +176,13 @@ def _rollback_run(run, extra, capsys):
     return [r for r in lines if "rollback" in r], str(err.value)
 
 
-def test_rollback_matches_reference(tmp_path, capsys):
+@pytest.mark.parametrize("unroll_k", [1, 2])
+def test_rollback_matches_reference(tmp_path, capsys, unroll_k):
+    """The eager loop counts non-finite steps toward --rollback-patience,
+    the scanned loop (--unroll-k 2) non-finite chunks: both trainers roll
+    back to the same steps and fail with the same error."""
     seed = str(_rollback_seed())
-    extra = ROLLBACK + ["--fault-seed", seed]
+    extra = ROLLBACK + ["--fault-seed", seed, "--unroll-k", str(unroll_k)]
     want = _rollback_run(
         _ref, extra + ["--checkpoint-dir", str(tmp_path / "j")], capsys)
     got = _rollback_run(
