@@ -3,18 +3,19 @@
 card: builds the hand-written kernels, holds each against its plain
 PyTorch version, trains stablelm-3b at full width and serves it at full
 width and depth, trains and serves xlstm-125m at full width and depth,
-all through the port's entry points, and reports what ran.
+trains zamba2-7b at full width (depth 12) and serves it at full width and
+depth, all through the port's entry points, and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
-                                     # main-, dropout-, fault-, ring- and
-                                     # xLSTM train-path steps, of the
-                                     # scanned main, fault and ring
+                                     # main-, dropout-, fault-, ring-,
+                                     # xLSTM and hybrid train-path steps,
+                                     # of the scanned main, fault and ring
                                      # paths' replayed chunks, of a Fig. 2
-                                     # trimmed-mean replay and of both
-                                     # serve paths' prefills and decode
-                                     # chunks
+                                     # trimmed-mean replay and of the
+                                     # three serve paths' prefills and
+                                     # decode chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -48,7 +49,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               --topology-resample-every 4 and 3 (3: redraws inside the
               replayed chunks); the states equal bit for bit;
               B4's launches from the capture
-  checkpoint_path  the main path with --unroll-k 4: 12 steps
+  checkpoint_path  the main path at depth 4 (a 4.6 GB archive, past the
+              plain ZIP's 4 GiB: the ZIP64 writer) with --unroll-k 4: 12 steps
               uninterrupted; 4 with --checkpoint-every 4 --keep-last 1,
               then --resume to 12 (a new graph's warm-up chunk, then one
               replay); gates: the manifest holds [4] and no staging
@@ -122,7 +124,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               steps; B6 timed and checked at that path's shapes
   kernel_attention  B10 flash_attention against ref.flash_attention_ref,
               f32 and bf16, S in {1, 7, 127, 128, 129, 130, 255, 257, 2000}
-              x hd in {8, 16, 32, 40, 64, 80, 128} x (causal, causal +
+              x hd in {8, 16, 32, 40, 64, 80, 112, 128} x (causal, causal +
               window 256, non-causal, non-causal + window 100); grouped-query
               prefill through
               models.transformer._attn (k, v repeated to H heads for B10)
@@ -130,20 +132,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               f32 and bf16, against the plain grouped attention; timed at
               the serve path's (1, 2000, 32, 80) bf16 causal with its plain
               version and scaled_dot_product_attention (library, timed
-              only)
+              only), and at the hybrid serve path's (1, 2000, 32, 112)
+              causal in f32 and bf16, each beside its plain version, SDPA
+              in the same dtype and its bound
   kernel_ssd  B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref, f32 and
               bf16 (bf16 held against f32 on the same inputs), over the
               reference sweep, xlstm-125m's folded shapes (P in {384, 1},
               N = 384, Q in {1, 7, 52, 64}) and zamba2-7b's (G, 64, 112,
-              64), N = 64, and both sides of the kernel's routes and tiles
+              64), N = 64, G in {4, 16, 32}, and both sides of the
+              kernel's routes and tiles
               (Q in {2, 15, 16, 17, 63, 65, 127}, ragged P and N); the
               autograd Function's gradients against autograd through the
               plain version; timed at the xLSTM serve prefill's (32, 64, 1,
               384), N = 384, bf16 and f32, then at each shape the xLSTM
               paths give it (training, prefill and decode; memory and
-              normalizer calls), f32 and bf16, each beside its own bound:
-              device time from a CUDA graph of the calls replayed, the
-              host's microseconds a call beside it
+              normalizer calls) and the hybrid paths' (16 and 32, 64, 112,
+              64), N = 64, f32 and bf16, each beside its own bound and
+              plain version: device time from a CUDA graph of the calls
+              replayed, the host's microseconds a call beside it
   kernel_ring B7 ring_gossip_update, B8 ring_obfuscate_gossip and B9
               ring_obfuscate_gossip_krng bitwise against their plain
               versions, f32 and bf16, on rings of m = 2, 4, 5, 32 and the
@@ -193,9 +199,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               --gen-tokens 32 --decode-chunk 8 --parity-check: full width
               and depth, bf16; B11 12 times a prefill and a decode step; the
               same gate as serve_path
+  hybrid_step_parity  zamba2-7b-smoke f32 at 4 layers (both shared
+              blocks), 4 agents, 1 step: card vs CPU
+  hybrid_train_path  run_training --arch zamba2-7b, full width, 12 mamba
+              layers (sites 5 and 11), 4 agents on a ring, bf16, PDSGD,
+              per-agent batch 2, seq 512, 1 warm-up + 3 timed steps: B3 +
+              B2 every step, B11 48 times a step (112 heads sharing B and C)
+  hybrid_train_scanned  the same with --unroll-k 2 (a warm-up chunk and
+              two replays) beside 6 eager steps; bitwise; B11 48 a step
+              counted and replayed
+  hybrid_serve_parity  zamba2-7b-smoke f32, 4 requests on 2 slots: card vs
+              CPU (B11 and B10 in every prefill)
+  hybrid_serve_path  launch/serve with --arch zamba2-7b --slots 8
+              --requests 9 --prompt-len 2000 --gen-tokens 32
+              --decode-chunk 8 --parity-check: full width and depth (81
+              mamba layers, 13 attention sites), bf16 weights and an f32
+              residual stream; B11 81 and B10 13 times a prefill, none in
+              decode; the same gate as serve_path; where the M = 1 check
+              differs, the logit spread and a block-by-block trace of one
+              decode step (batched against B = 1, after each mamba layer
+              and each site: the gap carried so far and the gap that block
+              alone makes on the same inputs)
   kernels     every kernel with its launches in its own path's run (B3
-              and B2: main_path; B11: the xLSTM train and serve paths),
-              error, times and bound
+              and B2: main_path; B10: both serve paths; B11: the xLSTM and
+              hybrid train and serve paths), error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
 scaled_dot_product_attention in the same run, the card's name and power
 limit, and the result line.  Each phase's line is also appended to
@@ -266,10 +293,13 @@ BITS_PATH_LAYERS = 2
 # every phase record is also kept here: the run's standard output is
 # longer than what a caller may see of it
 RECORDS = ROOT / "chiprun_out" / "chip_smoke.jsonl"
+# each record carries the seconds since the script started (``script_s``):
+# the script must end well inside its time limit
+_T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
-    line = json.dumps(obj)
+    line = json.dumps({**obj, "script_s": time.perf_counter() - _T0})
     print(line, flush=True)
     with RECORDS.open("a") as f:
         f.write(line + "\n")
@@ -806,13 +836,17 @@ def phase_kernels_ring(torch, K, prng):
 # 127, 129, 255, 257: both sides of B10's 128-row tile edges
 ATTN_SEQS = (1, 7, 127, 128, 129, 130, 255, 257, 2000)
 # 8 and 40: hd padded to a multiple of 16 on the tensor-core path; 80 one
-# 128-byte and one 32-byte box; 128 two 128-byte boxes
-ATTN_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 128)
+# 128-byte and one 32-byte box; 112 (zamba2-7b) one 128-byte and three
+# 32-byte boxes; 128 two 128-byte boxes
+ATTN_HEAD_DIMS = (8, 16, 32, 40, 64, 80, 112, 128)
 # (causal, window): the three modes the serve path and the reference's
 # sweep use, and a non-causal window (tiles whose rows are all masked)
 ATTN_MODES = ((True, None), (True, 256), (False, None), (False, 100))
 # the serve path's prefill attention: (1, prompt 2000, 32 heads, 80) bf16
 SERVE_ATTN_SHAPE = (1, 2000, 32, 80)
+# the hybrid serve path's: zamba2-7b's shared attention, hd 112, f32 (every
+# site follows a mamba block), timed in bf16 too
+HYBRID_ATTN_SHAPE = (1, 2000, 32, 112)
 # grouped-query prefill through models.transformer._attn: granite-8b's
 # heads (H = 32 query, KV = 8, hd = 128)
 GQA_HEADS = (32, 8, 128)
@@ -938,6 +972,41 @@ def phase_kernel_attention(torch, K):
     row["tflops"] = flops / row["ms"] / 1e9
     row["library_tflops"] = flops / row["library_ms"] / 1e9
     row["ms_over_library"] = row["ms"] / row["library_ms"]
+    # the hybrid serve path's shape, f32 (as the path runs it) and bf16,
+    # each beside its plain version, SDPA in the same dtype and its bound
+    B, S, H, hd = HYBRID_ATTN_SHAPE
+    hybrid = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev)
+                   .to(dtype) for _ in range(3))
+        got = K.flash_attention(q, k, v, causal=True)
+        want = K.ref.flash_attention_ref(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        tol = attn_tolerance(torch, dtype, S)
+        diff = (got.float() - want.float()).abs()
+        check(bool(torch.isfinite(got).all()) and float(
+            (diff / (tol + tol * want.float().abs())).max()) <= 1.0,
+            f"B10 hybrid shape {str(dtype)[6:]}: max abs "
+            f"{float(diff.max())}")
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        elem = 4 if dtype == torch.float32 else 2
+        hb_bytes, hb_flops = attn_bound(B, S, H, hd, elem, True, None)
+        by = hb_bytes / HBM_BYTES_PER_S * 1e3
+        op = hb_flops / (F32_FLOPS if dtype == torch.float32
+                         else BF16_TC_FLOPS) * 1e3
+        h = {"ms": time_ms(torch, lambda: K.flash_attention(q, k, v,
+                                                            causal=True),
+                           iters=20),
+             "max_abs_err": float(diff.max()),
+             "plain_ms": time_ms(torch, lambda: K.ref.flash_attention_ref(
+                 q, k, v, causal=True), iters=5),
+             "library_ms": time_ms(torch, lambda: sdpa(qh, kh, vh,
+                                                       is_causal=True),
+                                   iters=20)}
+        h["bound_ms"], h["bound_by"] = (by, "bytes") if by >= op else (
+            op, "operations")
+        h["tflops"] = hb_flops / h["ms"] / 1e9
+        hybrid[str(dtype)[6:]] = h
     emit({"phase": "kernel_attention", "cases": n_cases,
           "seqs": ATTN_SEQS, "head_dims": ATTN_HEAD_DIMS,
           "modes": [list(m) for m in ATTN_MODES],
@@ -947,7 +1016,8 @@ def phase_kernel_attention(torch, K):
           "gqa_vs_attention": gqa, "serve_shape": list(SERVE_ATTN_SHAPE),
           "serve_shape_bf16_max_abs_err_vs_f32": vs_f32,
           "serve_shape_flops": flops, "serve_shape_bytes": nbytes,
-          "B10": row})
+          "B10": row, "hybrid_shape": list(HYBRID_ATTN_SHAPE),
+          "B10_hybrid_shape": hybrid})
     return row
 
 
@@ -955,10 +1025,11 @@ def phase_kernel_attention(torch, K):
 # xlstm-125m's mLSTM with its heads folded into G (H = 1, N = 384): the
 # memory (P = 384) and normalizer (P = 1) calls at Q = 1 (decode), 7 and
 # 52 (short prompts) and 64 (full chunks); zamba2-7b's native Mamba2 form
-# (112 heads, P = N = 64, B and C shared)
+# (112 heads, P = N = 64, B and C shared) at a few chunks and at its train
+# and prefill calls
 SSD_SHAPES = ((2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
               *((16, Q, 1, P, 384) for P in (384, 1) for Q in (1, 7, 52, 64)),
-              (4, 64, 112, 64, 64),
+              *((G, 64, 112, 64, 64) for G in (4, 16, 32)),
               # both sides of the decode route's Q < 16 and of the tensor
               # cores' padded chunk (16, 32, 64, 128); P and N past a tile
               # (vector staging), then odd ones (element staging)
@@ -967,15 +1038,20 @@ SSD_SHAPES = ((2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
 # the xLSTM serve prefill's memory call: a 500-token prompt padded to 8
 # chunks of 64, 4 heads folded: G = 32, P = N = 384
 SSD_SERVE_SHAPE = (32, 64, 1, 384, 384)
-# every shape the xLSTM paths give B11 (G, Q, H, P, N): each mLSTM block
-# makes a memory call (P = 384) and a normalizer call (P = 1); training
-# folds per-agent batch 2 x 2 chunks x 4 heads, a prefill 8 chunks x 4
-# heads, a decode step 8 slots x 4 heads at Q = 1
+# every shape the xLSTM and hybrid paths give B11 (G, Q, H, P, N): each
+# mLSTM block makes a memory call (P = 384) and a normalizer call (P = 1);
+# training folds per-agent batch 2 x 2 chunks x 4 heads, a prefill 8
+# chunks x 4 heads, a decode step 8 slots x 4 heads at Q = 1.  A zamba2-7b
+# mamba layer makes one call, its 112 heads sharing B and C: training
+# per-agent batch 2 x 8 chunks of a 512-token sequence, a prefill the 32
+# chunks of a 2000-token prompt
 SSD_PATH_SHAPES = {
-    f"{path} {call}": (G, Q, 1, P, 384)
-    for path, G, Q in (("train", 16, 64), ("prefill", 32, 64),
-                       ("decode", 32, 1))
-    for call, P in (("memory", 384), ("normalizer", 1))}
+    **{f"{path} {call}": (G, Q, 1, P, 384)
+       for path, G, Q in (("train", 16, 64), ("prefill", 32, 64),
+                          ("decode", 32, 1))
+       for call, P in (("memory", 384), ("normalizer", 1))},
+    "hybrid train": (16, 64, 112, 64, 64),
+    "hybrid prefill": (32, 64, 112, 64, 64)}
 BF16_U = 2.0 ** -8  # bf16's unit roundoff
 
 
@@ -1025,10 +1101,11 @@ def phase_kernel_ssd(torch, K):
     against autograd through the plain version, f32, atol = rtol = 1e-6;
     then B11 timed at the xLSTM serve prefill's memory call, bf16 (and f32,
     the dtype of the blocks after the first), beside its plain version, and
-    at each shape the xLSTM paths give it: device time from a CUDA graph of
-    50 calls replayed (`device_ms`), the host's microseconds a call beside
-    it, and the eager CUDA-event time (``events_ms``, which at a few
-    microseconds of device time measures the host's dispatch)."""
+    at each shape the xLSTM and hybrid paths give it, beside its plain
+    version: device time from a CUDA graph of 50 calls replayed
+    (`device_ms`), the host's microseconds a call beside it, and the eager
+    CUDA-event time (``events_ms``, which at a few microseconds of device
+    time measures the host's dispatch)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev)
     g.manual_seed(11)
@@ -1133,6 +1210,7 @@ def phase_kernel_ssd(torch, K):
                 "host_us": timed["host_us"],
                 "events_ms": time_ms(torch, lambda: K.ssd_intra_chunk(*ins),
                                      iters=50),
+                "plain_ms": time_ms(torch, lambda: plain(*ins), iters=5),
                 "bound_ms": bms, "bound_by": bby,
                 "bound_f32_fma_ms": bound_ms(nb, fl)[0]}
     row["by_shape"] = by_shape
@@ -2385,8 +2463,36 @@ def phase_rollback_path_scanned(torch, K, train, cfg):
     return rec
 
 
-XLSTM_SCANNED_STEPS = 6
+XLSTM_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
 XLSTM_SCANNED_UNROLL = 2
+
+
+def _family_train_scanned(torch, K, train, cfg, phase: str, b11: int,
+                          steps: int, unroll: int, seq_len: int) -> dict:
+    """A family's train path (4 agents on a ring, per-agent batch 2)
+    through `--unroll-k unroll` beside the same steps eager
+    (`_scanned_beside_eager`): B3 and B2 counted once a step and B11
+    ``b11`` times a step on the warm-up, and from the capture on the
+    replays.  Reports the capture's seconds and the graph's nodes."""
+    m = 4
+    rec = _scanned_beside_eager(
+        torch, K, train, cfg, (),
+        {"obfuscate_update_krng": 1, "gossip_update": 1,
+         "ssd_intra_chunk": b11},
+        steps=steps, unroll=unroll, seq_len=seq_len)
+    graph = rec["graphs"][0] if rec["graphs"] else {}
+    rec = {"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "agents": m,
+           "topology": "ring", "per_agent_batch": 2, "seq_len": seq_len,
+           "capture_s": graph.get("capture_s"),
+           "warmup_chunk_s": graph.get("warmup_s"),
+           "graph_nodes": graph.get("nodes"), **rec}
+    emit(rec)
+    return rec
+
+
+def _mlstm_blocks(cfg) -> int:
+    return sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every != 1)
 
 
 def phase_xlstm_train_scanned(torch, K, train, cfg):
@@ -2394,29 +2500,13 @@ def phase_xlstm_train_scanned(torch, K, train, cfg):
     128, through `--unroll-k 2`: a warm-up chunk, then two chunks replayed
     from one CUDA graph that holds the sLSTM token loop unrolled and B11's
     autograd Function, beside the same 6 steps eager.  Gates: states and
-    step records equal; B3 and B2 counted once a step and B11 48 times a
-    step (4 agents x 6 mLSTM blocks x 2 calls) on the warm-up, and from
-    the capture on the replays.  Reports the capture's seconds and the
-    graph's nodes."""
-    m = 4
-    n_m = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every != 1)
+    step records equal; B3 and B2 once a step and B11 48 times a step (4
+    agents x 6 mLSTM blocks x 2 calls)."""
     check(cfg.num_layers == 12 and cfg.d_model == 768, "full xlstm-125m")
-    rec = _scanned_beside_eager(
-        torch, K, train, cfg, (),
-        {"obfuscate_update_krng": 1, "gossip_update": 1,
-         "ssd_intra_chunk": m * n_m * 2},
-        steps=XLSTM_SCANNED_STEPS, unroll=XLSTM_SCANNED_UNROLL,
-        seq_len=XLSTM_TRAIN_SEQ)
-    graph = rec["graphs"][0] if rec["graphs"] else {}
-    rec = {"phase": "xlstm_train_scanned", "arch": cfg.name,
-           "num_layers": cfg.num_layers, "d_model": cfg.d_model,
-           "dtype": cfg.dtype, "agents": m, "topology": "ring",
-           "per_agent_batch": 2, "seq_len": XLSTM_TRAIN_SEQ,
-           "capture_s": graph.get("capture_s"),
-           "warmup_chunk_s": graph.get("warmup_s"),
-           "graph_nodes": graph.get("nodes"), **rec}
-    emit(rec)
-    return rec
+    return _family_train_scanned(
+        torch, K, train, cfg, "xlstm_train_scanned",
+        4 * _mlstm_blocks(cfg) * 2, XLSTM_SCANNED_STEPS,
+        XLSTM_SCANNED_UNROLL, XLSTM_TRAIN_SEQ)
 
 
 # scale 2: at 50 (or 1e4) the trimmed mean over paper_fig1's two or three
@@ -2509,6 +2599,11 @@ def phase_fig2_trimmed_mean(torch, K, prng, profile: bool = False):
 
 CKPT_EVERY = 4
 CKPT_DIR = ROOT / "build" / "chip_checkpoints"
+# the checkpointed model: the main path's width at depth 4 (a 4.61 GB
+# archive, not depth 8's 7.15 GB), cut for the script's time limit; past
+# the plain ZIP's 4 GiB, so its archives take the ZIP64 route as every
+# full-size state's do (checked)
+CKPT_LAYERS = 4
 CKPT_WRITERS = (("sync", ("--checkpoint-sync",)),
                 ("thread", ("--checkpoint-writer", "thread")),
                 ("subprocess", ("--checkpoint-writer", "subprocess")))
@@ -2609,6 +2704,14 @@ def _archive_digests(step_dir: Path) -> dict:
     return out
 
 
+def _is_zip64(path: Path) -> bool:
+    """Whether an archive ends in a ZIP64 end-of-central-directory
+    locator (the ZIP64 writer's route)."""
+    with open(path, "rb") as f:
+        f.seek(-(22 + 20), os.SEEK_END)
+        return f.read(4) == b"PK\x06\x07"
+
+
 def _step_dirs(d: Path) -> list[str]:
     return sorted(p.name for p in d.iterdir())
 
@@ -2619,6 +2722,7 @@ def _writer_record(res, step_dir: Path, wall, peak, children) -> dict:
             "save_ms": [t * 1e3 for t in times["save_s"]],
             "commit_s": times["commit_s"],
             "archive_bytes": (step_dir / "arrays.npz").stat().st_size,
+            "zip64": _is_zip64(step_dir / "arrays.npz"),
             "run_wall_s": wall, "max_memory_allocated": peak,
             "host_peak_rss": _peak_rss(),
             "children_peak_rss": list(children.peaks.values()),
@@ -2626,9 +2730,10 @@ def _writer_record(res, step_dir: Path, wall, peak, children) -> dict:
 
 
 def phase_checkpoint_path(torch, K, train, cfg):
-    """Checkpoints of the main path's configuration (stablelm-3b, depth 8,
-    m 4 on a ring, bf16, --unroll-k 4), one archive the whole 7.15 GB
-    state: 12 steps uninterrupted (checkpointing off); 4 steps with
+    """Checkpoints of the main path's configuration at CKPT_LAYERS
+    (stablelm-3b, depth 4, m 4 on a ring, bf16, --unroll-k 4), one archive
+    the whole 4.61 GB state (the ZIP64 route, checked): 12 steps
+    uninterrupted (checkpointing off); 4 steps with
     --checkpoint-every 4 --keep-last 1 and the thread writer, then
     --steps 12 --resume: the load, a new graph's eager warm-up chunk
     (steps 4-7) and one replay (steps 8-11, its device step counter
@@ -2734,6 +2839,9 @@ def phase_checkpoint_path(torch, K, train, cfg):
             del res
             digests[name] = _archive_digests(step8)
             shutil.rmtree(wd)
+        check(all(w["zip64"] for w in writers.values()),
+              f"checkpoint_path: an archive of {archive_bytes} B did not "
+              f"take the ZIP64 route")
         equal = all(v == digests["thread"] for v in digests.values())
         check(equal, "checkpoint_path: the writers' step-8 archives differ")
         check(all(len(v) == layout.n_leaves + 2 for v in digests.values()),
@@ -3387,6 +3495,8 @@ def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24,
     emit({"phase": "profile", "path": path, "args": argv, **out})
 
 
+# every serve path keeps more requests than slots, so admission refills
+# slots of a live slab
 SERVE_PATH_ARGS = ("--arch", "stablelm-3b", "--slots", "8", "--requests",
                    "16", "--prompt-len", "2000", "--gen-tokens", "64",
                    "--decode-chunk", "8", "--parity-check")
@@ -3399,15 +3509,15 @@ XLSTM_SERVE_ARGS = ("--arch", "xlstm-125m", "--slots", "8", "--requests",
 # xlstm-125m training: sequence 128, cut from the reference's train shapes
 # for the sLSTM's host loop (forward and backward, per token and agent)
 XLSTM_TRAIN_SEQ = 128
-XLSTM_TRAIN_STEPS = 4
 
 
-def _serve_parity(torch, serve, arch: str, kernel: str):
+def _serve_parity(torch, serve, arch: str, kernels: tuple):
     """``arch`` in f32, 4 requests on 2 slots, greedy, through run_serving
     on the card (kernels) and on the CPU (plain versions), same weights:
     equal token streams, both --parity-check ok, and every prompt's
     prefill logits within atol = rtol = 1e-4.  Returns (config, card
-    streams, max logit error, launches of ``kernel`` on the card)."""
+    streams, max logit error, the card run's launches of each of
+    ``kernels``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -3422,7 +3532,7 @@ def _serve_parity(torch, serve, arch: str, kernel: str):
     gpu = serve.run_serving(serve.build_parser().parse_args(
         flags + ["--device", "cuda"]), init_params=p0)
     torch.cuda.synchronize()
-    launches = launch_counts[kernel]
+    launches = {k: launch_counts[k] for k in kernels}
     cpu = serve.run_serving(serve.build_parser().parse_args(
         flags + ["--device", "cpu"]), init_params=p0)
     streams = [{c.req_id: c.tokens for c in run["completions"]}
@@ -3448,9 +3558,10 @@ def phase_serve_parity(torch, serve):
     B10 on the card, the naive attention on the CPU; the logits tolerance
     is the f32 conditioning of the smoke model's sharp attention
     (tests/test_torch_serve.py)."""
-    cfg, tokens, max_err, b10 = _serve_parity(torch, serve,
-                                              "stablelm-3b-smoke",
-                                              "flash_attention")
+    cfg, tokens, max_err, counts = _serve_parity(torch, serve,
+                                                 "stablelm-3b-smoke",
+                                                 ("flash_attention",))
+    b10 = counts["flash_attention"]
     # prefills: warm-up + 4 requests + 4 sequential, 2 layers each
     check(b10 == cfg.num_layers * 9, f"serve_parity B10 launches {b10}")
     emit({"phase": "serve_parity", "arch": cfg.name, "dtype": "float32",
@@ -3464,9 +3575,10 @@ def phase_xlstm_serve_parity(torch, serve):
     """xlstm-125m-smoke in f32 (`_serve_parity`): the mLSTM's SSD through
     B11 on the card (prefill and every decode step), its plain version on
     the CPU."""
-    cfg, tokens, max_err, b11 = _serve_parity(torch, serve,
-                                              "xlstm-125m-smoke",
-                                              "ssd_intra_chunk")
+    cfg, tokens, max_err, counts = _serve_parity(torch, serve,
+                                                 "xlstm-125m-smoke",
+                                                 ("ssd_intra_chunk",))
+    b11 = counts["ssd_intra_chunk"]
     # at least the 9 prefills' two calls in the one mLSTM block
     check(b11 >= 2 * 9, f"xlstm_serve_parity B11 launches {b11}")
     emit({"phase": "xlstm_serve_parity", "arch": cfg.name,
@@ -3485,23 +3597,24 @@ def decode_logit_spread(torch, ctx, args, steps: int = 8):
     prompts, both fed the B = 1 stream's tokens."""
     from repro_torch.serve import make_layout, write_slot
     bundle, params = ctx["bundle"], ctx["params"]
+    dev = params["embed"].device
     reqs = ctx["requests"][:args.slots]
     V = bundle.cfg.vocab_size
     cap = args.prompt_len + args.gen_tokens
     layout, one = make_layout(bundle, len(reqs), cap), make_layout(bundle, 1,
                                                                    cap)
-    slab, singles, toks = layout.init("cuda"), [], []
+    slab, singles, toks = layout.init(dev), [], []
     for s, r in enumerate(reqs):
         out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
-            r.tokens)[None].cuda()})
+            r.tokens)[None].to(dev)})
         write_slot(layout, slab, out["cache"], s)
-        singles.append(write_slot(one, one.init("cuda"), out["cache"], 0))
+        singles.append(write_slot(one, one.init(dev), out["cache"], 0))
         toks.append(int(out["logits"][0, :V].float().argmax()))
     pos = torch.tensor([len(r.tokens) for r in reqs], dtype=torch.int32,
-                       device="cuda")
+                       device=dev)
     per_step = []
     for t in range(steps):
-        cur = torch.tensor(toks, dtype=torch.int32, device="cuda")
+        cur = torch.tensor(toks, dtype=torch.int32, device=dev)
         batched = bundle.decode_fn(params, cur, slab, pos)["logits"]
         worst = 0.0
         for s in range(len(reqs)):
@@ -3523,7 +3636,8 @@ def decode_layer_growth(torch, ctx, args, slots: int = 4) -> list[float]:
     tokens."""
     from repro_torch.models import transformer as tf
     from repro_torch.models.common import (decode_cache_valid,
-                                           decode_positions, rope_tables_at)
+                                           decode_positions, layer_views,
+                                           rope_tables_at)
     from repro_torch.serve import make_layout, write_slot
     bundle, params = ctx["bundle"], ctx["params"]
     cfg = bundle.cfg
@@ -3555,7 +3669,7 @@ def decode_layer_growth(torch, ctx, args, slots: int = 4) -> list[float]:
     x_1 = [params["embed"][cur[s:s + 1].long()][:, None, :]
            for s in range(len(reqs))]
     growth = []
-    for i, p in enumerate(tf._layers(params)):
+    for i, p in enumerate(layer_views(params["layers"])):
         x_b = tf._layer_decode(p, x_b, slab["k"][i], slab["v"][i], pos,
                                rope_b, cfg, valid_b)
         for s in range(len(reqs)):
@@ -3567,30 +3681,146 @@ def decode_layer_growth(torch, ctx, args, slots: int = 4) -> list[float]:
     return growth
 
 
+def _diff(x_b, x_1) -> float:
+    """Max |batched row s - B = 1 stream s| over the rows."""
+    return max(float((x_b[s] - x[0]).float().abs().max())
+               for s, x in enumerate(x_1))
+
+
+def hybrid_decode_trace(torch, ctx, args, slots: int = 4) -> dict:
+    """Where a batched hybrid decode step leaves the B = 1 one: the first
+    decode step of the path's first ``slots`` prompts, decoded together
+    (per-slot positions, as the engine) and each alone (a scalar position,
+    as the sequential decode), from the same prefill caches and tokens.
+    After each mamba layer and each attention site: ``carried``, the max
+    |residual difference| so far; ``local``, the one that block alone
+    makes, run batched on the B = 1 streams' inputs against each B = 1
+    run (the rounding of that block's batched products, or a fault in
+    its batched state or positions); ``scale``, the B = 1 residual's max
+    |value|.  The states are not written (the sites' KV writes land at
+    the step's own position, which no later read of this step sees)."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import (decode_cache_valid,
+                                           decode_positions, rope_tables_at)
+    from repro_torch.models.hybrid import _blocks
+    from repro_torch.serve import make_layout, write_slot
+    bundle, params = ctx["bundle"], ctx["params"]
+    dev = params["embed"].device
+    cfg = bundle.cfg
+    reqs = ctx["requests"][:slots]
+    n = len(reqs)
+    cap = args.prompt_len + args.gen_tokens
+    layout, one = make_layout(bundle, n, cap), make_layout(bundle, 1, cap)
+    slab, singles, toks = layout.init(dev), [], []
+    for s, r in enumerate(reqs):
+        out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
+            r.tokens)[None].to(dev)})
+        write_slot(layout, slab, out["cache"], s)
+        singles.append(write_slot(one, one.init(dev), out["cache"], 0))
+        toks.append(int(out["logits"][0, :cfg.vocab_size].float().argmax()))
+    pos_b = torch.tensor([len(r.tokens) for r in reqs], dtype=torch.int32,
+                         device=dev)
+    pos_1 = [torch.tensor(len(r.tokens), device=dev) for r in reqs]
+    C = slab["k"].shape[2]
+
+    def tables(at, b):
+        return decode_cache_valid(at, C), rope_tables_at(
+            decode_positions(at, b), cfg.head_dim, cfg.rotary_frac,
+            cfg.rope_theta)
+
+    valid_b, rope_b = tables(pos_b, n)
+    single_tables = [tables(at, 1) for at in pos_1]
+    cur = torch.tensor(toks, dtype=torch.int32, device=dev)
+    x_b = params["embed"][cur.long()][:, None, :]
+    x_1 = [x_b[s:s + 1].clone() for s in range(n)]
+    trace = []
+
+    def record(block, x_b, loc, x_1):
+        trace.append({"block": block, "carried": _diff(x_b, x_1),
+                      "local": _diff(loc, x_1),
+                      "scale": max(float(x.float().abs().max())
+                                   for x in x_1)})
+
+    for i, (p, site) in enumerate(_blocks(params, cfg)):
+        state_b = (slab["ssm"][i], slab["conv"][i])
+        x_b = ssm.mamba_block_decode(p, x_b, state_b, cfg)[0]
+        loc = ssm.mamba_block_decode(p, torch.cat(x_1), state_b, cfg)[0]
+        x_1 = [ssm.mamba_block_decode(p, x_1[s], (singles[s]["ssm"][i],
+                                                  singles[s]["conv"][i]),
+                                      cfg)[0] for s in range(n)]
+        record(f"mamba {i}", x_b, loc, x_1)
+        if site is not None:
+            k, blk = site
+            kv_b = (slab["k"][k], slab["v"][k])
+            x_b = tfm._layer_decode(blk, x_b, *kv_b, pos_b, rope_b, cfg,
+                                    valid_b)
+            loc = tfm._layer_decode(blk, torch.cat(x_1), *kv_b, pos_b,
+                                    rope_b, cfg, valid_b)
+            x_1 = [tfm._layer_decode(
+                blk, x_1[s], singles[s]["k"][k], singles[s]["v"][k],
+                pos_1[s], single_tables[s][1], cfg, single_tables[s][0])
+                for s in range(n)]
+            record(f"site {k} (shared {k % cfg.hybrid_num_shared})", x_b,
+                   loc, x_1)
+    carried = [t["carried"] for t in trace]
+    local = [t["local"] for t in trace]
+    worst = max(range(len(trace)), key=lambda j: local[j] / max(
+        trace[j]["scale"], 1e-30))
+    return {"decode_block_trace": trace,
+            "decode_block_trace_slots": n,
+            "decode_block_first_nonzero": next(
+                (t["block"] for t in trace if t["carried"] > 0), None),
+            "decode_block_carried_last": carried[-1],
+            "decode_block_local_max": max(local),
+            "decode_block_local_max_rel": local[worst]
+            / max(trace[worst]["scale"], 1e-30),
+            "decode_block_local_max_rel_at": trace[worst]["block"]}
+
+
+class _Diverged(Exception):
+    """Stops a sequential decode at its first token off the engine's."""
+
+
 def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
-    """A diagnostic of the M = 1 comparison (not a gate): where the
-    engine's stream leaves the sequential B = 1 one, the first diverging
-    position, the sequential logits' top-2 margin there, and the first
-    position whose margin is below ``spread`` (a near tie that the batched
-    and B = 1 products may order differently), if any up to there."""
+    """A diagnostic of the M = 1 comparison: where the engine's stream
+    leaves the sequential B = 1 one, the first diverging position, the
+    sequential logits' top-2 margin there, and the first position whose
+    margin is below ``spread`` (a near tie that the batched and B = 1
+    products may order differently), if any up to there.  Each sequential
+    decode stops at its first token off the engine's stream: nothing past
+    it enters the record."""
     from repro_torch.core import prng
     from repro_torch.serve import sequential_decode
     bundle, params = ctx["bundle"], ctx["params"]
+    dev = params["embed"].device
     V = bundle.cfg.vocab_size
     got = {c.req_id: c.tokens for c in ctx["completions"]}
     found = []
     for r in ctx["requests"]:
         rows: list = []
-        seq = sequential_decode(
-            bundle, params, {"tokens": torch.as_tensor(r.tokens)[None]
-                             .cuda()}, r.req_id, r.max_new_tokens,
-            base_key=prng.key(args.seed),
-            max_seq_len=args.prompt_len + args.gen_tokens, logits_out=rows)
         eng = got[r.req_id]
-        if eng == seq:
+
+        def decode(params, tok, cache, p, rows=rows, eng=eng):
+            # ``tok`` was sampled from rows[-1]: stop where it leaves eng
+            if int(tok[0]) != eng[len(rows) - 1]:
+                raise _Diverged
+            return bundle.decode_fn(params, tok, cache, p)
+
+        try:
+            seq = sequential_decode(
+                bundle, params, {"tokens": torch.as_tensor(r.tokens)[None]
+                                 .to(dev)}, r.req_id, r.max_new_tokens,
+                base_key=prng.key(args.seed),
+                max_seq_len=args.prompt_len + args.gen_tokens,
+                decode=decode, logits_out=rows)
+        except _Diverged:
+            seq = None
+        if seq == eng:
             continue
-        p = next((j for j, (a, b) in enumerate(zip(eng, seq)) if a != b),
-                 min(len(eng), len(seq)))
+        p = len(rows) - 1 if seq is None else next(
+            (j for j, (a, b) in enumerate(zip(eng, seq)) if a != b),
+            min(len(eng), len(seq)))
         margins = [float(t[0] - t[1]) for t in
                    (torch.topk(x[:V], 2).values for x in rows[:p + 1])]
         found.append({"req": r.req_id, "first_diverging_pos": p,
@@ -3707,166 +3937,155 @@ def _serve_record(phase: str, res, args, peak, wall, counts, gate) -> dict:
             "gate": gate, "parity_m1": res["parity"], "launches": counts}
 
 
-def phase_serve_path(torch, K, serve):
-    """`python -m repro_torch.launch.serve` with SERVE_PATH_ARGS: stablelm-3b
-    at full width and depth, bf16, 16 requests of 2000-token prompts on 8
-    slots, 64 tokens each in chunks of 8, every prefill attention through
-    B10 (32 launches a prefill).  Gate: the engine's streams equal the
-    same-width oracle's exactly.  --parity-check's M = 1 sequential decode
-    is a diagnostic: where it differs, the batched-vs-B=1 logit spread,
-    the margin rule's record and a layer-by-layer trace of the two
-    residual streams, in bf16 and in f32, are printed."""
-    from repro_torch.models import build_model
-    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve,
-                                                 SERVE_PATH_ARGS)
-    res = ctx["result"]
-    cfg = ctx["bundle"].cfg
-    check(cfg.num_layers == 32 and cfg.d_model == 2560, "full stablelm-3b")
-    check(res["completed"] == 16 and res["generated_tokens"] == 16 * 64,
-          f"served {res['completed']} / {res['generated_tokens']}")
-    # prefills: the warm-up request, 16 admissions, and the sequential
-    # re-decodes of --parity-check
-    prefills = 1 + 16 + _checked(res)
-    check(counts.get("flash_attention", 0) == cfg.num_layers * prefills,
-          f"serve_path launches {counts} for {prefills} prefills")
-    del ctx["engine"]
-    gc.collect()
-    with torch.no_grad():
-        gate = same_width_gate(torch, ctx, args)
-    divergence, spread, per_step, spread_f32 = [], None, None, None
-    growth = growth_f32 = None
-    if res["parity"] != "ok":
-        gc.collect()
-        with torch.no_grad():
-            spread, per_step = decode_logit_spread(torch, ctx, args)
-            divergence = margin_rule(torch, ctx, args, spread)
-            # why the M = 1 streams part: the batched and B = 1 residual
-            # streams after each layer of one decode step, in bf16 and with
-            # the same weights in f32
-            growth = decode_layer_growth(torch, ctx, args)
-            cfg32 = dataclasses.replace(cfg, dtype="float32")
-            ctx32 = {"bundle": build_model(cfg32),
-                     "params": {k: v.float() if k != "layers" else
-                                {n: t.float() for n, t in v.items()}
-                                for k, v in ctx["params"].items()},
-                     "requests": ctx["requests"]}
-            spread_f32 = decode_logit_spread(torch, ctx32, args, steps=2)
-            growth_f32 = decode_layer_growth(torch, ctx32, args)
-            del ctx32
-    rec = _serve_record("serve_path", res, args, peak, wall, counts, gate)
-    rec.update({"flash_attention_launches": counts.get("flash_attention", 0),
-                "prefills": prefills, "parity": res["parity"],
-                "decode_logit_spread": spread,
-                "decode_logit_spread_per_step": per_step,
-                "decode_logit_spread_f32_per_step": (spread_f32[1]
-                                                     if spread_f32 else None),
-                "decode_layer_growth_bf16": growth,
-                "decode_layer_growth_f32": growth_f32,
-                "divergence_m1": divergence})
-    emit(rec)
-    check(gate["equal"], f"serve_path: the engine's streams differ from the "
-                         f"same-width oracle's: {gate['mismatches']}")
-    # the first token comes from the B = 1 prefill in both: exact
-    check(all(d["first_diverging_pos"] > 0 for d in divergence),
-          "serve_path: a first token differs from the sequential one")
-    del ctx
-    return {"flash_attention": counts}
-
-
-def phase_xlstm_serve_path(torch, K, serve):
-    """`python -m repro_torch.launch.serve` with XLSTM_SERVE_ARGS:
-    xlstm-125m at full width and depth (12 blocks), bf16, 16 requests of
-    500-token prompts on 8 slots, 32 tokens each in chunks of 8.  B11
-    twice in each of the 6 mLSTM blocks of every prefill (Q = 64, 8 chunks)
-    and every decode step (Q = 1); the launches are checked against the
-    prefills and decode steps the run made.  Gate: the engine's streams
-    equal the same-width oracle's exactly; --parity-check's M = 1
-    comparison and, where it differs, the logit spread and the margin
-    rule's record are printed."""
-    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve,
-                                                 XLSTM_SERVE_ARGS)
+def _serve_path_phase(torch, K, serve, phase: str, argv, full, expect,
+                      margins: bool = True, diagnose=None) -> dict:
+    """`python -m repro_torch.launch.serve` with ``argv`` (`_drive_serve`).
+    ``full(cfg)``: the model is at full width and depth.  ``expect(cfg,
+    prefills, steps)``: each kernel's launches for the run's prefills (the
+    warm-up request, the admissions and --parity-check's sequential
+    re-decodes) and decode steps (the warm-up's chunk, the timed chunks and
+    the re-decodes' steps).  Gate: the engine's streams equal the
+    same-width oracle's exactly.  --parity-check's M = 1 comparison is
+    printed and, where it differs, the batched-vs-B=1 logit spread, with
+    ``margins`` the margin rule's record (whose first tokens, from the
+    B = 1 prefill on both sides, must agree) and ``diagnose(ctx, args)``'s
+    fields.  Returns the run's launch counts."""
+    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve, argv)
     res = ctx["result"]
     cfg = ctx["bundle"].cfg
     n = args.requests
-    check(cfg.num_layers == 12 and cfg.d_model == 768
-          and cfg.family == "xlstm", "full xlstm-125m")
+    check(full(cfg), f"{phase}: {cfg.name} is not at full width and depth")
     check(res["completed"] == n and res["generated_tokens"] == n
           * args.gen_tokens,
-          f"served {res['completed']} / {res['generated_tokens']}")
+          f"{phase}: served {res['completed']} / {res['generated_tokens']}")
     checked = _checked(res)
     prefills = 1 + n + checked
-    # decode steps: the warm-up's chunk and the timed chunks, then the
-    # sequential re-decodes (a token per step after the first)
     steps = (args.decode_chunk * (1 + len(ctx["engine"].chunk_times))
              + (args.gen_tokens - 1) * checked)
-    per_call = 2 * sum(1 for i in range(cfg.num_layers)
-                       if i % cfg.slstm_every != 1)
-    b11 = counts.get("ssd_intra_chunk", 0)
-    check(b11 == per_call * (prefills + steps),
-          f"xlstm_serve_path B11 launches {b11}, expected {per_call} x "
-          f"({prefills} prefills + {steps} decode steps)")
+    want = expect(cfg, prefills, steps)
+    check(all(counts.get(k, 0) == v for k, v in want.items()),
+          f"{phase} launches {counts}, expected {want} for {prefills} "
+          f"prefills and {steps} decode steps")
+    # every chunk's ms (the first, after the warm-up, is not steady)
+    chunks_ms = [t * 1e3 for t in ctx["engine"].chunk_times]
     del ctx["engine"]
     gc.collect()
+    diag = {"decode_logit_spread": None, "decode_logit_spread_per_step": None,
+            "divergence_m1": []}
     with torch.no_grad():
         gate = same_width_gate(torch, ctx, args)
-        spread, per_step, divergence = None, None, []
         if res["parity"] != "ok":
+            gc.collect()
             spread, per_step = decode_logit_spread(torch, ctx, args)
-            divergence = margin_rule(torch, ctx, args, spread)
-    rec = _serve_record("xlstm_serve_path", res, args, peak, wall, counts,
-                        gate)
-    rec.update({"ssd_intra_chunk_launches": b11, "prefills": prefills,
-                "decode_steps": steps, "parity": res["parity"],
-                "decode_logit_spread": spread,
-                "decode_logit_spread_per_step": per_step,
-                "divergence_m1": divergence})
+            diag.update(decode_logit_spread=spread,
+                        decode_logit_spread_per_step=per_step)
+            if margins:
+                diag["divergence_m1"] = margin_rule(torch, ctx, args, spread)
+            if diagnose is not None:
+                diag.update(diagnose(ctx, args))
+    rec = _serve_record(phase, res, args, peak, wall, counts, gate)
+    rec.update({"prefills": prefills, "decode_steps": steps,
+                "launches_expected": want, "chunks_ms": chunks_ms,
+                "parity": res["parity"], **diag})
     emit(rec)
-    check(gate["equal"], f"xlstm_serve_path: the engine's streams differ "
-                         f"from the same-width oracle's: "
-                         f"{gate['mismatches']}")
+    check(gate["equal"], f"{phase}: the engine's streams differ from the "
+                         f"same-width oracle's: {gate['mismatches']}")
+    check(all(d["first_diverging_pos"] > 0 for d in diag["divergence_m1"]),
+          f"{phase}: a first token differs from the sequential one")
     del ctx
     return counts
 
 
-def phase_xlstm_step_parity(torch, K, train):
-    """2 steps of xlstm-125m-smoke (f32, one mLSTM and one sLSTM block)
-    through run_training on the card (B3 + B2, and B11 in each mLSTM
-    forward) and on the CPU (plain versions), same weights and batches;
-    seq 70 pads the scan to 128.  Tolerance: losses rtol 1e-5, params
-    atol = rtol = 1e-4."""
-    from repro_torch.configs import get_config
+def _dense_decode_growth(torch, ctx, args) -> dict:
+    """Why the stablelm M = 1 streams part: the batched and B = 1 residual
+    streams after each layer of one decode step, in bf16 and with the
+    same weights in f32, and the f32 logit spread over 2 steps."""
+    from repro_torch.models import build_model
+    growth = decode_layer_growth(torch, ctx, args)
+    cfg32 = dataclasses.replace(ctx["bundle"].cfg, dtype="float32")
+    ctx32 = {"bundle": build_model(cfg32),
+             "params": {k: v.float() if k != "layers" else
+                        {n: t.float() for n, t in v.items()}
+                        for k, v in ctx["params"].items()},
+             "requests": ctx["requests"]}
+    spread_f32 = decode_logit_spread(torch, ctx32, args, steps=2)
+    return {"decode_logit_spread_f32_per_step": spread_f32[1],
+            "decode_layer_growth_bf16": growth,
+            "decode_layer_growth_f32": decode_layer_growth(torch, ctx32,
+                                                           args)}
+
+
+def phase_serve_path(torch, K, serve):
+    """SERVE_PATH_ARGS: stablelm-3b at full width and depth, bf16, 16
+    requests of 2000-token prompts on 8 slots, 64 tokens each in chunks of
+    8, every prefill attention through B10 (32 launches a prefill).  Where
+    the M = 1 check differs: the logit spread, the margin rule's record
+    and a layer-by-layer trace of the two residual streams, in bf16 and
+    in f32 (`_serve_path_phase`)."""
+    return _serve_path_phase(
+        torch, K, serve, "serve_path", SERVE_PATH_ARGS,
+        lambda cfg: cfg.num_layers == 32 and cfg.d_model == 2560,
+        lambda cfg, prefills, steps: {
+            "flash_attention": cfg.num_layers * prefills},
+        diagnose=lambda ctx, args: _dense_decode_growth(torch, ctx, args))
+
+
+def phase_xlstm_serve_path(torch, K, serve):
+    """XLSTM_SERVE_ARGS: xlstm-125m at full width and depth (12 blocks),
+    bf16, 16 requests of 500-token prompts on 8 slots, 32 tokens each in
+    chunks of 8.  B11 twice in each of the 6 mLSTM blocks of every prefill
+    (Q = 64, 8 chunks) and every decode step (Q = 1).  Where the M = 1
+    check differs: the logit spread and the margin rule's record
+    (`_serve_path_phase`)."""
+
+    def expect(cfg, prefills, steps):
+        per_call = 2 * sum(1 for i in range(cfg.num_layers)
+                           if i % cfg.slstm_every != 1)
+        return {"ssd_intra_chunk": per_call * (prefills + steps)}
+
+    return _serve_path_phase(
+        torch, K, serve, "xlstm_serve_path", XLSTM_SERVE_ARGS,
+        lambda cfg: (cfg.family == "xlstm" and cfg.num_layers == 12
+                     and cfg.d_model == 768), expect)
+
+
+def _family_step_parity(torch, K, train, phase: str, cfg, steps: int,
+                        b11: int) -> None:
+    """``steps`` steps of ``cfg`` (f32, 4 agents, seq 70: the scan padded
+    to 128) through run_training on the card (B3 + B2, and B11 in each
+    SSD forward, ``b11`` launches a step) and on the CPU (plain versions),
+    same weights and batches.  Tolerance: losses rtol 1e-5, params atol =
+    rtol = 1e-4."""
     from repro_torch.core.privacy import tree_leaves
     from repro_torch.models import build_model
-    cfg = get_config("xlstm-125m-smoke")
     gen = torch.Generator()
     gen.manual_seed(5)
     p0 = build_model(cfg).init(gen, "cpu")
-    flags = ["--arch", cfg.name, "--agents", "4", "--steps", "2",
+    flags = ["--arch", cfg.name, "--agents", "4", "--steps", str(steps),
              "--log-every", "1", "--seq-len", "70", "--seed", "5"]
     K.reset_launch_counts()
     gpu = train.run_training(train.build_parser().parse_args(
-        flags + ["--device", "cuda"]), init_params=p0)
+        flags + ["--device", "cuda"]), cfg=cfg, init_params=p0)
     torch.cuda.synchronize()
     counts = dict(K.launch_counts)
     cpu = train.run_training(train.build_parser().parse_args(
-        flags + ["--device", "cpu"]), init_params=p0)
+        flags + ["--device", "cpu"]), cfg=cfg, init_params=p0)
     loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
                    for a, b in zip(gpu["history"], cpu["history"]))
-    check(loss_rel <= 1e-5, f"xlstm_step_parity loss rel {loss_rel}")
+    check(loss_rel <= 1e-5, f"{phase} loss rel {loss_rel}")
     max_abs = 0.0
     for a, b in zip(tree_leaves(gpu["state"].params),
                     tree_leaves(cpu["state"].params)):
         a = a.cpu()
         max_abs = max(max_abs, float((a - b).abs().max()))
         check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
-              f"xlstm_step_parity params, max abs {max_abs}")
-    # 2 steps x 4 agents x 1 mLSTM block x 2 calls
-    check(counts.get("ssd_intra_chunk", 0) == 16
-          and counts.get("obfuscate_update_krng", 0) == 2
-          and counts.get("gossip_update", 0) == 2,
-          f"xlstm_step_parity launches {counts}")
-    emit({"phase": "xlstm_step_parity", "arch": cfg.name,
-          "dtype": "float32", "agents": 4, "steps": 2, "seq_len": 70,
+              f"{phase} params, max abs {max_abs}")
+    check(counts.get("ssd_intra_chunk", 0) == b11 * steps
+          and counts.get("obfuscate_update_krng", 0) == steps
+          and counts.get("gossip_update", 0) == steps,
+          f"{phase} launches {counts}")
+    emit({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+          "dtype": "float32", "agents": 4, "steps": steps, "seq_len": 70,
           "losses_gpu": [r["loss"] for r in gpu["history"]],
           "losses_cpu": [r["loss"] for r in cpu["history"]],
           "max_loss_rel_err": loss_rel, "max_param_abs_err": max_abs,
@@ -3874,40 +4093,161 @@ def phase_xlstm_step_parity(torch, K, train):
           "tolerance": "loss rtol 1e-5; params atol = rtol = 1e-4"})
 
 
-def phase_xlstm_train_path(torch, K, train, cfg):
-    """run_training --arch xlstm-125m at full width and depth (12 blocks,
-    d_model 768), 4 agents on a ring, bf16, PDSGD, per-agent batch 2,
-    seq XLSTM_TRAIN_SEQ, 1 warm-up + 3 timed steps: B3 + B2 every step, B11
-    in every mLSTM forward (4 agents x 6 blocks x 2 calls a step; its
-    backward is the plain version's autograd)."""
-    steps = XLSTM_TRAIN_STEPS
+def _family_train_path(torch, K, train, cfg, phase: str, full: bool,
+                       seq_len: int, b11: int, steps: int = 4,
+                       **extra) -> dict:
+    """run_training on ``cfg``, 4 agents on a ring, bf16, PDSGD, per-agent
+    batch 2, ``seq_len``, 1 warm-up + ``steps - 1`` timed steps: B3 + B2
+    every step, B11 ``b11`` times a step (its backward the plain
+    version's autograd).  Gates: ``full``, finite losses and buffer, the
+    launches.  Returns the run's launch counts."""
     res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
-                                        seq_len=XLSTM_TRAIN_SEQ)
+                                        seq_len=seq_len)
     hist = res["history"]
     losses = [r["loss"] for r in hist]
     state = res["state"]
     m, width = state.flat.shape
-    n_m = sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every != 1)
-    check(cfg.num_layers == 12 and cfg.d_model == 768, "full xlstm-125m")
+    check(full, f"{phase}: {cfg.name} at {cfg.num_layers} layers, "
+                f"d_model {cfg.d_model}")
     check(all(math.isfinite(l) for l in losses), f"losses {losses}")
     check(len(hist) == steps and state.step == steps, "steps run")
     check(state.flat.dtype == torch.bfloat16, "bf16 buffer")
     check(_finite_flat(torch, state.flat), "non-finite parameters")
     check(counts.get("obfuscate_update_krng", 0) == steps
           and counts.get("gossip_update", 0) == steps
-          and counts.get("ssd_intra_chunk", 0) == m * n_m * 2 * steps,
-          f"xlstm_train_path launches {counts}")
+          and counts.get("ssd_intra_chunk", 0) == b11 * steps,
+          f"{phase} launches {counts}")
     ms_step = (hist[-1]["elapsed_s"] - hist[0]["elapsed_s"]) / (steps - 1) \
         * 1e3
-    emit({"phase": "xlstm_train_path", "arch": cfg.name,
-          "num_layers": cfg.num_layers, "d_model": cfg.d_model,
-          "dtype": cfg.dtype, "agents": m, "topology": "ring",
-          "per_agent_batch": 2, "seq_len": XLSTM_TRAIN_SEQ,
+    emit({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+          **extra, "d_model": cfg.d_model, "dtype": cfg.dtype, "agents": m,
+          "topology": "ring", "per_agent_batch": 2, "seq_len": seq_len,
           "params_per_agent": state.layout.size, "width": width,
           "losses": losses, "ms_per_step": ms_step,
           "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
           "max_memory_allocated": peak, "launches": counts})
     return counts
+
+
+def phase_xlstm_step_parity(torch, K, train):
+    """2 steps of xlstm-125m-smoke (one mLSTM and one sLSTM block) on the
+    card against the CPU (`_family_step_parity`); B11 8 a step (4 agents x
+    1 mLSTM block x 2 calls)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("xlstm-125m-smoke")
+    _family_step_parity(torch, K, train, "xlstm_step_parity", cfg, 2,
+                        4 * _mlstm_blocks(cfg) * 2)
+
+
+def phase_xlstm_train_path(torch, K, train, cfg):
+    """xlstm-125m at full width and depth (12 blocks, d_model 768), seq
+    XLSTM_TRAIN_SEQ (`_family_train_path`): B11 in every mLSTM forward, 4
+    agents x 6 blocks x 2 calls a step."""
+    return _family_train_path(
+        torch, K, train, cfg, "xlstm_train_path",
+        cfg.num_layers == 12 and cfg.d_model == 768, XLSTM_TRAIN_SEQ,
+        4 * _mlstm_blocks(cfg) * 2)
+
+
+# zamba2-7b (arXiv:2411.15242, the reference's config): training cut from
+# 81 to 12 mamba layers (sites 5 and 11, both shared blocks): 1,462,315,968
+# parameters an agent, a (4, D) bf16 buffer of 11.70 GB (at full depth
+# 54.7 GB a buffer); per-agent batch 2, seq 512, as the stablelm main path
+HYBRID_TRAIN_LAYERS = 12
+HYBRID_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
+HYBRID_SCANNED_UNROLL = 2
+# served at full width and depth: 2000-token prompts (no multiple of 64:
+# the dt = 0 padding runs) on 8 slots; 9 requests (one admitted into a
+# live slab) of 32 tokens, cut from 16 requests for the script's time
+# limit (a request's oracle decode costs a prefill and a chunk's steps)
+HYBRID_SERVE_ARGS = ("--arch", "zamba2-7b", "--slots", "8", "--requests",
+                     "9", "--prompt-len", "2000", "--gen-tokens", "32",
+                     "--decode-chunk", "8", "--parity-check")
+
+
+def _hybrid_counts(cfg):
+    """(mamba layers, attention sites) of a hybrid config."""
+    from repro_torch.models.hybrid import _attn_sites
+    return cfg.num_layers, len(_attn_sites(cfg))
+
+
+def phase_hybrid_step_parity(torch, K, train):
+    """One PDSGD step of zamba2-7b-smoke at 4 layers (sites 1 and 3 on
+    shared blocks 0 and 1) on the card against the CPU
+    (`_family_step_parity`); B11 in each mamba forward with B and C shared
+    by the heads, 4 agents x 4 layers a step."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("zamba2-7b-smoke"), num_layers=4)
+    _family_step_parity(torch, K, train, "hybrid_step_parity", cfg, 1,
+                        4 * cfg.num_layers)
+
+
+def phase_hybrid_train_path(torch, K, train, cfg):
+    """zamba2-7b at full width and HYBRID_TRAIN_LAYERS mamba layers, seq
+    512 (`_family_train_path`): B11 in every mamba forward, 4 agents x 12
+    layers a step (G = 16 chunks, 112 heads)."""
+    n_mamba, n_sites = _hybrid_counts(cfg)
+    return _family_train_path(
+        torch, K, train, cfg, "hybrid_train_path",
+        cfg.family == "hybrid" and cfg.d_model == 3584
+        and n_mamba == HYBRID_TRAIN_LAYERS and n_sites == 2, 512,
+        4 * n_mamba, attn_sites=n_sites)
+
+
+def phase_hybrid_train_scanned(torch, K, train, cfg):
+    """The hybrid train path through `--unroll-k 2`: a warm-up chunk, then
+    two chunks replayed from one CUDA graph, beside the same 6 steps eager
+    (`_family_train_scanned`); B11 48 times a step (4 agents x 12 mamba
+    layers)."""
+    return _family_train_scanned(
+        torch, K, train, cfg, "hybrid_train_scanned",
+        4 * _hybrid_counts(cfg)[0], HYBRID_SCANNED_STEPS,
+        HYBRID_SCANNED_UNROLL, 512)
+
+
+def phase_hybrid_serve_parity(torch, serve):
+    """zamba2-7b-smoke in f32 (`_serve_parity`): the mamba blocks' SSD
+    through B11 and the shared attention through B10 on the card (every
+    prefill; decode runs ssd_step, no kernel), the plain versions on the
+    CPU."""
+    cfg, tokens, max_err, counts = _serve_parity(
+        torch, serve, "zamba2-7b-smoke", ("ssd_intra_chunk",
+                                          "flash_attention"))
+    n_mamba, n_sites = _hybrid_counts(cfg)
+    # prefills: warm-up + 4 requests + 4 sequential
+    check(counts["ssd_intra_chunk"] == n_mamba * 9
+          and counts["flash_attention"] == n_sites * 9,
+          f"hybrid_serve_parity launches {counts}")
+    emit({"phase": "hybrid_serve_parity", "arch": cfg.name,
+          "dtype": "float32", "slots": 2, "requests": 4,
+          "tokens_gpu": tokens, "streams_equal": True,
+          "prefill_logits_max_abs_err": max_err, "launches_gpu": counts,
+          "tolerance": "tokens equal; prefill logits atol = rtol = 1e-4"})
+
+
+def phase_hybrid_serve_path(torch, K, serve):
+    """HYBRID_SERVE_ARGS: zamba2-7b at full width and depth (81 mamba
+    layers, 13 shared attention sites), bf16 weights (the residual stream
+    f32 from the first mamba block on, as the reference's), 9 requests of
+    2000-token prompts on 8 slots, 32 tokens each in chunks of 8.  Every
+    prefill runs B11 in each mamba layer (G = 32 chunks, 112 heads) and
+    B10 at each site (hd 112, f32); decode runs no kernel.  Where the M = 1
+    check differs: the logit spread and a block-by-block trace of one
+    decode step (`hybrid_decode_trace`, `_serve_path_phase`)."""
+
+    def full(cfg):
+        return (cfg.family == "hybrid" and _hybrid_counts(cfg) == (81, 13)
+                and cfg.d_model == 3584)
+
+    def expect(cfg, prefills, steps):
+        n_mamba, n_sites = _hybrid_counts(cfg)
+        return {"ssd_intra_chunk": n_mamba * prefills,
+                "flash_attention": n_sites * prefills}
+
+    return _serve_path_phase(
+        torch, K, serve, "hybrid_serve_path", HYBRID_SERVE_ARGS, full,
+        expect, margins=False,
+        diagnose=lambda ctx, args: hybrid_decode_trace(torch, ctx, args))
 
 
 SOURCES = {
@@ -3941,11 +4281,11 @@ def main(argv=None) -> int:
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile main-, dropout-, fault-, ring- and "
-                         "xLSTM train-path steps, the scanned main, fault "
-                         "and ring paths' replayed chunks, a Fig. 2 "
-                         "trimmed-mean replay and both serve paths with "
-                         "torch.profiler")
+                    help="also profile main-, dropout-, fault-, ring-, "
+                         "xLSTM and hybrid train-path steps, the scanned "
+                         "main, fault and ring paths' replayed chunks, a "
+                         "Fig. 2 trimmed-mean replay and the three serve "
+                         "paths with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -4000,7 +4340,8 @@ def main(argv=None) -> int:
         phase_ring_path_scanned(torch, K, train, main_cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_checkpoint_path(torch, K, train, main_cfg)
+        phase_checkpoint_path(torch, K, train, dataclasses.replace(
+            full, num_layers=CKPT_LAYERS))
         gc.collect()
         torch.cuda.empty_cache()
         smoke = get_config("stablelm-3b-smoke")
@@ -4057,8 +4398,7 @@ def main(argv=None) -> int:
         phase_serve_parity(torch, serve)
         gc.collect()
         torch.cuda.empty_cache()
-        counts = phase_serve_path(torch, K, serve)["flash_attention"]
-        rows["flash_attention"] = (counts, b10)
+        stablelm_serve = phase_serve_path(torch, K, serve)
         if opts.profile:
             gc.collect()
             torch.cuda.empty_cache()
@@ -4083,16 +4423,47 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         serve_counts = phase_xlstm_serve_path(torch, K, serve)
-        # B11's launches: the xLSTM train and serve paths' runs
-        rows["ssd_intra_chunk"] = ({"ssd_intra_chunk": sum(
-            c.get("ssd_intra_chunk", 0) for c in (train_counts,
-                                                  serve_counts))}, b11)
         if opts.profile:
             gc.collect()
             torch.cuda.empty_cache()
             phase_profile_serve(torch, serve, requests=2, gen=16,
                                 path_args=XLSTM_SERVE_ARGS,
                                 path="xlstm_serve_path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_hybrid_step_parity(torch, K, train)
+        hybrid_cfg = dataclasses.replace(get_config("zamba2-7b"),
+                                         num_layers=HYBRID_TRAIN_LAYERS)
+        hybrid_train = phase_hybrid_train_path(torch, K, train, hybrid_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if opts.profile:
+            phase_profile(torch, train, hybrid_cfg, "hybrid_train_path",
+                          steps=3)
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase_hybrid_train_scanned(torch, K, train, hybrid_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_hybrid_serve_parity(torch, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        hybrid_serve = phase_hybrid_serve_path(torch, K, serve)
+        if opts.profile:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve, requests=4, gen=16,
+                                path_args=HYBRID_SERVE_ARGS,
+                                path="hybrid_serve_path")
+        # B10's launches: both serve paths' runs; B11's: the xLSTM and
+        # hybrid train and serve paths' runs
+        rows["flash_attention"] = ({"flash_attention": sum(
+            c.get("flash_attention", 0) for c in (stablelm_serve,
+                                                  hybrid_serve))}, b10)
+        rows["ssd_intra_chunk"] = ({"ssd_intra_chunk": sum(
+            c.get("ssd_intra_chunk", 0) for c in (
+                train_counts, serve_counts, hybrid_train, hybrid_serve))},
+            b11)
         # each kernel's launches from its own path's run, counted there
         # with the counts set to 0 just before it
         kernels = []

@@ -6,7 +6,8 @@ import importlib
 
 from .base import ArchConfig, reduced_variant, tiny_variant
 
-_ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m"}
+_ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m",
+          "zamba2-7b": "zamba2_7b"}
 
 ARCH_NAMES = tuple(_ARCHS)
 

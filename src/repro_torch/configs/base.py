@@ -1,5 +1,5 @@
 """Architecture configuration (counterpart of ``repro.configs.base``; the
-fields the dense and xLSTM families use).  Field names and the
+fields the dense, xLSTM and hybrid families use).  Field names and the
 ``-smoke``/``-tiny`` reductions equal the reference's, so a config
 resolves to the same shapes in both packages."""
 from __future__ import annotations
@@ -13,7 +13,7 @@ __all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "xlstm"]
+    family: Literal["dense", "xlstm", "hybrid"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -32,15 +32,33 @@ class ArchConfig:
     tie_embeddings: bool = True
     # modality embeddings ahead of the prompt; 0 for the dense family
     num_prefix_embeds: int = 0
+    # Mamba2 (hybrid): state N, conv taps, inner width factor, head dim
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    # hybrid: a shared attention block after every hybrid_attn_every-th
+    # mamba layer, alternating over hybrid_num_shared weight sets
+    hybrid_attn_every: int = 6
+    hybrid_num_shared: int = 2
     # xLSTM: every slstm_every-th block (blocks 1, 3, ... for 2) is sLSTM
     slstm_every: int = 2
     dtype: str = "bfloat16"
     source: str = ""
 
+    @property
+    def d_inner(self) -> int:  # mamba2 inner width
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
 
 def reduced_variant(cfg: ArchConfig) -> ArchConfig:
     """``-smoke``: 2 layers, d_model <= 256, head_dim 32, vocab <= 1024,
-    float32 (the reference's CPU smoke reduction)."""
+    ssm_state <= 16 with ssm_head_dim 32, a shared attention block every 2
+    layers, float32 (the reference's CPU smoke reduction)."""
     d_model = min(cfg.d_model, 256)
     head_dim = 32
     heads = max(2, min(cfg.num_heads, d_model // head_dim))
@@ -51,11 +69,15 @@ def reduced_variant(cfg: ArchConfig) -> ArchConfig:
         cfg, name=cfg.name + "-smoke", num_layers=2, d_model=d_model,
         num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
         d_ff=min(cfg.d_ff, 512), vocab_size=min(cfg.vocab_size, 1024),
-        dtype="float32")
+        ssm_state=min(cfg.ssm_state, 16),
+        ssm_head_dim=32 if cfg.ssm_state else cfg.ssm_head_dim,
+        hybrid_attn_every=2, dtype="float32")
 
 
 def tiny_variant(cfg: ArchConfig) -> ArchConfig:
-    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64."""
+    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64,
+    ssm_state <= 8 with ssm_head_dim 16, a shared attention block after
+    every layer."""
     base = reduced_variant(cfg)
     d_model, head_dim = 32, 16
     heads = max(2, d_model // head_dim)
@@ -65,4 +87,7 @@ def tiny_variant(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(
         base, name=cfg.name + "-tiny", num_layers=1, d_model=d_model,
         num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
-        d_ff=min(base.d_ff, 64), vocab_size=min(base.vocab_size, 64))
+        d_ff=min(base.d_ff, 64), vocab_size=min(base.vocab_size, 64),
+        ssm_state=min(base.ssm_state, 8),
+        ssm_head_dim=16 if base.ssm_state else base.ssm_head_dim,
+        hybrid_attn_every=1)

@@ -1,5 +1,5 @@
 """Family dispatch: ArchConfig -> ModelBundle (counterpart of
-``repro.models.build``; the dense and xLSTM families)."""
+``repro.models.build``; the dense, xLSTM and hybrid families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,15 +8,15 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ArchConfig
-from . import transformer, xlstm
+from . import hybrid, transformer, xlstm
 from .common import init_params
 
 __all__ = ["ModelBundle", "build_model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = {"dense": transformer, "xlstm": xlstm}
+_FAMILIES = {"dense": transformer, "xlstm": xlstm, "hybrid": hybrid}
 # the reference's families that wait for later slices
-_NOT_PORTED = ("moe", "ssm_mamba2", "hybrid", "encdec", "vlm", "audio")
+_NOT_PORTED = ("moe", "ssm_mamba2", "encdec", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,7 +6,9 @@ cross-entropy.
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, hd), weights as the reference's einsum operands.  Every function
 keeps the reference's dtype discipline (norms, rotary, softmax and the loss
-in f32; matmuls in the parameter dtype).
+in f32; matmuls in the promoted dtype of their operands, as jnp.einsum:
+the parameter dtype for a dense or xLSTM block, f32 where a hybrid's f32
+residual stream meets bf16 weights).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
            "rope_tables", "rope_tables_at", "apply_rope", "attention",
            "decode_attention", "ring_buffer_write", "decode_cache_valid",
            "decode_positions", "swiglu", "cross_entropy", "pad_vocab",
-           "einsum_promoted"]
+           "einsum_promoted", "layer_views"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +69,15 @@ def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     an f32 activation times a bf16 weight computes in f32."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def layer_views(stacked: dict) -> list[dict]:
+    """Per-layer views of a dict of (L, ...) stacked leaves, one unbind per
+    leaf (the backward of ``leaf[i]`` would write a zero tensor of the
+    whole (L, ...) leaf per layer; unbind's stacks the L slices once)."""
+    sliced = {name: leaf.unbind(0) for name, leaf in stacked.items()}
+    L = len(next(iter(sliced.values())))
+    return [{name: s[i] for name, s in sliced.items()} for i in range(L)]
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
@@ -145,7 +156,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     qg = q.reshape(B, Sq, KV, G, hd)
-    logits = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * (
+    logits = einsum_promoted("bqkgd,bskd->bkgqs", qg, k).float() * (
         1.0 / math.sqrt(hd))
     qpos = torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Sk, device=q.device)[None, :]
@@ -156,7 +167,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask &= kpos > qpos - window
     logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    out = einsum_promoted("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, hd)
 
 
@@ -174,15 +185,15 @@ def decode_attention(q: torch.Tensor, k_new: torch.Tensor,
     G = H // KV
     qg = q.reshape(B, 1, KV, G, hd)
     scale = 1.0 / math.sqrt(hd)
-    lc = torch.einsum("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
+    lc = einsum_promoted("bqkgd,bskd->bkgqs", qg, k_cache).float() * scale
     valid = (cache_valid[None, None, None, None, :] if cache_valid.dim() == 1
              else cache_valid[:, None, None, None, :])
     lc = torch.where(valid, lc, torch.full_like(lc, -1e30))
-    ls = torch.einsum("bqkgd,bskd->bkgqs", qg, k_new).float() * scale
+    ls = einsum_promoted("bqkgd,bskd->bkgqs", qg, k_new).float() * scale
     probs = torch.softmax(torch.cat([lc, ls], dim=-1), dim=-1).to(q.dtype)
     pc, ps = probs[..., :-1], probs[..., -1:]
-    out = torch.einsum("bkgqs,bskd->bqkgd", pc, v_cache)
-    out = out + torch.einsum("bkgqs,bskd->bqkgd", ps, v_new)
+    out = einsum_promoted("bkgqs,bskd->bqkgd", pc, v_cache)
+    out = out + einsum_promoted("bkgqs,bskd->bqkgd", ps, v_new)
     return out.reshape(B, 1, H, hd)
 
 
@@ -225,10 +236,10 @@ def decode_positions(pos, B: int) -> torch.Tensor:
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
-    g = torch.einsum("...d,df->...f", x, w_gate)
-    u = torch.einsum("...d,df->...f", x, w_up)
+    g = einsum_promoted("...d,df->...f", x, w_gate)
+    u = einsum_promoted("...d,df->...f", x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
-    return torch.einsum("...f,fd->...d", h, w_down)
+    return einsum_promoted("...f,fd->...d", h, w_down)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

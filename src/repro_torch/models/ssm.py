@@ -1,25 +1,37 @@
-"""The SSD core shared by Mamba2 and the xLSTM's mLSTM (counterpart of the
-SSD part of ``repro.models.ssm``): the chunked state-space-duality scan
-``ssd_chunked``, its single-token recurrence ``ssd_step``, and the causal
-depthwise conv with its one-token step.
+"""Mamba2 (SSD) blocks and the SSD core they share with the xLSTM's mLSTM
+(counterpart of ``repro.models.ssm``): the chunked state-space-duality
+scan ``ssd_chunked``, its single-token recurrence ``ssd_step``, the causal
+depthwise conv with its one-token step, and the Mamba2 block's parameters
+and its train, prefill and decode passes (the hybrid family's trunk).
 
 ``ssd_chunked`` computes every chunk's intra-chunk output and state
 contribution with `kernels.ssd_intra_chunk` (B11 on a CUDA tensor, its
 plain version on the CPU, differentiable on both); the inter-chunk
 recurrence h_c = decay_c h_{c-1} + S_c is a loop over the chunks.  A
 per-head B and C (mLSTM's k and q) fold their heads into B11's chunk axis
-(H = 1), which is exact: each head's block is an independent chunk.  The
-mamba blocks wait for the hybrid family.
+(H = 1), which is exact: each head's block is an independent chunk.  A
+Mamba2 block's B and C are shared by its heads: B11 takes them as they are
+(G = batch x chunks, H = ssm_heads).  Decode runs ``ssd_step``, no kernel,
+as the reference's.
+
+The reference's dtype promotion is kept (`einsum_promoted`): in a bf16
+model the SSD's y is f32 (its inter-chunk term is scaled by an f32
+decay), so the first mamba block's output, and the residual stream from
+there on, is f32.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from ..configs.base import ArchConfig
 from ..kernels.ssm_scan import ssd_intra_chunk
+from .common import ArrayDef, rms_norm
+from .common import einsum_promoted as _mm
 
 __all__ = ["CHUNK", "causal_conv", "causal_conv_step", "ssd_chunked",
-           "ssd_step"]
+           "ssd_step", "mamba_defs", "mamba_block_train",
+           "mamba_block_prefill", "mamba_block_decode"]
 
 CHUNK = 64
 
@@ -42,7 +54,7 @@ def causal_conv_step(x_t: torch.Tensor, tail: torch.Tensor, w: torch.Tensor,
     """One-token conv: x_t (B, C), tail (B, K-1, C) = previous inputs.
     Returns (out (B, C), new tail)."""
     window = torch.cat([tail, x_t[:, None]], dim=1)  # (B, K, C)
-    out = torch.einsum("bkc,kc->bc", window, w) + b
+    out = _mm("bkc,kc->bc", window, w) + b
     return F.silu(out.float()).to(x_t.dtype), window[:, 1:]
 
 
@@ -133,7 +145,94 @@ def ssd_step(x_t, dt_t, A, B_t, C_t, D, h):
     """Single-token SSD recurrence.  x_t: (B, H, P); dt_t: (B, H);
     B_t/C_t: (B, N); h: (B, H, P, N)."""
     decay = torch.exp(dt_t * A)  # (B, H)
-    upd = torch.einsum("bhp,bn->bhpn", x_t * dt_t[..., None], B_t)
+    upd = _mm("bhp,bn->bhpn", x_t * dt_t[..., None], B_t)
     h_new = decay[..., None, None] * h + upd.to(h.dtype)
-    y = torch.einsum("bhpn,bn->bhp", h_new.to(x_t.dtype), C_t)
+    y = _mm("bhpn,bn->bhp", h_new.to(x_t.dtype), C_t)
     return y + D[:, None] * x_t, h_new
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+def mamba_defs(L: int, cfg: ArchConfig) -> dict:
+    d, din, N = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    H, K = cfg.ssm_heads, cfg.ssm_conv
+    conv_dim = din + 2 * N  # x, B and C channels go through the conv
+    return {
+        "norm_gamma": ArrayDef((L, d), ("layers", "embed"), init="ones"),
+        "w_in_x": ArrayDef((L, d, din), ("layers", "embed", "ssm_heads")),
+        "w_in_z": ArrayDef((L, d, din), ("layers", "embed", "ssm_heads")),
+        "w_in_B": ArrayDef((L, d, N), ("layers", "embed", "state")),
+        "w_in_C": ArrayDef((L, d, N), ("layers", "embed", "state")),
+        "w_in_dt": ArrayDef((L, d, H), ("layers", "embed", "ssm_heads")),
+        "dt_bias": ArrayDef((L, H), ("layers", "ssm_heads"), init="zeros"),
+        "A_log": ArrayDef((L, H), ("layers", "ssm_heads"), init="zeros"),
+        "D": ArrayDef((L, H), ("layers", "ssm_heads"), init="ones"),
+        "conv_w": ArrayDef((L, K, conv_dim), ("layers", "conv", "ssm_heads")),
+        "conv_b": ArrayDef((L, conv_dim), ("layers", "ssm_heads"),
+                           init="zeros"),
+        "w_out": ArrayDef((L, din, d), ("layers", "ssm_heads", "embed")),
+    }
+
+
+def _in_proj(p: dict, x: torch.Tensor):
+    """The block's input norm and projections: (conv input x|B|C, z, dt).
+    x, B and C are one (..., d_inner + 2N) tensor, the conv's channels."""
+    h = rms_norm(x, p["norm_gamma"])
+    conv_in = torch.cat([_mm("bsd,de->bse", h, p["w_in_x"]),
+                         _mm("bsd,dn->bsn", h, p["w_in_B"]),
+                         _mm("bsd,dn->bsn", h, p["w_in_C"])], dim=-1)
+    return (conv_in, _mm("bsd,de->bse", h, p["w_in_z"]),
+            _mm("bsd,dh->bsh", h, p["w_in_dt"]))
+
+
+def _gates(p: dict, dt: torch.Tensor):
+    """softplus(dt + dt_bias) and A = -exp(A_log), f32."""
+    return (F.softplus(dt.float() + p["dt_bias"]),
+            -torch.exp(p["A_log"].float()))
+
+
+def _out(p: dict, x: torch.Tensor, y: torch.Tensor, z: torch.Tensor,
+         cfg: ArchConfig) -> torch.Tensor:
+    """Gate y by silu(z), project back and add to the residual ``x``."""
+    y = y.reshape(*y.shape[:2], cfg.d_inner)
+    y = y * F.silu(z.float()).to(y.dtype)
+    return x + _mm("bse,ed->bsd", y, p["w_out"])
+
+
+def mamba_block_prefill(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """x (B, S, d) -> (x + block(x), (ssm state (B, H, P, N) f32, conv tail
+    (B, K-1, d_inner + 2N))): the train pass and the states a decode
+    continues from.  The SSD runs through B11 (`ssd_chunked`)."""
+    B, S, _ = x.shape
+    H, P, N, din = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+    conv_in, z, dt = _in_proj(p, x)
+    conv_tail = conv_in[:, -(cfg.ssm_conv - 1):]
+    xc, Bm, Cm = causal_conv(conv_in, p["conv_w"], p["conv_b"]).split(
+        [din, N, N], dim=-1)
+    dt, A = _gates(p, dt)
+    y, h_final = ssd_chunked(xc.reshape(B, S, H, P), dt, A, Bm, Cm,
+                             p["D"].float())
+    return _out(p, x, y, z, cfg), (h_final, conv_tail)
+
+
+def mamba_block_train(p: dict, x: torch.Tensor,
+                      cfg: ArchConfig) -> torch.Tensor:
+    return mamba_block_prefill(p, x, cfg)[0]
+
+
+def mamba_block_decode(p: dict, x: torch.Tensor, state, cfg: ArchConfig):
+    """x (B, 1, d); state = (ssm state (B, H, P, N) f32, conv tail (B, K-1,
+    d_inner + 2N)).  Returns (x + block(x), (new ssm state, new tail))."""
+    B = x.shape[0]
+    H, P, N, din = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.d_inner
+    ssm_h, conv_tail = state
+    conv_in, z, dt = _in_proj(p, x)
+    conv_out, new_tail = causal_conv_step(conv_in[:, 0], conv_tail,
+                                          p["conv_w"], p["conv_b"])
+    xc, Bm, Cm = conv_out.split([din, N, N], dim=-1)
+    dt, A = _gates(p, dt[:, 0])
+    y, new_h = ssd_step(xc.reshape(B, H, P), dt, A, Bm, Cm, p["D"].float(),
+                        ssm_h)
+    return _out(p, x, y[:, None], z, cfg), (new_h, new_tail)

@@ -24,13 +24,13 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, cross_entropy,
                      decode_attention, decode_cache_valid, decode_positions,
-                     einsum_promoted, layer_norm, pad_vocab,
+                     einsum_promoted, layer_norm, layer_views, pad_vocab,
                      ring_buffer_write, rms_norm, rope_tables, rope_tables_at,
                      swiglu)
 
-__all__ = ["param_defs", "forward_train", "loss_fn", "embed_tokens",
-           "unembed", "cache_len_for", "cache_spec", "forward_prefill",
-           "forward_decode"]
+__all__ = ["param_defs", "attn_defs", "mlp_defs", "forward_train",
+           "loss_fn", "embed_tokens", "unembed", "cache_len_for",
+           "cache_spec", "forward_prefill", "forward_decode"]
 
 
 def _norm_defs(L: int, d: int, cfg: ArchConfig, name: str) -> dict:
@@ -41,16 +41,9 @@ def _norm_defs(L: int, d: int, cfg: ArchConfig, name: str) -> dict:
     return out
 
 
-def param_defs(cfg: ArchConfig) -> dict:
-    if cfg.mlp != "swiglu":
-        raise ValueError(f"mlp {cfg.mlp!r} is not ported; only 'swiglu' is")
-    L, d, H, KV, hd, ff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
-                           cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
-    V = pad_vocab(cfg.vocab_size)
-    layers = {}
-    layers.update(_norm_defs(L, d, cfg, "attn_norm"))
-    layers.update(_norm_defs(L, d, cfg, "mlp_norm"))
-    layers.update({
+def attn_defs(L: int, cfg: ArchConfig) -> dict:
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return {
         "wq": ArrayDef((L, d, H, hd), ("layers", "embed", "heads", "head_dim")),
         "wk": ArrayDef((L, d, KV, hd),
                        ("layers", "embed", "kv_heads", "head_dim")),
@@ -58,10 +51,28 @@ def param_defs(cfg: ArchConfig) -> dict:
                        ("layers", "embed", "kv_heads", "head_dim")),
         "wo": ArrayDef((L, H, hd, d), ("layers", "heads", "head_dim", "embed"),
                        scale=1.0 / (H * hd) ** 0.5),
+    }
+
+
+def mlp_defs(L: int, cfg: ArchConfig) -> dict:
+    if cfg.mlp != "swiglu":
+        raise ValueError(f"mlp {cfg.mlp!r} is not ported; only 'swiglu' is")
+    d, ff = cfg.d_model, cfg.d_ff
+    return {
         "w_gate": ArrayDef((L, d, ff), ("layers", "embed", "mlp")),
         "w_up": ArrayDef((L, d, ff), ("layers", "embed", "mlp")),
         "w_down": ArrayDef((L, ff, d), ("layers", "mlp", "embed")),
-    })
+    }
+
+
+def param_defs(cfg: ArchConfig) -> dict:
+    L, d = cfg.num_layers, cfg.d_model
+    V = pad_vocab(cfg.vocab_size)
+    layers = {}
+    layers.update(_norm_defs(L, d, cfg, "attn_norm"))
+    layers.update(_norm_defs(L, d, cfg, "mlp_norm"))
+    layers.update(attn_defs(L, cfg))
+    layers.update(mlp_defs(L, cfg))
     defs = {
         "embed": ArrayDef((V, d), ("vocab", "embed"), scale=0.02),
         "final_norm_gamma": ArrayDef((d,), ("embed",), init="ones"),
@@ -81,9 +92,9 @@ def _norm(x, gamma, beta, cfg: ArchConfig):
 
 
 def _qkv(p: dict, h: torch.Tensor, rope):
-    q = torch.einsum("bsd,dhk->bshk", h, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", h, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", h, p["wv"])
+    q = einsum_promoted("bsd,dhk->bshk", h, p["wq"])
+    k = einsum_promoted("bsd,dhk->bshk", h, p["wk"])
+    v = einsum_promoted("bsd,dhk->bshk", h, p["wv"])
     return apply_rope(q, *rope), apply_rope(k, *rope), v
 
 
@@ -114,7 +125,7 @@ def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
     o = attention(q, k, v, causal=True, window=cfg.attn_window)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
     return _mlp_block(p, x, cfg)
 
 
@@ -127,7 +138,7 @@ def _layer_prefill(p: dict, x: torch.Tensor, rope, cfg: ArchConfig,
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
     o = _attn(q, k, v, cfg.attn_window)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
     x = _mlp_block(p, x, cfg)
     if cache_len == S:
         return x, k, v
@@ -142,20 +153,11 @@ def _layer_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
     o = decode_attention(q, k, v, k_cache, v_cache, cache_valid)
-    x = x + torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
     x = _mlp_block(p, x, cfg)
     ring_buffer_write(k_cache, k, pos)
     ring_buffer_write(v_cache, v, pos)
     return x
-
-
-def _layers(params: dict) -> list[dict]:
-    """Per-layer views of the stacked leaves: one unbind per leaf (the
-    backward of ``leaf[i]`` would write a zero tensor of the whole (L, ...)
-    leaf per layer; unbind's stacks the L slices once)."""
-    sliced = {name: leaf.unbind(0) for name, leaf in params["layers"].items()}
-    L = len(next(iter(sliced.values())))
-    return [{name: s[i] for name, s in sliced.items()} for i in range(L)]
 
 
 def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -180,7 +182,7 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x = embed_tokens(params, batch, cfg)
     rope = rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
                        cfg.rope_theta, x.device)
-    for p in _layers(params):
+    for p in layer_views(params["layers"]):
         x = _layer_train(p, x, rope, cfg)
     return unembed(params, _final_norm(params, x, cfg), cfg)
 
@@ -216,7 +218,7 @@ def forward_prefill(params: dict, batch: dict, cfg: ArchConfig) -> dict:
     shape = (cfg.num_layers, B, C, cfg.num_kv_heads, cfg.head_dim)
     cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
              "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for i, p in enumerate(_layers(params)):
+    for i, p in enumerate(layer_views(params["layers"])):
         x, cache["k"][i], cache["v"][i] = _layer_prefill(p, x, rope, cfg, C)
     logits = unembed(params, _final_norm(params, x[:, -1:], cfg), cfg)
     return {"logits": logits[:, 0], "cache": cache, "pos": S}
@@ -236,7 +238,7 @@ def forward_decode(params: dict, token: torch.Tensor, cache: dict, pos,
     cache_valid = decode_cache_valid(pos, C)
     rope = rope_tables_at(decode_positions(pos, B), cfg.head_dim,
                           cfg.rotary_frac, cfg.rope_theta)
-    for i, p in enumerate(_layers(params)):
+    for i, p in enumerate(layer_views(params["layers"])):
         x = _layer_decode(p, x, cache["k"][i], cache["v"][i], pos, rope,
                           cfg, cache_valid)
     logits = unembed(params, _final_norm(params, x, cfg), cfg)

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .common import ArrayDef, cross_entropy, pad_vocab, rms_norm
+from .common import ArrayDef, cross_entropy, layer_views, pad_vocab, rms_norm
 from .common import einsum_promoted as _mm
 from .ssm import ssd_chunked
 from .transformer import embed_tokens, unembed
@@ -192,17 +192,10 @@ def slstm_block(p: dict, x: torch.Tensor, cfg: ArchConfig, state=None,
 # Full model
 # ---------------------------------------------------------------------------
 
-def _views(tree: dict) -> list[dict]:
-    """Per-layer views of stacked leaves, one unbind per leaf."""
-    sliced = {name: leaf.unbind(0) for name, leaf in tree.items()}
-    L = len(next(iter(sliced.values())))
-    return [{name: s[i] for name, s in sliced.items()} for i in range(L)]
-
-
 def _blocks(params: dict, cfg: ArchConfig):
     """(kind, index within kind, layer params) for each block in order."""
-    views = {"mlstm": _views(params["mlstm"]),
-             "slstm": _views(params["slstm"])}
+    views = {"mlstm": layer_views(params["mlstm"]),
+             "slstm": layer_views(params["slstm"])}
     seen = {"mlstm": 0, "slstm": 0}
     for i in range(cfg.num_layers):
         kind = "slstm" if _is_slstm(cfg, i) else "mlstm"

@@ -197,6 +197,25 @@ def test_cuda_flash_attention_vs_plain(S, hd, causal, window, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_zamba2_prefill_shape(dtype):
+    """zamba2-7b's shared attention at a 2000-token prefill: (1, 2000, 32,
+    112) causal, f32 in the model (every site follows a mamba block) and
+    bf16; atol = rtol 1e-5 in f32 (sums over 2000 keys in another order)
+    and 2e-2 in bf16."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    q, k, v = (torch.from_numpy(_normal((1, 2000, 32, 112))).to(dtype)
+               .to(dev) for _ in range(3))
+    before = launch_counts["flash_attention"]
+    got = flash_attention(q, k, v, causal=True)
+    assert launch_counts["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("S", [130, 257])
 def test_cuda_gqa_prefill_attention_vs_plain(S, dtype):
     """The prefill's `_attn` with fewer KV heads than query heads (k and v

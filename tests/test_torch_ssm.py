@@ -50,9 +50,12 @@ SHAPES = [(2, 64, 2, 8, 16), (4, 32, 3, 16, 8), (1, 128, 1, 4, 32),
 ROUTE_QS = (1, 2, 15, 16, 17, 63, 64, 65, 127, 128)
 ROUTE_SHAPES = [(3, Q, 2, 72, 80) for Q in ROUTE_QS]
 # the shapes the xLSTM paths give B11 (training, prefill, decode; memory
-# and normalizer calls) and zamba2-7b's native form
+# and normalizer calls) and zamba2-7b's native form: 112 heads sharing B
+# and C, P = N = 64, at a few chunks and at its training (batch 2 x 8
+# chunks) and 2000-token prefill (32 chunks) calls
 PATH_SHAPES = [(G, Q, 1, P, 384) for G, Q in ((16, 64), (32, 64), (32, 1))
-               for P in (384, 1)] + [(4, 64, 112, 64, 64)]
+               for P in (384, 1)] + [(G, 64, 112, 64, 64)
+                                     for G in (4, 16, 32)]
 
 
 def _inputs(G, Q, H, P, N, seed=0):
