@@ -4,7 +4,10 @@ card: builds the hand-written kernels, holds each against its plain
 PyTorch version, trains stablelm-3b at full width and serves it at full
 width and depth, trains and serves xlstm-125m at full width and depth,
 trains zamba2-7b at full width (depth 12) and serves it at full width and
-depth, all through the port's entry points, and reports what ran.
+depth, trains chatglm3-6b at full width (depth 4) and granite-moe-1b-a400m
+at full width and depth, serves mistral-nemo-12b and olmoe-1b-7b at full
+width and depth and runs a granite-8b prefill, all through the port's
+entry points, and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
@@ -133,7 +136,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               the serve path's (1, 2000, 32, 80) bf16 causal with its plain
               version and scaled_dot_product_attention (library, timed
               only), and at the hybrid serve path's (1, 2000, 32, 112)
-              causal in f32 and bf16, each beside its plain version, SDPA
+              causal in f32 and bf16, and at the GQA and MoE serve
+              paths' (1, 2000, 32, 128), (1, 2000, 16, 128) and (1, 2000,
+              16, 64) in bf16 and f32, each beside its plain version, SDPA
               in the same dtype and its bound
   kernel_ssd  B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref, f32 and
               bf16 (bf16 held against f32 on the same inputs), over the
@@ -173,32 +178,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               through launch/serve.run_serving on the card (B10) and on the
               CPU (naive attention), same weights: equal token streams,
               prefill logits within 1e-4
-  serve_path  launch/serve with --arch stablelm-3b --slots 8 --requests 16
+  serve_path  launch/serve with --arch stablelm-3b --slots 8 --requests 9
               --prompt-len 2000 --gen-tokens 64 --decode-chunk 8
-              --parity-check: full width and depth, bf16, B10 32 times a
-              prefill; gate: the engine's streams equal the same-width
-              oracle's exactly (below); --parity-check's M = 1 comparison
-              printed, and where it differs the batched-vs-B=1 logit
-              spread, the margin rule's record (the first near tie, a top-2
-              margin below the spread) and a layer-by-layer trace of the two
-              residual streams in bf16 and in f32
+              --parity-check: full width, depth 8 (cut from 32), bf16,
+              B10 8 times a prefill; gate: the engine's streams equal the
+              same-width oracle's exactly (below); --parity-check's M = 1
+              comparison printed, and where it differs the batched-vs-B=1
+              logit spread, the margin rule's record (the first near tie, a
+              top-2 margin below the spread) and a layer-by-layer trace of
+              the two residual streams in bf16 and in f32
   xlstm_step_parity  xlstm-125m-smoke f32, 4 agents, 2 steps: card vs CPU
   xlstm_train_path  run_training --arch xlstm-125m, 12 blocks, d_model 768,
               4 agents on a ring, bf16, PDSGD, per-agent batch 2, seq 128
               (cut for the sLSTM's host loop), 1 warm-up + 3 timed steps:
               B3 + B2 every step, B11 48 times a step
-  xlstm_train_scanned  xlstm-125m (not cut), 4 agents, seq 128, with
-              --unroll-k 2: a warm-up chunk and two replays of one CUDA
-              graph holding the sLSTM token loop, beside 6 eager steps;
-              bitwise; B11 48 a step counted and replayed; the capture's
-              seconds and the graph's nodes
+  xlstm_train_scanned  xlstm-125m at full width, 6 blocks (12 before PR
+              24), 4 agents, seq 128, with --unroll-k 2: a warm-up chunk
+              and two replays of one CUDA graph holding the sLSTM token
+              loop, beside 6 eager steps; bitwise; B11 24 a step counted
+              and replayed; the capture's seconds and the graph's nodes
   xlstm_serve_parity  xlstm-125m-smoke f32, 4 requests on 2 slots: card vs
               CPU
   xlstm_serve_path  launch/serve with --arch xlstm-125m --slots 8
-              --requests 16 --prompt-len 500 (cut for the sLSTM's host loop)
-              --gen-tokens 32 --decode-chunk 8 --parity-check: full width
-              and depth, bf16; B11 12 times a prefill and a decode step; the
-              same gate as serve_path
+              --requests 9 --prompt-len 500 (cut for the sLSTM's host loop)
+              --gen-tokens 32 --decode-chunk 8 --parity-check: full width,
+              6 blocks (cut from 12), bf16; B11 6 times a prefill and a
+              decode step; the same gate as serve_path
   hybrid_step_parity  zamba2-7b-smoke f32 at 4 layers (both shared
               blocks), 4 agents, 1 step: card vs CPU
   hybrid_train_path  run_training --arch zamba2-7b, full width, 12 mamba
@@ -212,17 +217,49 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               CPU (B11 and B10 in every prefill)
   hybrid_serve_path  launch/serve with --arch zamba2-7b --slots 8
               --requests 9 --prompt-len 2000 --gen-tokens 32
-              --decode-chunk 8 --parity-check: full width and depth (81
-              mamba layers, 13 attention sites), bf16 weights and an f32
-              residual stream; B11 81 and B10 13 times a prefill, none in
+              --decode-chunk 8 --parity-check: full width, 24 mamba layers
+              and 4 attention sites (cut from 81 and 13), bf16 weights
+              and an f32 residual stream; B11 24 and B10 4 times a
+              prefill, none in
               decode; the same gate as serve_path; where the M = 1 check
               differs, the logit spread and a block-by-block trace of one
               decode step (batched against B = 1, after each mamba layer
               and each site: the gap carried so far and the gap that block
               alone makes on the same inputs)
+  gqa_step_parity  chatglm3-6b-smoke (KV 2 of 8 heads, half rotary) and
+              mistral-nemo's smoke model with 8 query heads of 16 on 2 KV
+              heads (H hd 128 against d_model 256), f32, 4 agents, 2 steps:
+              card vs CPU, each leaf no farther from a float64 CPU run than
+              twice the CPU f32 run is
+  moe_step_parity  olmoe-1b-7b-smoke f32 at capacity factor 1.0 (pairs
+              dropped, counted on the CPU), 4 agents, 2 steps: card vs CPU
+  gqa_train_path  run_training --arch chatglm3-6b, full width, 4 layers, 4
+              agents on a ring, bf16, PDSGD, per-agent batch 2, seq 512,
+              --grad-clip-kappa 1.0, 1 warm-up + 5 timed steps: B3 + B2
+              every step
+  gqa_train_scanned  the same with --unroll-k 2 beside 6 eager steps;
+              bitwise
+  moe_train_path  run_training --arch granite-moe-1b-a400m at full width
+              and depth (24 layers, 32 experts top 8), the same flags;
+              the routing in plain torch
+  moe_train_scanned  the same with --unroll-k 2 (the routing captured)
+              beside 6 eager steps; bitwise
+  gqa_serve_path  launch/serve with --arch mistral-nemo-12b --slots 8
+              --requests 8 --prompt-len 2000 --gen-tokens 32
+              --decode-chunk 8 --parity-check: full width and depth (40
+              layers, KV 8, H hd 4096 against d_model 5120), bf16, B10 40
+              times a prefill; the same gate as serve_path
+  moe_serve_path  the same with --arch olmoe-1b-7b (16 layers, 64 experts
+              top 8; prefill routes with capacity, decode mixes all
+              experts), B10 16 times a prefill; the same gate
+  granite_prefill  granite-8b at full width and depth: one 2000-token
+              prefill, B10 held in place at each of its 36 layers against
+              the plain grouped attention on the same q, k, v; the
+              logits beside prefills with plain and with f32 attention
   kernels     every kernel with its launches in its own path's run (B3
-              and B2: main_path; B10: both serve paths; B11: the xLSTM and
-              hybrid train and serve paths), error, times and bound
+              and B2: main_path; B10: the five serve paths and
+              granite_prefill; B11: the xLSTM and hybrid train and serve
+              paths), error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
 scaled_dot_product_attention in the same run, the card's name and power
 limit, and the result line.  Each phase's line is also appended to
@@ -847,6 +884,12 @@ SERVE_ATTN_SHAPE = (1, 2000, 32, 80)
 # the hybrid serve path's: zamba2-7b's shared attention, hd 112, f32 (every
 # site follows a mamba block), timed in bf16 too
 HYBRID_ATTN_SHAPE = (1, 2000, 32, 112)
+# the GQA and MoE serve paths' prefill attention after _attn's repeat of
+# k and v: (1, 2000, 32, 128) granite-8b, mistral-nemo-12b and
+# chatglm3-6b, (1, 2000, 16, 128) olmoe-1b-7b, (1, 2000, 16, 64)
+# granite-moe-1b-a400m
+GQA_SERVE_ATTN_SHAPES = ((1, 2000, 32, 128), (1, 2000, 16, 128),
+                         (1, 2000, 16, 64))
 # grouped-query prefill through models.transformer._attn: granite-8b's
 # heads (H = 32 query, KV = 8, hd = 128)
 GQA_HEADS = (32, 8, 128)
@@ -973,40 +1016,16 @@ def phase_kernel_attention(torch, K):
     row["library_tflops"] = flops / row["library_ms"] / 1e9
     row["ms_over_library"] = row["ms"] / row["library_ms"]
     # the hybrid serve path's shape, f32 (as the path runs it) and bf16,
-    # each beside its plain version, SDPA in the same dtype and its bound
-    B, S, H, hd = HYBRID_ATTN_SHAPE
-    hybrid = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev)
-                   .to(dtype) for _ in range(3))
-        got = K.flash_attention(q, k, v, causal=True)
-        want = K.ref.flash_attention_ref(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        tol = attn_tolerance(torch, dtype, S)
-        diff = (got.float() - want.float()).abs()
-        check(bool(torch.isfinite(got).all()) and float(
-            (diff / (tol + tol * want.float().abs())).max()) <= 1.0,
-            f"B10 hybrid shape {str(dtype)[6:]}: max abs "
-            f"{float(diff.max())}")
-        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        elem = 4 if dtype == torch.float32 else 2
-        hb_bytes, hb_flops = attn_bound(B, S, H, hd, elem, True, None)
-        by = hb_bytes / HBM_BYTES_PER_S * 1e3
-        op = hb_flops / (F32_FLOPS if dtype == torch.float32
-                         else BF16_TC_FLOPS) * 1e3
-        h = {"ms": time_ms(torch, lambda: K.flash_attention(q, k, v,
-                                                            causal=True),
-                           iters=20),
-             "max_abs_err": float(diff.max()),
-             "plain_ms": time_ms(torch, lambda: K.ref.flash_attention_ref(
-                 q, k, v, causal=True), iters=5),
-             "library_ms": time_ms(torch, lambda: sdpa(qh, kh, vh,
-                                                       is_causal=True),
-                                   iters=20)}
-        h["bound_ms"], h["bound_by"] = (by, "bytes") if by >= op else (
-            op, "operations")
-        h["tflops"] = hb_flops / h["ms"] / 1e9
-        hybrid[str(dtype)[6:]] = h
+    # and the GQA and MoE serve paths' shapes (bf16, as they run it, and
+    # f32), each beside its plain version, SDPA in the same dtype and its
+    # bound
+    hybrid = {str(dtype)[6:]: _b10_timed(torch, K, g, HYBRID_ATTN_SHAPE,
+                                         dtype)
+              for dtype in (torch.float32, torch.bfloat16)}
+    gqa_serve = {f"{shape} {str(dtype)[6:]}": _b10_timed(torch, K, g, shape,
+                                                         dtype)
+                 for shape in GQA_SERVE_ATTN_SHAPES
+                 for dtype in (torch.bfloat16, torch.float32)}
     emit({"phase": "kernel_attention", "cases": n_cases,
           "seqs": ATTN_SEQS, "head_dims": ATTN_HEAD_DIMS,
           "modes": [list(m) for m in ATTN_MODES],
@@ -1017,8 +1036,48 @@ def phase_kernel_attention(torch, K):
           "serve_shape_bf16_max_abs_err_vs_f32": vs_f32,
           "serve_shape_flops": flops, "serve_shape_bytes": nbytes,
           "B10": row, "hybrid_shape": list(HYBRID_ATTN_SHAPE),
-          "B10_hybrid_shape": hybrid})
+          "B10_hybrid_shape": hybrid, "B10_gqa_serve_shapes": gqa_serve})
     return row
+
+
+def _b10_timed(torch, K, g, shape, dtype) -> dict:
+    """B10 causal at ``shape`` (B, S, H, hd) in ``dtype`` on random inputs:
+    held against its plain version (`attn_tolerance`), then timed beside
+    the plain version and SDPA in the same dtype, with its bound (the
+    tensor-core rate in bf16, the CUDA cores' in f32)."""
+    B, S, H, hd = shape
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    got = K.flash_attention(q, k, v, causal=True)
+    want = K.ref.flash_attention_ref(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    tol = attn_tolerance(torch, dtype, S)
+    diff = (got.float() - want.float()).abs()
+    check(bool(torch.isfinite(got).all()) and float(
+        (diff / (tol + tol * want.float().abs())).max()) <= 1.0,
+        f"B10 {shape} {str(dtype)[6:]}: max abs {float(diff.max())}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    elem = 4 if dtype == torch.float32 else 2
+    nbytes, flops = attn_bound(B, S, H, hd, elem, True, None)
+    by = nbytes / HBM_BYTES_PER_S * 1e3
+    op = flops / (F32_FLOPS if dtype == torch.float32
+                  else BF16_TC_FLOPS) * 1e3
+    h = {"ms": time_ms(torch, lambda: K.flash_attention(q, k, v,
+                                                        causal=True),
+                       iters=20),
+         "max_abs_err": float(diff.max()),
+         "plain_ms": time_ms(torch, lambda: K.ref.flash_attention_ref(
+             q, k, v, causal=True), iters=5),
+         "library_ms": time_ms(torch, lambda: sdpa(qh, kh, vh,
+                                                   is_causal=True),
+                               iters=20)}
+    h["bound_ms"], h["bound_by"] = (by, "bytes") if by >= op else (
+        op, "operations")
+    h["tflops"] = flops / h["ms"] / 1e9
+    h["ms_over_library"] = h["ms"] / h["library_ms"]
+    return h
 
 
 # B11 (G, Q, H, P, N): the reference sweep (tests/test_kernels.py:67-68);
@@ -2465,18 +2524,22 @@ def phase_rollback_path_scanned(torch, K, train, cfg):
 
 XLSTM_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
 XLSTM_SCANNED_UNROLL = 2
+# the scanned xLSTM cell at depth 12 -> 6 blocks (3 mLSTM, 3 sLSTM) for the
+# script's time limit: its capture took 47.5 s of 106.5 at 12
+XLSTM_SCANNED_LAYERS = 6
 
 
 def _family_train_scanned(torch, K, train, cfg, phase: str, b11: int,
-                          steps: int, unroll: int, seq_len: int) -> dict:
-    """A family's train path (4 agents on a ring, per-agent batch 2)
-    through `--unroll-k unroll` beside the same steps eager
+                          steps: int, unroll: int, seq_len: int,
+                          flags=()) -> dict:
+    """A family's train path (4 agents on a ring, per-agent batch 2, and
+    ``flags``) through `--unroll-k unroll` beside the same steps eager
     (`_scanned_beside_eager`): B3 and B2 counted once a step and B11
     ``b11`` times a step on the warm-up, and from the capture on the
     replays.  Reports the capture's seconds and the graph's nodes."""
     m = 4
     rec = _scanned_beside_eager(
-        torch, K, train, cfg, (),
+        torch, K, train, cfg, tuple(flags),
         {"obfuscate_update_krng": 1, "gossip_update": 1,
          "ssd_intra_chunk": b11},
         steps=steps, unroll=unroll, seq_len=seq_len)
@@ -2496,13 +2559,14 @@ def _mlstm_blocks(cfg) -> int:
 
 
 def phase_xlstm_train_scanned(torch, K, train, cfg):
-    """xlstm-125m (12 blocks, not cut), 4 agents, per-agent batch 2, seq
-    128, through `--unroll-k 2`: a warm-up chunk, then two chunks replayed
-    from one CUDA graph that holds the sLSTM token loop unrolled and B11's
-    autograd Function, beside the same 6 steps eager.  Gates: states and
-    step records equal; B3 and B2 once a step and B11 48 times a step (4
-    agents x 6 mLSTM blocks x 2 calls)."""
-    check(cfg.num_layers == 12 and cfg.d_model == 768, "full xlstm-125m")
+    """xlstm-125m at full width, XLSTM_SCANNED_LAYERS blocks, 4 agents,
+    per-agent batch 2, seq 128, through `--unroll-k 2`: a warm-up chunk,
+    then two chunks replayed from one CUDA graph that holds the sLSTM
+    token loop unrolled and B11's autograd Function, beside the same 6
+    steps eager.  Gates: states and step records equal; B3 and B2 once a
+    step and B11 4 agents x the mLSTM blocks x 2 calls a step."""
+    check(cfg.num_layers == XLSTM_SCANNED_LAYERS and cfg.d_model == 768,
+          "xlstm-125m at full width")
     return _family_train_scanned(
         torch, K, train, cfg, "xlstm_train_scanned",
         4 * _mlstm_blocks(cfg) * 2, XLSTM_SCANNED_STEPS,
@@ -3495,16 +3559,23 @@ def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24,
     emit({"phase": "profile", "path": path, "args": argv, **out})
 
 
-# every serve path keeps more requests than slots, so admission refills
-# slots of a live slab
+# the stablelm, xLSTM and hybrid serve paths keep more requests than
+# slots, so admission refills slots of a live slab.  For the script's time
+# limit (1331 s with every cell at its earlier size, 1054 s after a first
+# round of cuts, on one H100 80GB HBM3 at 700 W) stablelm-3b is served at
+# full width, depth 32 -> 8, and 16 -> 9 requests; its oracle decodes
+# every request's 64 tokens at M = 8
+SERVE_LAYERS = 8
 SERVE_PATH_ARGS = ("--arch", "stablelm-3b", "--slots", "8", "--requests",
-                   "16", "--prompt-len", "2000", "--gen-tokens", "64",
+                   "9", "--prompt-len", "2000", "--gen-tokens", "64",
                    "--decode-chunk", "8", "--parity-check")
-# xlstm-125m at full width and depth: prompts of 500 (no multiple of 64,
-# so the dt = 0 padding runs), cut from stablelm's 2000 for the sLSTM's
-# host loop (a few ops a token and block); 16 requests on 8 slots
+# xlstm-125m at full width: prompts of 500 (no multiple of 64, so the dt
+# = 0 padding runs), cut from stablelm's 2000 for the sLSTM's host loop
+# (a few ops a token and block); 9 requests on 8 slots; cut for the
+# script's time limit to 6 blocks (12) and 9 requests (16)
+XLSTM_SERVE_LAYERS = 6
 XLSTM_SERVE_ARGS = ("--arch", "xlstm-125m", "--slots", "8", "--requests",
-                    "16", "--prompt-len", "500", "--gen-tokens", "32",
+                    "9", "--prompt-len", "500", "--gen-tokens", "32",
                     "--decode-chunk", "8", "--parity-check")
 # xlstm-125m training: sequence 128, cut from the reference's train shapes
 # for the sLSTM's host loop (forward and backward, per token and agent)
@@ -3896,10 +3967,11 @@ def same_width_gate(torch, ctx, args) -> dict:
             "seconds": time.perf_counter() - t0}
 
 
-def _drive_serve(torch, K, serve, argv):
-    """run_serving on ``argv`` with the launch counts set to 0 just before
-    it and read just after it; earlier phases' buffers collected first, so
-    the peak is this run's."""
+def _drive_serve(torch, K, serve, argv, cfg=None):
+    """run_serving on ``argv`` (``cfg``: a depth-cut config in place of
+    ``--arch``'s) with the launch counts set to 0 just before it and read
+    just after it; earlier phases' buffers collected first, so the peak is
+    this run's."""
     args = serve.build_parser().parse_args(list(argv))
     gc.collect()
     torch.cuda.synchronize()
@@ -3908,7 +3980,7 @@ def _drive_serve(torch, K, serve, argv):
     torch.cuda.reset_peak_memory_stats()
     K.reset_launch_counts()
     t0 = time.perf_counter()
-    ctx = serve.run_serving(args)
+    ctx = serve.run_serving(args, cfg=cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launch_counts)
@@ -3938,7 +4010,8 @@ def _serve_record(phase: str, res, args, peak, wall, counts, gate) -> dict:
 
 
 def _serve_path_phase(torch, K, serve, phase: str, argv, full, expect,
-                      margins: bool = True, diagnose=None) -> dict:
+                      margins: bool = True, diagnose=None,
+                      cfg=None) -> dict:
     """`python -m repro_torch.launch.serve` with ``argv`` (`_drive_serve`).
     ``full(cfg)``: the model is at full width and depth.  ``expect(cfg,
     prefills, steps)``: each kernel's launches for the run's prefills (the
@@ -3950,7 +4023,7 @@ def _serve_path_phase(torch, K, serve, phase: str, argv, full, expect,
     ``margins`` the margin rule's record (whose first tokens, from the
     B = 1 prefill on both sides, must agree) and ``diagnose(ctx, args)``'s
     fields.  Returns the run's launch counts."""
-    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve, argv)
+    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve, argv, cfg)
     res = ctx["result"]
     cfg = ctx["bundle"].cfg
     n = args.requests
@@ -4016,27 +4089,31 @@ def _dense_decode_growth(torch, ctx, args) -> dict:
 
 
 def phase_serve_path(torch, K, serve):
-    """SERVE_PATH_ARGS: stablelm-3b at full width and depth, bf16, 16
-    requests of 2000-token prompts on 8 slots, 64 tokens each in chunks of
-    8, every prefill attention through B10 (32 launches a prefill).  Where
-    the M = 1 check differs: the logit spread, the margin rule's record
-    and a layer-by-layer trace of the two residual streams, in bf16 and
-    in f32 (`_serve_path_phase`)."""
+    """SERVE_PATH_ARGS: stablelm-3b at full width, SERVE_LAYERS layers,
+    bf16, 9 requests of 2000-token prompts on 8 slots, 64 tokens each in
+    chunks of 8, every prefill attention through B10 (a launch a layer).
+    Where the M = 1 check differs: the logit spread, the margin rule's
+    record and a layer-by-layer trace of the two residual streams, in
+    bf16 and in f32 (`_serve_path_phase`)."""
+    from repro_torch.configs import get_config
     return _serve_path_phase(
         torch, K, serve, "serve_path", SERVE_PATH_ARGS,
-        lambda cfg: cfg.num_layers == 32 and cfg.d_model == 2560,
+        lambda cfg: cfg.num_layers == SERVE_LAYERS and cfg.d_model == 2560,
         lambda cfg, prefills, steps: {
             "flash_attention": cfg.num_layers * prefills},
-        diagnose=lambda ctx, args: _dense_decode_growth(torch, ctx, args))
+        diagnose=lambda ctx, args: _dense_decode_growth(torch, ctx, args),
+        cfg=dataclasses.replace(get_config("stablelm-3b"),
+                                num_layers=SERVE_LAYERS))
 
 
 def phase_xlstm_serve_path(torch, K, serve):
-    """XLSTM_SERVE_ARGS: xlstm-125m at full width and depth (12 blocks),
-    bf16, 16 requests of 500-token prompts on 8 slots, 32 tokens each in
-    chunks of 8.  B11 twice in each of the 6 mLSTM blocks of every prefill
+    """XLSTM_SERVE_ARGS: xlstm-125m at full width, XLSTM_SERVE_LAYERS
+    blocks, bf16, 9 requests of 500-token prompts on 8 slots, 32 tokens
+    each in chunks of 8.  B11 twice in each mLSTM block of every prefill
     (Q = 64, 8 chunks) and every decode step (Q = 1).  Where the M = 1
     check differs: the logit spread and the margin rule's record
     (`_serve_path_phase`)."""
+    from repro_torch.configs import get_config
 
     def expect(cfg, prefills, steps):
         per_call = 2 * sum(1 for i in range(cfg.num_layers)
@@ -4045,18 +4122,30 @@ def phase_xlstm_serve_path(torch, K, serve):
 
     return _serve_path_phase(
         torch, K, serve, "xlstm_serve_path", XLSTM_SERVE_ARGS,
-        lambda cfg: (cfg.family == "xlstm" and cfg.num_layers == 12
-                     and cfg.d_model == 768), expect)
+        lambda cfg: (cfg.family == "xlstm" and cfg.d_model == 768
+                     and cfg.num_layers == XLSTM_SERVE_LAYERS), expect,
+        cfg=dataclasses.replace(get_config("xlstm-125m"),
+                                num_layers=XLSTM_SERVE_LAYERS))
+
+
+def _cast_tree(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_tree(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype)
 
 
 def _family_step_parity(torch, K, train, phase: str, cfg, steps: int,
-                        b11: int) -> None:
+                        b11: int, oracle64: bool = False) -> None:
     """``steps`` steps of ``cfg`` (f32, 4 agents, seq 70: the scan padded
     to 128) through run_training on the card (B3 + B2, and B11 in each
     SSD forward, ``b11`` launches a step) and on the CPU (plain versions),
     same weights and batches.  Tolerance: losses rtol 1e-5, params atol =
-    rtol = 1e-4."""
-    from repro_torch.core.privacy import tree_leaves
+    rtol = 1e-4.  With ``oracle64`` the CPU also runs the steps in
+    float64, and each leaf of the card's state must lie within twice the
+    CPU f32 state's distance (max abs) of it, plus 1e-4: for models whose
+    f32 steps are ill-conditioned, where the CPU's own f32 state moves
+    more than 1e-4 from the float64 one."""
+    from repro_torch.core.privacy import tree_leaves, tree_paths
     from repro_torch.models import build_model
     gen = torch.Generator()
     gen.manual_seed(5)
@@ -4074,12 +4163,28 @@ def _family_step_parity(torch, K, train, phase: str, cfg, steps: int,
                    for a, b in zip(gpu["history"], cpu["history"]))
     check(loss_rel <= 1e-5, f"{phase} loss rel {loss_rel}")
     max_abs = 0.0
-    for a, b in zip(tree_leaves(gpu["state"].params),
-                    tree_leaves(cpu["state"].params)):
-        a = a.cpu()
-        max_abs = max(max_abs, float((a - b).abs().max()))
-        check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
-              f"{phase} params, max abs {max_abs}")
+    gaps = {}
+    if oracle64:
+        f64 = train.run_training(train.build_parser().parse_args(
+            flags + ["--device", "cpu"]), cfg=cfg,
+            init_params=_cast_tree(p0, torch.float64))
+        for path, a, b, c in zip(tree_paths(cpu["state"].params),
+                                 tree_leaves(gpu["state"].params),
+                                 tree_leaves(cpu["state"].params),
+                                 tree_leaves(f64["state"].params)):
+            card, host = (float((t.cpu().double() - c).abs().max())
+                          for t in (a, b))
+            max_abs = max(max_abs, float((a.cpu() - b).abs().max()))
+            gaps[path] = {"card_vs_f64": card, "cpu_vs_f64": host}
+            check(card <= 2 * host + 1e-4,
+                  f"{phase} {path}: card {card} from float64, CPU {host}")
+    else:
+        for a, b in zip(tree_leaves(gpu["state"].params),
+                        tree_leaves(cpu["state"].params)):
+            a = a.cpu()
+            max_abs = max(max_abs, float((a - b).abs().max()))
+            check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
+                  f"{phase} params, max abs {max_abs}")
     check(counts.get("ssd_intra_chunk", 0) == b11 * steps
           and counts.get("obfuscate_update_krng", 0) == steps
           and counts.get("gossip_update", 0) == steps,
@@ -4089,20 +4194,23 @@ def _family_step_parity(torch, K, train, phase: str, cfg, steps: int,
           "losses_gpu": [r["loss"] for r in gpu["history"]],
           "losses_cpu": [r["loss"] for r in cpu["history"]],
           "max_loss_rel_err": loss_rel, "max_param_abs_err": max_abs,
-          "launches": counts,
-          "tolerance": "loss rtol 1e-5; params atol = rtol = 1e-4"})
+          "launches": counts, "float64_gaps": gaps or None,
+          "tolerance": "loss rtol 1e-5; params " + (
+              "within 2 x the CPU f32 state's max abs distance from a "
+              "float64 run, + 1e-4, leaf by leaf" if oracle64 else
+              "atol = rtol = 1e-4")})
 
 
 def _family_train_path(torch, K, train, cfg, phase: str, full: bool,
-                       seq_len: int, b11: int, steps: int = 4,
+                       seq_len: int, b11: int, steps: int = 4, flags=(),
                        **extra) -> dict:
-    """run_training on ``cfg``, 4 agents on a ring, bf16, PDSGD, per-agent
-    batch 2, ``seq_len``, 1 warm-up + ``steps - 1`` timed steps: B3 + B2
-    every step, B11 ``b11`` times a step (its backward the plain
-    version's autograd).  Gates: ``full``, finite losses and buffer, the
-    launches.  Returns the run's launch counts."""
+    """run_training on ``cfg`` (and ``flags``), 4 agents on a ring, bf16,
+    PDSGD, per-agent batch 2, ``seq_len``, 1 warm-up + ``steps - 1`` timed
+    steps: B3 + B2 every step, B11 ``b11`` times a step (its backward the
+    plain version's autograd).  Gates: ``full``, finite losses and buffer,
+    the launches.  Returns the run's launch counts."""
     res, counts, wall, peak = _run_path(torch, K, train, cfg, steps, True,
-                                        seq_len=seq_len)
+                                        flags, seq_len=seq_len)
     hist = res["history"]
     losses = [r["loss"] for r in hist]
     state = res["state"]
@@ -4122,8 +4230,10 @@ def _family_train_path(torch, K, train, cfg, phase: str, full: bool,
     emit({"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
           **extra, "d_model": cfg.d_model, "dtype": cfg.dtype, "agents": m,
           "topology": "ring", "per_agent_batch": 2, "seq_len": seq_len,
-          "params_per_agent": state.layout.size, "width": width,
-          "losses": losses, "ms_per_step": ms_step,
+          "flags": list(flags), "params_per_agent": state.layout.size,
+          "width": width, "losses": losses,
+          "consensus_errors": [r["consensus_error"] for r in hist],
+          "ms_per_step": ms_step,
           "first_step_s": hist[0]["elapsed_s"], "run_wall_s": wall,
           "max_memory_allocated": peak, "launches": counts})
     return counts
@@ -4156,10 +4266,12 @@ def phase_xlstm_train_path(torch, K, train, cfg):
 HYBRID_TRAIN_LAYERS = 12
 HYBRID_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
 HYBRID_SCANNED_UNROLL = 2
-# served at full width and depth: 2000-token prompts (no multiple of 64:
-# the dt = 0 padding runs) on 8 slots; 9 requests (one admitted into a
-# live slab) of 32 tokens, cut from 16 requests for the script's time
-# limit (a request's oracle decode costs a prefill and a chunk's steps)
+# served at full width, 2000-token prompts (no multiple of 64: the dt = 0
+# padding runs) on 8 slots; 9 requests (one admitted into a live slab) of
+# 32 tokens, cut from 16 requests for the script's time limit (a
+# request's oracle decode costs a prefill and a chunk's steps); depth 81
+# -> 24 mamba layers (4 sites, both shared blocks), for the same limit
+HYBRID_SERVE_LAYERS = 24
 HYBRID_SERVE_ARGS = ("--arch", "zamba2-7b", "--slots", "8", "--requests",
                      "9", "--prompt-len", "2000", "--gen-tokens", "32",
                      "--decode-chunk", "8", "--parity-check")
@@ -4226,8 +4338,8 @@ def phase_hybrid_serve_parity(torch, serve):
 
 
 def phase_hybrid_serve_path(torch, K, serve):
-    """HYBRID_SERVE_ARGS: zamba2-7b at full width and depth (81 mamba
-    layers, 13 shared attention sites), bf16 weights (the residual stream
+    """HYBRID_SERVE_ARGS: zamba2-7b at full width, HYBRID_SERVE_LAYERS
+    mamba layers (4 shared attention sites), bf16 weights (the residual stream
     f32 from the first mamba block on, as the reference's), 9 requests of
     2000-token prompts on 8 slots, 32 tokens each in chunks of 8.  Every
     prefill runs B11 in each mamba layer (G = 32 chunks, 112 heads) and
@@ -4235,9 +4347,11 @@ def phase_hybrid_serve_path(torch, K, serve):
     check differs: the logit spread and a block-by-block trace of one
     decode step (`hybrid_decode_trace`, `_serve_path_phase`)."""
 
+    from repro_torch.configs import get_config
+
     def full(cfg):
-        return (cfg.family == "hybrid" and _hybrid_counts(cfg) == (81, 13)
-                and cfg.d_model == 3584)
+        return (cfg.family == "hybrid" and cfg.d_model == 3584
+                and _hybrid_counts(cfg) == (HYBRID_SERVE_LAYERS, 4))
 
     def expect(cfg, prefills, steps):
         n_mamba, n_sites = _hybrid_counts(cfg)
@@ -4247,8 +4361,296 @@ def phase_hybrid_serve_path(torch, K, serve):
     return _serve_path_phase(
         torch, K, serve, "hybrid_serve_path", HYBRID_SERVE_ARGS, full,
         expect, margins=False,
-        diagnose=lambda ctx, args: hybrid_decode_trace(torch, ctx, args))
+        diagnose=lambda ctx, args: hybrid_decode_trace(torch, ctx, args),
+        cfg=dataclasses.replace(get_config("zamba2-7b"),
+                                num_layers=HYBRID_SERVE_LAYERS))
 
+
+# the dense GQA configs (0c-iii): step parity on the smoke models in f32,
+# chatglm3-6b-smoke (KV 2 of 8 heads, half rotary) and mistral-nemo's
+# smoke model with 8 query heads of 16 on 2 KV heads (H hd = 128 against
+# d_model 256, rope_theta 1e6: what the smoke reduction erases); training
+# chatglm3-6b at full width, depth 28 -> 4 (1,348,505,600 parameters an
+# agent, a 10.79 GB (4, D) bf16 buffer); serving mistral-nemo-12b at full
+# width and depth (40 layers, 11,576,693,760 parameters, 23.15 GB bf16)
+GQA_TRAIN_LAYERS = 4
+GQA_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
+GQA_SCANNED_UNROLL = 2
+# the GQA and MoE train paths clip each gradient element to [-1, 1]
+# (Theorem 5's bounded-gradient premise): the random deep models'
+# gradients reach 1e3-1e4 (chatglm3-6b, depth 4) and 1e11 (granite-moe,
+# 24 layers, f32 and bf16 alike), and unclipped the lr-0.4 step drives
+# granite-moe's residual stream past f32's range (its loss then sits at
+# ln V, consensus error 1e21)
+NEW_TRAIN_FLAGS = ("--grad-clip-kappa", "1.0")
+# (8 requests on 8 slots: cut from 9 for the script's time limit, so
+# these two cells refill no slot; the other serve cells do)
+GQA_SERVE_ARGS = ("--arch", "mistral-nemo-12b", "--slots", "8",
+                  "--requests", "8", "--prompt-len", "2000", "--gen-tokens",
+                  "32", "--decode-chunk", "8", "--parity-check")
+# the MoE family (0c-iv): olmoe-1b-7b-smoke in f32 for step parity;
+# granite-moe-1b-a400m trained at full width and depth (24 layers, 32
+# experts top 8; a 10.68 GB (4, D) bf16 buffer); olmoe-1b-7b served at
+# full width and depth (16 layers, 64 experts top 8, 13.63 GB bf16)
+MOE_SERVE_ARGS = ("--arch", "olmoe-1b-7b", "--slots", "8", "--requests",
+                  "8", "--prompt-len", "2000", "--gen-tokens", "32",
+                  "--decode-chunk", "8", "--parity-check")
+# granite-8b's prefill: B10 held in place, at every layer, against an f32
+# attention on that layer's own bf16 q, k and v; the logits of whole
+# prefills with plain and with f32 attention beside it.  The reference's
+# init (fan-in of wq and wk the head count) gives logits of std ~256 at
+# KV 8: the plain attention's bf16 logits then round by up to 4 and pick
+# other keys, so the oracle scores in f32, as B10 does
+GRANITE_PROMPT = 2000
+# B10 in place: max |B10 - f32 attention| <= this x max |v| (P rounded to
+# bf16 for the PV product, 2^-9 of each weight, and the output's own bf16
+# rounding, with room for the f32 scores' summation order)
+GRANITE_IN_PLACE_OF_V = 2.0 ** -6
+
+def _mistral_gqa_smoke():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mistral-nemo-12b-smoke"),
+                               name="mistral-nemo-gqa-smoke", num_heads=8,
+                               num_kv_heads=2, head_dim=16)
+
+
+def phase_gqa_step_parity(torch, K, train):
+    """2 PDSGD steps of chatglm3-6b-smoke and of mistral-nemo's KV < H,
+    H hd != d_model smoke variant on the card against the CPU
+    (`_family_step_parity`; B3 + B2, no B11), held leaf by leaf against a
+    float64 run on the CPU: their f32 gradients lie ~3e-4 of the largest
+    entry from a float64 evaluation, the reference's as much (0.02-scale
+    embeddings into an RMSNorm, sharp random attention;
+    tests/test_torch_gqa.py), and after 2 steps the CPU's own f32
+    ``embed`` is 6.8e-3 from the float64 run's (an update of 3.9e-2)."""
+    from repro_torch.configs import get_config
+    for cfg in (get_config("chatglm3-6b-smoke"), _mistral_gqa_smoke()):
+        _family_step_parity(torch, K, train, "gqa_step_parity", cfg, 2, 0,
+                            oracle64=True)
+
+
+def _moe_drops(torch, cfg, seq_len: int) -> dict:
+    """The pairs capacity drops in one CPU loss evaluation of ``cfg``'s
+    first agent batch of the step-parity run (the init of
+    `_family_step_parity`'s seed), counted at `models.moe.dispatch`."""
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.models import build_model, moe
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    bundle = build_model(cfg)
+    params = bundle.init(gen, "cpu")
+    batch = make_lm_pipeline(cfg.vocab_size, 4, 2, seq_len,
+                             seed=5).batch_at(0)
+    seen = {"pairs": 0, "dropped": 0}
+    dispatch = moe.dispatch
+
+    def counting(eidx, C, E):
+        order, buf_idx = dispatch(eidx, C, E)
+        seen["pairs"] += buf_idx.numel()
+        seen["dropped"] += int((buf_idx == E * C).sum())
+        return order, buf_idx
+
+    moe.dispatch = counting
+    try:
+        with torch.no_grad():
+            bundle.loss_fn(params, {k: torch.from_numpy(v[0])
+                                    for k, v in batch.items()})
+    finally:
+        moe.dispatch = dispatch
+    return seen
+
+
+def phase_moe_step_parity(torch, K, train):
+    """2 PDSGD steps of olmoe-1b-7b-smoke (4 experts top 2) on the card
+    against the CPU (`_family_step_parity`) at capacity factor 1.0 (35
+    slots an expert of a sequence's 140 pairs), where capacity drops pairs
+    (counted on the CPU, gated > 0)."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b-smoke"),
+                              capacity_factor=1.0)
+    drops = _moe_drops(torch, cfg, 70)
+    emit({"phase": "moe_step_parity_drops", "arch": cfg.name,
+          "capacity_factor": cfg.capacity_factor, **drops})
+    check(drops["dropped"] > 0, f"moe_step_parity: no pair dropped {drops}")
+    _family_step_parity(torch, K, train, "moe_step_parity", cfg, 2, 0)
+
+
+def phase_gqa_train_path(torch, K, train, cfg):
+    """chatglm3-6b at full width, GQA_TRAIN_LAYERS layers, seq 512, the
+    gradients clipped (NEW_TRAIN_FLAGS; `_family_train_path`, 1 warm-up +
+    5 timed steps): B3 + B2, KV 2 of 32 heads in every attention."""
+    return _family_train_path(
+        torch, K, train, cfg, "gqa_train_path",
+        cfg.name == "chatglm3-6b" and cfg.d_model == 4096
+        and cfg.num_layers == GQA_TRAIN_LAYERS and cfg.num_kv_heads == 2,
+        512, 0, steps=6, flags=NEW_TRAIN_FLAGS)
+
+
+def phase_moe_train_path(torch, K, train, cfg):
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+    top 8, KV 8 of 16 heads), seq 512, the gradients clipped
+    (NEW_TRAIN_FLAGS; `_family_train_path`, 1 warm-up + 5 timed steps): B3
+    + B2; the routing (sorts, searchsorted, gathers and a
+    scatter) and the expert products in plain torch, as the reference's
+    have no Pallas kernel."""
+    return _family_train_path(
+        torch, K, train, cfg, "moe_train_path",
+        cfg.name == "granite-moe-1b-a400m" and cfg.num_layers == 24
+        and cfg.d_model == 1024 and cfg.num_experts == 32, 512, 0, steps=6,
+        flags=NEW_TRAIN_FLAGS)
+
+
+def phase_family_train_scanned(torch, K, train, cfg, phase: str):
+    """A GQA or MoE train path (NEW_TRAIN_FLAGS) through `--unroll-k 2` (a
+    warm-up chunk, then two chunks replayed from one CUDA graph), beside
+    the same 6 steps eager (`_family_train_scanned`): bitwise, B3 and B2
+    once a step."""
+    return _family_train_scanned(torch, K, train, cfg, phase, 0,
+                                 GQA_SCANNED_STEPS, GQA_SCANNED_UNROLL, 512,
+                                 NEW_TRAIN_FLAGS)
+
+
+def phase_gqa_serve_path(torch, K, serve):
+    """GQA_SERVE_ARGS: mistral-nemo-12b at full width and depth (40 layers,
+    32 query heads of 128 on 8 KV heads, d_model 5120), bf16, 8 requests
+    of 2000-token prompts on 8 slots, 32 tokens each in chunks of 8; B10
+    40 times a prefill (k and v repeated to 32 heads).  Gate: the engine's
+    streams equal the same-width oracle's (`_serve_path_phase`)."""
+    return _serve_path_phase(
+        torch, K, serve, "gqa_serve_path", GQA_SERVE_ARGS,
+        lambda cfg: (cfg.name == "mistral-nemo-12b" and cfg.num_layers == 40
+                     and cfg.d_model == 5120 and cfg.num_kv_heads == 8),
+        lambda cfg, prefills, steps: {
+            "flash_attention": cfg.num_layers * prefills},
+        margins=False)
+
+
+def phase_moe_serve_path(torch, K, serve):
+    """MOE_SERVE_ARGS: olmoe-1b-7b at full width and depth (16 layers, 64
+    experts top 8), bf16, 8 requests of 2000-token prompts on 8 slots, 32
+    tokens each in chunks of 8; B10 16 times a prefill; prefill routes
+    with capacity, decode mixes all experts (the reference's).  Gate: the
+    engine's streams equal the same-width oracle's."""
+    return _serve_path_phase(
+        torch, K, serve, "moe_serve_path", MOE_SERVE_ARGS,
+        lambda cfg: (cfg.name == "olmoe-1b-7b" and cfg.num_layers == 16
+                     and cfg.d_model == 2048 and cfg.num_experts == 64),
+        lambda cfg, prefills, steps: {
+            "flash_attention": cfg.num_layers * prefills},
+        margins=False)
+
+
+def _rel_l2(torch, a, b) -> float:
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b))
+
+
+def phase_granite_prefill(torch, K):
+    """granite-8b at full width and depth (36 layers, 32 query heads of 128
+    on 8 KV heads, 16.11 GB bf16): one GRANITE_PROMPT-token prefill through
+    `forward_prefill` with B10 (36 launches), each layer's B10 output held
+    in place against an f32 grouped attention on the same q, k and v
+    (within GRANITE_IN_PLACE_OF_V of max |v|), the plain bf16 attention's
+    distance from it recorded beside.  Then the same prefill with `_attn`
+    pointed at the plain attention and at the f32 attention: the random
+    36-layer model's sharp attention amplifies any rounding, so the three
+    runs' logits are a diagnostic (relative L2).  Gates: B10 in place at
+    every layer, finite logits, B10's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.common import attention
+    cfg = get_config("granite-8b")
+    check(cfg.num_layers == 36 and cfg.d_model == 4096, "granite-8b full")
+    gc.collect()
+    torch.cuda.synchronize()
+    check(torch.cuda.memory_allocated() < 1 << 30,
+          f"{torch.cuda.memory_allocated()} B still allocated before a path")
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    bundle = build_model(cfg)
+    params = bundle.init(gen, dev)
+    tokens = torch.randint(0, cfg.vocab_size, (1, GRANITE_PROMPT),
+                           generator=gen, device=dev, dtype=torch.int32)
+    b10_attn = tfm._attn
+    in_place = []
+
+    def plain(q, k, v, window, cfg=None):
+        return attention(q, k, v, causal=True, window=window)
+
+    def f32_attn(q, k, v, window, cfg=None):
+        return attention(q.float(), k.float(), v.float(), causal=True,
+                         window=window).to(q.dtype)
+
+    def checked(q, k, v, window, cfg=None):
+        got = b10_attn(q, k, v, window, cfg)
+        exact = attention(q.float(), k.float(), v.float(), causal=True,
+                          window=window)
+        in_place.append({
+            "b10": float((got.float() - exact).abs().max()),
+            "plain_bf16": float((plain(q, k, v, window).float()
+                                 - exact).abs().max()),
+            "max_v": float(v.float().abs().max())})
+        return got
+
+    out = {}
+    with torch.no_grad():
+        for name, fn in (("b10", checked), ("plain", plain),
+                         ("f32_attention", f32_attn)):
+            tfm._attn = fn
+            try:
+                K.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = bundle.prefill_fn(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                out[name] = {"logits": res["logits"][:, :cfg.vocab_size]
+                             .float(), "ms": (time.perf_counter() - t0) * 1e3,
+                             "launches": dict(K.launch_counts)}
+                del res
+            finally:
+                tfm._attn = b10_attn
+    b10, ref, f32 = (out[n]["logits"] for n in ("b10", "plain",
+                                                "f32_attention"))
+    rel_b10_f32, rel_plain_f32 = _rel_l2(torch, b10, f32), _rel_l2(torch,
+                                                                   ref, f32)
+    rec = {"phase": "granite_prefill", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "prompt": GRANITE_PROMPT,
+           "dtype": cfg.dtype,
+           "in_place_b10_max_abs_err": max(r["b10"] for r in in_place),
+           "in_place_b10_of_max_v": max(r["b10"] / r["max_v"]
+                                        for r in in_place),
+           "in_place_plain_bf16_max_abs_err": max(r["plain_bf16"]
+                                                  for r in in_place),
+           "in_place_max_v": max(r["max_v"] for r in in_place),
+           "in_place_layers": len(in_place),
+           "logits_rel_l2_b10_vs_plain": _rel_l2(torch, b10, ref),
+           "logits_rel_l2_b10_vs_f32_attention": rel_b10_f32,
+           "logits_rel_l2_plain_vs_f32_attention": rel_plain_f32,
+           "argmax_b10_plain_f32": [int(t.argmax()) for t in (b10, ref, f32)],
+           "logits_scale": float(ref.abs().max()),
+           "ms": {n: o["ms"] for n, o in out.items()},
+           "launches": {n: o["launches"] for n, o in out.items()},
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "tolerance": f"in place, every layer: max |B10 - f32 "
+                        f"attention| <= {GRANITE_IN_PLACE_OF_V} x max |v| "
+                        f"on the same q, k, v; logits: diagnostic"}
+    emit(rec)
+    check(all(bool(torch.isfinite(o["logits"]).all())
+              for o in out.values()), "granite_prefill: non-finite logits")
+    check(out["b10"]["launches"].get("flash_attention", 0) == cfg.num_layers
+          and len(in_place) == cfg.num_layers
+          and out["plain"]["launches"].get("flash_attention", 0) == 0,
+          f"granite_prefill launches {rec['launches']}")
+    check(rec["in_place_b10_of_max_v"] <= GRANITE_IN_PLACE_OF_V,
+          f"granite_prefill: B10 in place {in_place}")
+    del params, out, b10, ref, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec["launches"]["b10"]
 
 SOURCES = {
     "obfuscate_update": ("src/repro_torch/csrc/obfuscate.cu",
@@ -4282,10 +4684,10 @@ def main(argv=None) -> int:
                     help="build and kernel phases only")
     ap.add_argument("--profile", action="store_true",
                     help="also profile main-, dropout-, fault-, ring-, "
-                         "xLSTM and hybrid train-path steps, the scanned "
-                         "main, fault and ring paths' replayed chunks, a "
-                         "Fig. 2 trimmed-mean replay and the three serve "
-                         "paths with torch.profiler")
+                         "xLSTM, hybrid and MoE train-path steps, the "
+                         "scanned main, fault and ring paths' replayed "
+                         "chunks, a Fig. 2 trimmed-mean replay and the "
+                         "five serve paths with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -4409,7 +4811,8 @@ def main(argv=None) -> int:
         xlstm_cfg = get_config("xlstm-125m")
         train_counts = phase_xlstm_train_path(torch, K, train, xlstm_cfg)
         torch.cuda.empty_cache()
-        phase_xlstm_train_scanned(torch, K, train, xlstm_cfg)
+        phase_xlstm_train_scanned(torch, K, train, dataclasses.replace(
+            xlstm_cfg, num_layers=XLSTM_SCANNED_LAYERS))
         gc.collect()
         torch.cuda.empty_cache()
         if opts.profile:
@@ -4455,11 +4858,57 @@ def main(argv=None) -> int:
             phase_profile_serve(torch, serve, requests=4, gen=16,
                                 path_args=HYBRID_SERVE_ARGS,
                                 path="hybrid_serve_path")
-        # B10's launches: both serve paths' runs; B11's: the xLSTM and
-        # hybrid train and serve paths' runs
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_gqa_step_parity(torch, K, train)
+        gqa_cfg = dataclasses.replace(get_config("chatglm3-6b"),
+                                      num_layers=GQA_TRAIN_LAYERS)
+        phase_gqa_train_path(torch, K, train, gqa_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_family_train_scanned(torch, K, train, gqa_cfg,
+                                   "gqa_train_scanned")
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_moe_step_parity(torch, K, train)
+        moe_cfg = get_config("granite-moe-1b-a400m")
+        phase_moe_train_path(torch, K, train, moe_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if opts.profile:
+            phase_profile(torch, train, moe_cfg, "moe_train_path",
+                          NEW_TRAIN_FLAGS, steps=3)
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase_family_train_scanned(torch, K, train, moe_cfg,
+                                   "moe_train_scanned")
+        gc.collect()
+        torch.cuda.empty_cache()
+        gqa_serve = phase_gqa_serve_path(torch, K, serve)
+        if opts.profile:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve, requests=4, gen=16,
+                                path_args=GQA_SERVE_ARGS,
+                                path="gqa_serve_path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        moe_serve = phase_moe_serve_path(torch, K, serve)
+        if opts.profile:
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve, requests=4, gen=16,
+                                path_args=MOE_SERVE_ARGS,
+                                path="moe_serve_path")
+        gc.collect()
+        torch.cuda.empty_cache()
+        granite = phase_granite_prefill(torch, K)
+        # B10's launches: the serve paths' runs and granite-8b's prefill;
+        # B11's: the xLSTM and hybrid train and serve paths' runs
         rows["flash_attention"] = ({"flash_attention": sum(
-            c.get("flash_attention", 0) for c in (stablelm_serve,
-                                                  hybrid_serve))}, b10)
+            c.get("flash_attention", 0) for c in (
+                stablelm_serve, hybrid_serve, gqa_serve, moe_serve,
+                granite))}, b10)
         rows["ssd_intra_chunk"] = ({"ssd_intra_chunk": sum(
             c.get("ssd_intra_chunk", 0) for c in (
                 train_counts, serve_counts, hybrid_train, hybrid_serve))},

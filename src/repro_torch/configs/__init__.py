@@ -7,7 +7,11 @@ import importlib
 from .base import ArchConfig, reduced_variant, tiny_variant
 
 _ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m",
-          "zamba2-7b": "zamba2_7b"}
+          "zamba2-7b": "zamba2_7b", "granite-8b": "granite_8b",
+          "mistral-nemo-12b": "mistral_nemo_12b",
+          "chatglm3-6b": "chatglm3_6b",
+          "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+          "olmoe-1b-7b": "olmoe_1b_7b"}
 
 ARCH_NAMES = tuple(_ARCHS)
 

@@ -1,5 +1,5 @@
 """Architecture configuration (counterpart of ``repro.configs.base``; the
-fields the dense, xLSTM and hybrid families use).  Field names and the
+fields the dense, MoE, xLSTM and hybrid families use).  Field names and the
 ``-smoke``/``-tiny`` reductions equal the reference's, so a config
 resolves to the same shapes in both packages."""
 from __future__ import annotations
@@ -13,7 +13,7 @@ __all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "xlstm", "hybrid"]
+    family: Literal["dense", "moe", "xlstm", "hybrid"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -27,9 +27,20 @@ class ArchConfig:
     # how a windowed model caches for decode: "window" keeps a ring of
     # attn_window positions, "full_kv" every position
     long_context_mode: Literal["window", "full_kv"] = "window"
+    # training attention: "naive" materializes the scores, "chunked" is the
+    # blocked online-softmax form over attn_chunk-wide query and key blocks
+    attn_impl: Literal["naive", "chunked"] = "naive"
+    attn_chunk: int = 4096
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     mlp: Literal["swiglu", "gelu"] = "swiglu"
     tie_embeddings: bool = True
+    # MoE: num_experts_per_tok of num_experts routed a token, each expert
+    # holding capacity_factor x its even share of a sequence's tokens;
+    # "deferred" (a combine on the tensor-parallel partials) needs a mesh
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    moe_impl: Literal["allreduce", "deferred"] = "allreduce"
     # modality embeddings ahead of the prompt; 0 for the dense family
     num_prefix_embeds: int = 0
     # Mamba2 (hybrid): state N, conv taps, inner width factor, head dim
@@ -57,8 +68,9 @@ class ArchConfig:
 
 def reduced_variant(cfg: ArchConfig) -> ArchConfig:
     """``-smoke``: 2 layers, d_model <= 256, head_dim 32, vocab <= 1024,
-    ssm_state <= 16 with ssm_head_dim 32, a shared attention block every 2
-    layers, float32 (the reference's CPU smoke reduction)."""
+    <= 4 experts with top <= 2, ssm_state <= 16 with ssm_head_dim 32, a
+    shared attention block every 2 layers, float32 (the reference's CPU
+    smoke reduction)."""
     d_model = min(cfg.d_model, 256)
     head_dim = 32
     heads = max(2, min(cfg.num_heads, d_model // head_dim))
@@ -69,15 +81,17 @@ def reduced_variant(cfg: ArchConfig) -> ArchConfig:
         cfg, name=cfg.name + "-smoke", num_layers=2, d_model=d_model,
         num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
         d_ff=min(cfg.d_ff, 512), vocab_size=min(cfg.vocab_size, 1024),
+        num_experts=min(cfg.num_experts, 4),
+        num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
         ssm_state=min(cfg.ssm_state, 16),
         ssm_head_dim=32 if cfg.ssm_state else cfg.ssm_head_dim,
         hybrid_attn_every=2, dtype="float32")
 
 
 def tiny_variant(cfg: ArchConfig) -> ArchConfig:
-    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64,
-    ssm_state <= 8 with ssm_head_dim 16, a shared attention block after
-    every layer."""
+    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64, 2 experts
+    with top 1 (a MoE config), ssm_state <= 8 with ssm_head_dim 16, a
+    shared attention block after every layer."""
     base = reduced_variant(cfg)
     d_model, head_dim = 32, 16
     heads = max(2, d_model // head_dim)
@@ -88,6 +102,8 @@ def tiny_variant(cfg: ArchConfig) -> ArchConfig:
         base, name=cfg.name + "-tiny", num_layers=1, d_model=d_model,
         num_heads=heads, num_kv_heads=kv, head_dim=head_dim,
         d_ff=min(base.d_ff, 64), vocab_size=min(base.vocab_size, 64),
+        num_experts=min(base.num_experts, 2),
+        num_experts_per_tok=1 if base.num_experts_per_tok else 0,
         ssm_state=min(base.ssm_state, 8),
         ssm_head_dim=16 if base.ssm_state else base.ssm_head_dim,
         hybrid_attn_every=1)

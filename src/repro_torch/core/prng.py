@@ -289,10 +289,12 @@ def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
     """``jax.random.gumbel(key, (n,), float32)`` (mode "low") for every key
     of a (..., 2) table: (..., n) float32.  The uniform on [tiny, 1) is the
     mantissa draw plus tiny, as jax forms it (never below tiny, so jax's
-    max with tiny changes nothing); the two logs may differ from XLA's by
-    an ulp."""
+    max with tiny changes nothing).  The two logs are taken in float64 and
+    rounded once to float32, within half an ulp of the exact
+    -log(-log(u)): no float32 vector log of the library (whose accuracy
+    may vary with the build and the thread) enters the result."""
     u = bits_to_uniform(_bits_batched(keys.to(torch.int64), n)) + _TINY
-    return -torch.log(-torch.log(u))
+    return (-torch.log(-torch.log(u.double()))).float()
 
 
 def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:

@@ -223,17 +223,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def run_serving(args, init_params=None) -> dict:
+def run_serving(args, init_params=None, cfg=None) -> dict:
     """Serve ``args``' synthetic requests; returns ``{"result": the JSON
     summary, "bundle", "params"}`` and, in continuous/static mode, the
     ``"engine"``, its ``"requests"`` and ``"completions"``.
     ``init_params`` (a parameter tree) replaces the random init from a
-    ``torch.Generator`` seeded with ``--seed``."""
+    ``torch.Generator`` seeded with ``--seed``; ``cfg`` overrides
+    ``--arch`` (e.g. a depth-cut config object), as in `run_training`."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is available "
                            "(pass --device cpu to serve on the CPU)")
-    cfg = get_config(args.arch)
+    cfg = cfg if cfg is not None else get_config(args.arch)
     if args.mode == "auto":
         args.mode = "continuous"
     if args.requests is None:

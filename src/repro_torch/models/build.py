@@ -1,5 +1,5 @@
 """Family dispatch: ArchConfig -> ModelBundle (counterpart of
-``repro.models.build``; the dense, xLSTM and hybrid families)."""
+``repro.models.build``; the dense, MoE, xLSTM and hybrid families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,9 +14,10 @@ from .common import init_params
 __all__ = ["ModelBundle", "build_model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = {"dense": transformer, "xlstm": xlstm, "hybrid": hybrid}
+_FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm,
+             "hybrid": hybrid}
 # the reference's families that wait for later slices
-_NOT_PORTED = ("moe", "ssm_mamba2", "encdec", "vlm", "audio")
+_NOT_PORTED = ("ssm_mamba2", "encdec", "vlm", "audio")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,7 @@
 """Shared model machinery (counterpart of ``repro.models.common``):
-parameter definitions, norms, rotary embeddings, naive causal GQA
-attention, ring-buffer decode attention, SwiGLU and the padded-vocab
-cross-entropy.
+parameter definitions, norms, rotary embeddings, naive and blocked
+(online-softmax) causal GQA attention, ring-buffer decode attention,
+SwiGLU and the padded-vocab cross-entropy.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, hd), weights as the reference's einsum operands.  Every function
@@ -24,9 +24,9 @@ from ..kernels.build import to_device
 
 __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
            "rope_tables", "rope_tables_at", "apply_rope", "attention",
-           "decode_attention", "ring_buffer_write", "decode_cache_valid",
-           "decode_positions", "swiglu", "cross_entropy", "pad_vocab",
-           "einsum_promoted", "layer_views"]
+           "chunked_attention", "decode_attention", "ring_buffer_write",
+           "decode_cache_valid", "decode_positions", "swiglu",
+           "cross_entropy", "pad_vocab", "einsum_promoted", "layer_views"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,10 +72,13 @@ def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def layer_views(stacked: dict) -> list[dict]:
-    """Per-layer views of a dict of (L, ...) stacked leaves, one unbind per
-    leaf (the backward of ``leaf[i]`` would write a zero tensor of the
-    whole (L, ...) leaf per layer; unbind's stacks the L slices once)."""
-    sliced = {name: leaf.unbind(0) for name, leaf in stacked.items()}
+    """Per-layer views of a (nested) dict of (L, ...) stacked leaves, one
+    unbind per leaf (the backward of ``leaf[i]`` would write a zero tensor
+    of the whole (L, ...) leaf per layer; unbind's stacks the L slices
+    once).  A sub-dict (the MoE family's ``moe``) gives per-layer
+    sub-dicts."""
+    sliced = {name: (layer_views(leaf) if isinstance(leaf, dict)
+                     else leaf.unbind(0)) for name, leaf in stacked.items()}
     L = len(next(iter(sliced.values())))
     return [{name: s[i] for name, s in sliced.items()} for i in range(L)]
 
@@ -169,6 +172,71 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     out = einsum_promoted("bkgqs,bskd->bqkgd", probs, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: int | None = None,
+                      chunk: int = 4096) -> torch.Tensor:
+    """`attention`'s grouped-query result without the (Sq, Sk) scores: query
+    blocks of ``chunk`` rows stream over key blocks with an online-softmax
+    accumulator (the reference's ``chunked_attention``), in plain torch.
+    Key blocks wholly above the causal diagonal or wholly behind the
+    window are skipped; the query and key tails are padded to a whole
+    block (padded keys masked); a row with no key yet keeps m = -inf and
+    its rescale factor finite.  Training runs it when ``attn_impl ==
+    "chunked"``; a prefill on a CUDA tensor runs B10 (the blocked kernel)
+    whatever ``attn_impl`` says.  q: (B, Sq, H, hd); k, v: (B, Sk, KV,
+    hd)."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    c = min(chunk, Sq, Sk)
+    pad_q, pad_k = (-Sq) % c, (-Sk) % c
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    if pad_k:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_k))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
+    nq, nk = (Sq + pad_q) // c, (Sk + pad_k) // c
+    qg = q.reshape(B, nq, c, KV, G, hd)
+    ar = torch.arange(c, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q_blk, q0 = qg[:, qi], qi * c
+        acc = torch.zeros((B, KV, G, c, hd), **f32)
+        m = torch.full((B, KV, G, c, 1), -math.inf, **f32)
+        l = torch.zeros((B, KV, G, c, 1), **f32)
+        for ki in range(nk):
+            k0 = ki * c
+            if causal and k0 > q0 + c - 1:
+                continue  # above the diagonal
+            if window is not None and k0 + c - 1 <= q0 - window:
+                continue  # wholly behind the window
+            k_blk, v_blk = k[:, k0:k0 + c], v[:, k0:k0 + c]
+            s = einsum_promoted("bqkgd,bskd->bkgqs", q_blk,
+                                k_blk).float() * scale
+            qpos, kpos = q0 + ar[:, None], k0 + ar[None, :]
+            mask = kpos < Sk  # padded keys are invalid
+            if causal:
+                mask = mask & (kpos <= qpos)
+            if window is not None:
+                mask = mask & (kpos > qpos - window)
+            s = torch.where(mask, s, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            finite = torch.isfinite(m_new)
+            m_safe = torch.where(finite, m_new, 0.0)
+            alpha = torch.exp(torch.where(torch.isfinite(m), m - m_safe,
+                                          -math.inf))
+            p = torch.exp(s - m_safe)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = alpha * acc + einsum_promoted(
+                "bkgqs,bskd->bkgqd", p.to(v.dtype), v_blk).float()
+            m = m_new
+        out = (acc / torch.clamp_min(l, 1e-30)).to(q.dtype)
+        outs.append(out.permute(0, 3, 1, 2, 4).reshape(B, c, H, hd))
+    return torch.cat(outs, dim=1)[:, :Sq]
 
 
 def decode_attention(q: torch.Tensor, k_new: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (counterpart of
+"""Decoder-only transformer LM, dense and MoE families (counterpart of
 ``repro.models.transformer``): ``param_defs``, ``forward_train`` and
 ``loss_fn`` for training; ``forward_prefill``, ``forward_decode``,
 ``cache_len_for`` and ``cache_spec`` for serving.
@@ -12,7 +12,10 @@ values).
 
 Prefill attention on a CUDA tensor runs the hand-written flash-attention
 kernel (B10, `kernels.flash_attention`); on the CPU, and in training
-(B10 is forward-only), the naive `attention`.  Decode writes each layer's
+(B10 is forward-only), the plain `attention`, or `chunked_attention` when
+``attn_impl == "chunked"``.  With ``num_experts`` set the FFN is
+`models.moe` (capacity routing in training and prefill, the dense
+all-expert mixture in decode).  Decode writes each layer's
 new key and value into the caller's cache IN PLACE (the reference returns
 a new cache) and returns that same cache.
 """
@@ -22,11 +25,12 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
-from .common import (ArrayDef, apply_rope, attention, cross_entropy,
-                     decode_attention, decode_cache_valid, decode_positions,
-                     einsum_promoted, layer_norm, layer_views, pad_vocab,
-                     ring_buffer_write, rms_norm, rope_tables, rope_tables_at,
-                     swiglu)
+from .common import (ArrayDef, apply_rope, attention, chunked_attention,
+                     cross_entropy, decode_attention, decode_cache_valid,
+                     decode_positions, einsum_promoted, layer_norm,
+                     layer_views, pad_vocab, ring_buffer_write, rms_norm,
+                     rope_tables, rope_tables_at, swiglu)
+from .moe import moe_defs, moe_ffn_decode, moe_ffn_train
 
 __all__ = ["param_defs", "attn_defs", "mlp_defs", "forward_train",
            "loss_fn", "embed_tokens", "unembed", "cache_len_for",
@@ -72,7 +76,10 @@ def param_defs(cfg: ArchConfig) -> dict:
     layers.update(_norm_defs(L, d, cfg, "attn_norm"))
     layers.update(_norm_defs(L, d, cfg, "mlp_norm"))
     layers.update(attn_defs(L, cfg))
-    layers.update(mlp_defs(L, cfg))
+    if cfg.num_experts:
+        layers["moe"] = moe_defs(L, cfg)
+    else:
+        layers.update(mlp_defs(L, cfg))
     defs = {
         "embed": ArrayDef((V, d), ("vocab", "embed"), scale=0.02),
         "final_norm_gamma": ArrayDef((d,), ("embed",), init="ones"),
@@ -98,14 +105,26 @@ def _qkv(p: dict, h: torch.Tensor, rope):
     return apply_rope(q, *rope), apply_rope(k, *rope), v
 
 
-def _attn(q, k, v, window: int | None) -> torch.Tensor:
-    """Prefill attention: B10 on a CUDA tensor, `attention` on the CPU.
-    B10 takes equal head counts, as the reference's kernel ("GQA repeat
-    happens outside"): with KV < H heads, k and v are repeated along the
-    head axis so that query head h reads KV head h // (H / KV), the
-    grouping of `attention` and `decode_attention`."""
+def _plain_attn(q, k, v, window: int | None,
+                cfg: ArchConfig | None = None) -> torch.Tensor:
+    """The reference's ``_attn``: `chunked_attention` when ``cfg.attn_impl
+    == "chunked"``, else `attention` (also with no ``cfg``)."""
+    if cfg is not None and cfg.attn_impl == "chunked":
+        return chunked_attention(q, k, v, causal=True, window=window,
+                                 chunk=cfg.attn_chunk)
+    return attention(q, k, v, causal=True, window=window)
+
+
+def _attn(q, k, v, window: int | None,
+          cfg: ArchConfig | None = None) -> torch.Tensor:
+    """Prefill attention: B10 on a CUDA tensor (the blocked kernel, whatever
+    ``attn_impl`` says), `_plain_attn` on the CPU.  B10 takes equal head
+    counts, as the reference's kernel ("GQA repeat happens outside"): with
+    KV < H heads, k and v are repeated along the head axis so that query
+    head h reads KV head h // (H / KV), the grouping of `attention` and
+    `decode_attention`."""
     if q.device.type != "cuda":
-        return attention(q, k, v, causal=True, window=window)
+        return _plain_attn(q, k, v, window, cfg)
     group = q.shape[2] // k.shape[2]
     if group > 1:
         k = k.repeat_interleave(group, dim=2)
@@ -114,9 +133,18 @@ def _attn(q, k, v, window: int | None) -> torch.Tensor:
                            causal=True, window=window)
 
 
-def _mlp_block(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig, decode: bool):
+    if cfg.num_experts:
+        if decode:
+            return moe_ffn_decode(p["moe"], h, cfg)
+        return moe_ffn_train(p["moe"], h, cfg)
+    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _mlp_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
+               decode: bool = False) -> torch.Tensor:
     h = _norm(x, p["mlp_norm_gamma"], p.get("mlp_norm_beta"), cfg)
-    return x + swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return x + _ffn(p, h, cfg, decode)
 
 
 def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
@@ -124,7 +152,7 @@ def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
     ``rope`` the (cos, sin) tables of the sequence."""
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
-    o = attention(q, k, v, causal=True, window=cfg.attn_window)
+    o = _plain_attn(q, k, v, cfg.attn_window, cfg)
     x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
     return _mlp_block(p, x, cfg)
 
@@ -137,7 +165,7 @@ def _layer_prefill(p: dict, x: torch.Tensor, rope, cfg: ArchConfig,
     S = x.shape[1]
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
-    o = _attn(q, k, v, cfg.attn_window)
+    o = _attn(q, k, v, cfg.attn_window, cfg)
     x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
     x = _mlp_block(p, x, cfg)
     if cache_len == S:
@@ -154,7 +182,7 @@ def _layer_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
     q, k, v = _qkv(p, h, rope)
     o = decode_attention(q, k, v, k_cache, v_cache, cache_valid)
     x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
-    x = _mlp_block(p, x, cfg)
+    x = _mlp_block(p, x, cfg, decode=True)
     ring_buffer_write(k_cache, k, pos)
     ring_buffer_write(v_cache, v, pos)
     return x
