@@ -6,19 +6,21 @@ width and depth, trains and serves xlstm-125m at full width and depth,
 trains zamba2-7b at full width (depth 12) and serves it at full width and
 depth, trains chatglm3-6b at full width (depth 4) and granite-moe-1b-a400m
 at full width and depth, serves mistral-nemo-12b and olmoe-1b-7b at full
-width and depth and runs a granite-8b prefill, all through the port's
-entry points, and reports what ran.
+width and depth, runs a granite-8b prefill, serves the enc-dec
+seamless-m4t-medium at full width and depth (oneshot) and the VLM
+llava-next-34b at full width (depth 24) with its image-token prefix, all
+through the port's entry points, and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
     python3 chip_smoke.py --profile  # also a torch.profiler breakdown of
                                      # main-, dropout-, fault-, ring-,
-                                     # xLSTM and hybrid train-path steps,
-                                     # of the scanned main, fault and ring
-                                     # paths' replayed chunks, of a Fig. 2
-                                     # trimmed-mean replay and of the
-                                     # three serve paths' prefills and
-                                     # decode chunks
+                                     # xLSTM, hybrid and MoE train-path
+                                     # steps, of the scanned main, fault
+                                     # and ring paths' replayed chunks, of
+                                     # a Fig. 2 trimmed-mean replay and of
+                                     # the seven serve paths' prefills
+                                     # and decode chunks
                                      # (chiprun_out/profile_<path>.json)
 
 Phases, one JSON line each (any failure raises and exits non-zero):
@@ -138,8 +140,11 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               only), and at the hybrid serve path's (1, 2000, 32, 112)
               causal in f32 and bf16, and at the GQA and MoE serve
               paths' (1, 2000, 32, 128), (1, 2000, 16, 128) and (1, 2000,
-              16, 64) in bf16 and f32, each beside its plain version, SDPA
-              in the same dtype and its bound
+              16, 64) in bf16 and f32, and at the enc-dec serve path's (8,
+              2000, 16, 64) bf16 non-causal (its encoder) and causal (its
+              decoder) and the VLM serve path's (1, 2560, 56, 128) bf16
+              causal, each beside its plain version, SDPA in the same dtype
+              and its bound
   kernel_ssd  B11 ssd_intra_chunk against ref.ssd_intra_chunk_ref, f32 and
               bf16 (bf16 held against f32 on the same inputs), over the
               reference sweep, xlstm-125m's folded shapes (P in {384, 1},
@@ -192,10 +197,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               4 agents on a ring, bf16, PDSGD, per-agent batch 2, seq 128
               (cut for the sLSTM's host loop), 1 warm-up + 3 timed steps:
               B3 + B2 every step, B11 48 times a step
-  xlstm_train_scanned  xlstm-125m at full width, 6 blocks (12 before PR
-              24), 4 agents, seq 128, with --unroll-k 2: a warm-up chunk
-              and two replays of one CUDA graph holding the sLSTM token
-              loop, beside 6 eager steps; bitwise; B11 24 a step counted
+  xlstm_train_scanned  xlstm-125m at full width, 4 blocks (cut from 12
+              for the time limit), 4 agents, seq 128, with --unroll-k 2: a
+              warm-up chunk and two replays of one CUDA graph holding the
+              sLSTM token loop, beside 6 eager steps; bitwise; B11 counted
               and replayed; the capture's seconds and the graph's nodes
   xlstm_serve_parity  xlstm-125m-smoke f32, 4 requests on 2 slots: card vs
               CPU
@@ -246,18 +251,46 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               beside 6 eager steps; bitwise
   gqa_serve_path  launch/serve with --arch mistral-nemo-12b --slots 8
               --requests 8 --prompt-len 2000 --gen-tokens 32
-              --decode-chunk 8 --parity-check: full width and depth (40
-              layers, KV 8, H hd 4096 against d_model 5120), bf16, B10 40
-              times a prefill; the same gate as serve_path
-  moe_serve_path  the same with --arch olmoe-1b-7b (16 layers, 64 experts
-              top 8; prefill routes with capacity, decode mixes all
-              experts), B10 16 times a prefill; the same gate
+              --decode-chunk 8 --parity-check: full width (KV 8, H hd
+              4096 against d_model 5120), depth 20 (cut from 40 for the
+              time limit), bf16, B10 20 times a prefill; the same gate as
+              serve_path
+  moe_serve_path  the same with --arch olmoe-1b-7b (64 experts top 8;
+              prefill routes with capacity, decode mixes all experts),
+              depth 8 (cut from 16), B10 8 times a prefill; the same gate
   granite_prefill  granite-8b at full width and depth: one 2000-token
               prefill, B10 held in place at each of its 36 layers against
               the plain grouped attention on the same q, k, v; the
               logits beside prefills with plain and with f32 attention
+  encdec_serve_parity  seamless-m4t-medium-smoke f32, oneshot (2 rows of
+              37 frames and tokens, 12 tokens) through run_serving on the
+              card (B10 non-causal in the encoder, causal in the decoder)
+              and on the CPU, same weights: rows equal, both --parity-check
+              ok, the frames within 3 ulp; then one prefill of that
+              batch (logits; k, v, xk, xv) and 4 decode steps (logits; k,
+              v) held card against CPU within 1e-3 of each tensor's
+              largest entry + rtol 1e-4
+  encdec_serve_path  launch/serve with --arch seamless-m4t-medium --mode
+              oneshot --slots 8 --prompt-len 2000 --gen-tokens 32
+              --decode-chunk 8 --parity-check: full width and depth (12 +
+              12 layers, d_model 1024, vocab 256206), bf16, 2000 frames a
+              row; B10 24 times a prefill (12 non-causal, 12 causal; the
+              encoder alone on one row: 12); cross-attention plain; gate:
+              each row equal to the same-width oracle's (the row repeated
+              over all 8, prefilled and decoded at that width); the M = 1
+              --parity-check printed
+  vlm_serve_parity  llava-next-34b-smoke f32 (KV = H) and its variant with
+              2 KV heads of 8, 4 requests with 16 prefix embeds on 2 slots:
+              card vs CPU (as serve_parity; the prefixes drawn within 3
+              ulp of each other)
+  vlm_serve_path  launch/serve with --arch llava-next-34b --slots 8
+              --requests 8 --prompt-len 2560 --gen-tokens 32
+              --decode-chunk 8 --parity-check: full width (d_model 7168,
+              56 x 128 on 8 KV heads), depth 24 (cut from 60), bf16, 2304
+              image embeddings and 256 text tokens a request; B10 24 times
+              a prefill at (1, 2560, 56, 128); the same gate as serve_path
   kernels     every kernel with its launches in its own path's run (B3
-              and B2: main_path; B10: the five serve paths and
+              and B2: main_path; B10: the seven serve paths and
               granite_prefill; B11: the xLSTM and hybrid train and serve
               paths), error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
@@ -890,6 +923,13 @@ HYBRID_ATTN_SHAPE = (1, 2000, 32, 112)
 # granite-moe-1b-a400m
 GQA_SERVE_ATTN_SHAPES = ((1, 2000, 32, 128), (1, 2000, 16, 128),
                          (1, 2000, 16, 64))
+# the enc-dec serve path's prefill (seamless-m4t-medium, 8 rows of 2000
+# frames and 2000 tokens, 16 heads of 64): the encoder's bidirectional
+# self-attention (causal False) and the decoder's causal one; the VLM
+# serve path's (llava-next-34b, 2560 positions, 56 query heads of 128 after
+# _attn's 7x repeat of its 8 KV heads), causal
+ENCDEC_ATTN_SHAPE = (8, 2000, 16, 64)
+VLM_ATTN_SHAPE = (1, 2560, 56, 128)
 # grouped-query prefill through models.transformer._attn: granite-8b's
 # heads (H = 32 query, KV = 8, hd = 128)
 GQA_HEADS = (32, 8, 128)
@@ -1026,6 +1066,11 @@ def phase_kernel_attention(torch, K):
                                                          dtype)
                  for shape in GQA_SERVE_ATTN_SHAPES
                  for dtype in (torch.bfloat16, torch.float32)}
+    # the enc-dec and VLM serve paths' shapes, bf16 as they run them
+    encdec = {("causal" if causal else "non-causal"): _b10_timed(
+        torch, K, g, ENCDEC_ATTN_SHAPE, torch.bfloat16, causal)
+        for causal in (False, True)}
+    vlm = _b10_timed(torch, K, g, VLM_ATTN_SHAPE, torch.bfloat16)
     emit({"phase": "kernel_attention", "cases": n_cases,
           "seqs": ATTN_SEQS, "head_dims": ATTN_HEAD_DIMS,
           "modes": [list(m) for m in ATTN_MODES],
@@ -1036,42 +1081,47 @@ def phase_kernel_attention(torch, K):
           "serve_shape_bf16_max_abs_err_vs_f32": vs_f32,
           "serve_shape_flops": flops, "serve_shape_bytes": nbytes,
           "B10": row, "hybrid_shape": list(HYBRID_ATTN_SHAPE),
-          "B10_hybrid_shape": hybrid, "B10_gqa_serve_shapes": gqa_serve})
+          "B10_hybrid_shape": hybrid, "B10_gqa_serve_shapes": gqa_serve,
+          "encdec_shape": list(ENCDEC_ATTN_SHAPE), "B10_encdec_shape": encdec,
+          "vlm_shape": list(VLM_ATTN_SHAPE), "B10_vlm_shape": vlm})
     return row
 
 
-def _b10_timed(torch, K, g, shape, dtype) -> dict:
-    """B10 causal at ``shape`` (B, S, H, hd) in ``dtype`` on random inputs:
-    held against its plain version (`attn_tolerance`), then timed beside
-    the plain version and SDPA in the same dtype, with its bound (the
-    tensor-core rate in bf16, the CUDA cores' in f32)."""
+def _b10_timed(torch, K, g, shape, dtype, causal: bool = True) -> dict:
+    """B10 (``causal`` or bidirectional) at ``shape`` (B, S, H, hd) in
+    ``dtype`` on random inputs: held against its plain version
+    (`attn_tolerance`), then timed beside the plain version and SDPA in
+    the same dtype, with its bound (the tensor-core rate in bf16, the CUDA
+    cores' in f32)."""
     B, S, H, hd = shape
     dev = torch.device("cuda")
     q, k, v = (torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype)
                for _ in range(3))
-    got = K.flash_attention(q, k, v, causal=True)
-    want = K.ref.flash_attention_ref(q, k, v, causal=True)
+    got = K.flash_attention(q, k, v, causal=causal)
+    want = K.ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     tol = attn_tolerance(torch, dtype, S)
     diff = (got.float() - want.float()).abs()
     check(bool(torch.isfinite(got).all()) and float(
         (diff / (tol + tol * want.float().abs())).max()) <= 1.0,
-        f"B10 {shape} {str(dtype)[6:]}: max abs {float(diff.max())}")
+        f"B10 {shape} causal={causal} {str(dtype)[6:]}: max abs "
+        f"{float(diff.max())}")
+    del want
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     elem = 4 if dtype == torch.float32 else 2
-    nbytes, flops = attn_bound(B, S, H, hd, elem, True, None)
+    nbytes, flops = attn_bound(B, S, H, hd, elem, causal, None)
     by = nbytes / HBM_BYTES_PER_S * 1e3
     op = flops / (F32_FLOPS if dtype == torch.float32
                   else BF16_TC_FLOPS) * 1e3
     h = {"ms": time_ms(torch, lambda: K.flash_attention(q, k, v,
-                                                        causal=True),
+                                                        causal=causal),
                        iters=20),
          "max_abs_err": float(diff.max()),
          "plain_ms": time_ms(torch, lambda: K.ref.flash_attention_ref(
-             q, k, v, causal=True), iters=5),
+             q, k, v, causal=causal), iters=5),
          "library_ms": time_ms(torch, lambda: sdpa(qh, kh, vh,
-                                                   is_causal=True),
+                                                   is_causal=causal),
                                iters=20)}
     h["bound_ms"], h["bound_by"] = (by, "bytes") if by >= op else (
         op, "operations")
@@ -2524,9 +2574,10 @@ def phase_rollback_path_scanned(torch, K, train, cfg):
 
 XLSTM_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
 XLSTM_SCANNED_UNROLL = 2
-# the scanned xLSTM cell at depth 12 -> 6 blocks (3 mLSTM, 3 sLSTM) for the
-# script's time limit: its capture took 47.5 s of 106.5 at 12
-XLSTM_SCANNED_LAYERS = 6
+# the scanned xLSTM cell at depth 12 -> 6 blocks, then 4 (2 mLSTM, 2
+# sLSTM) for the script's time limit: on an NVIDIA H100 80GB HBM3 at
+# 700.00 W its capture took 47.5 s of 106.5 at 12, the phase 49.8 s at 6
+XLSTM_SCANNED_LAYERS = 4
 
 
 def _family_train_scanned(torch, K, train, cfg, phase: str, b11: int,
@@ -3500,25 +3551,27 @@ SERVE_RANGES = ("serve_prefill", "serve_chunk")
 
 
 def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24,
-                        path_args=None, path: str = "serve_path"):
+                        path_args=None, path: str = "serve_path", cfg=None):
     """Device time by kernel in a serve path's steady prefills and decode
     chunks (``path_args``, default SERVE_PATH_ARGS, with ``requests``
-    requests of ``gen`` tokens, no parity check), from a torch.profiler
-    trace of run_serving: the engine names each prefill ``serve_prefill``
-    and each chunk ``serve_chunk``; the first of each (the warm-up
-    request's) is left out.  Both end in a device sync, so the kernels that
-    start inside a range are its own.  Writes
-    chiprun_out/profile_<path>.json."""
+    requests, where the path takes a count, of ``gen`` tokens, no parity
+    check; ``cfg``: a depth-cut config in place of ``--arch``'s), from a
+    torch.profiler trace of run_serving: the engine (and the oneshot
+    path) names each prefill ``serve_prefill`` and each chunk
+    ``serve_chunk``; the first of each (the warm-up's) is left out.  Both
+    end in a device sync, so the kernels that start inside a range are its
+    own.  Writes chiprun_out/profile_<path>.json."""
     from torch.profiler import ProfilerActivity, profile
     argv = [a for a in (path_args or SERVE_PATH_ARGS)
             if a != "--parity-check"]
-    argv[argv.index("--requests") + 1] = str(requests)
+    if "--requests" in argv:
+        argv[argv.index("--requests") + 1] = str(requests)
     argv[argv.index("--gen-tokens") + 1] = str(gen)
     args = serve.build_parser().parse_args(argv)
     gc.collect()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve.run_serving(args)
+        serve.run_serving(args, cfg=cfg)
     torch.cuda.synchronize()
     events = prof.events()
     kernels = sorted((e for e in events
@@ -3582,30 +3635,34 @@ XLSTM_SERVE_ARGS = ("--arch", "xlstm-125m", "--slots", "8", "--requests",
 XLSTM_TRAIN_SEQ = 128
 
 
-def _serve_parity(torch, serve, arch: str, kernels: tuple):
-    """``arch`` in f32, 4 requests on 2 slots, greedy, through run_serving
-    on the card (kernels) and on the CPU (plain versions), same weights:
-    equal token streams, both --parity-check ok, and every prompt's
-    prefill logits within atol = rtol = 1e-4.  Returns (config, card
-    streams, max logit error, the card run's launches of each of
-    ``kernels``)."""
+def _serve_parity(torch, serve, arch: str, kernels: tuple, cfg=None):
+    """``arch`` (or ``cfg``, a variant of it) in f32, 4 requests on 2 slots,
+    greedy, through run_serving on the card (kernels) and on the CPU
+    (plain versions), same weights: equal token streams, both
+    --parity-check ok, a VLM's prefix embeds drawn on each device within 3
+    ulp of each other (f32 draws differ by up to 2 ulp in about 2e-5 of
+    them), and every request's prefill logits on the CPU's request within
+    atol = rtol = 1e-4.  Returns (config, card streams, max logit error, the card
+    run's launches of each of ``kernels``)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    cfg = get_config(arch)
+    from repro_torch.serve import request_batch
+    cfg = cfg if cfg is not None else get_config(arch)
     gen = torch.Generator()
     gen.manual_seed(7)
-    p0 = build_model(cfg).init(gen, "cpu")
+    bundle = build_model(cfg)
+    p0 = bundle.init(gen, "cpu")
     flags = ["--arch", cfg.name, "--slots", "2", "--requests", "4",
              "--prompt-len", "37", "--gen-tokens", "12", "--decode-chunk",
              "4", "--parity-check"]
     reset_launch_counts()
     gpu = serve.run_serving(serve.build_parser().parse_args(
-        flags + ["--device", "cuda"]), init_params=p0)
+        flags + ["--device", "cuda"]), init_params=p0, cfg=cfg)
     torch.cuda.synchronize()
     launches = {k: launch_counts[k] for k in kernels}
     cpu = serve.run_serving(serve.build_parser().parse_args(
-        flags + ["--device", "cpu"]), init_params=p0)
+        flags + ["--device", "cpu"]), init_params=p0, cfg=cfg)
     streams = [{c.req_id: c.tokens for c in run["completions"]}
                for run in (gpu, cpu)]
     check(streams[0] == streams[1], f"{arch} serve parity streams {streams}")
@@ -3613,10 +3670,17 @@ def _serve_parity(torch, serve, arch: str, kernels: tuple):
           f"{arch} serve parity --parity-check")
     max_err = 0.0
     with torch.no_grad():
-        for r in gpu["requests"]:
-            tok = torch.as_tensor(r.tokens)[None]
-            a = gpu["bundle"].prefill_fn(gpu["params"], {"tokens": tok.cuda()})
-            b = cpu["bundle"].prefill_fn(cpu["params"], {"tokens": tok})
+        for r, rc in zip(gpu["requests"], cpu["requests"]):
+            if r.prefix_embeds is not None:
+                ulps = max_ulps(torch, r.prefix_embeds.cpu(),
+                                rc.prefix_embeds)
+                check(ulps <= 3, f"{arch}: the prefix embeds drawn on the "
+                                 f"card are {ulps} ulp from the CPU's")
+            # both devices prefill the CPU's request
+            a = gpu["bundle"].prefill_fn(gpu["params"], request_batch(
+                rc, "cuda", bundle.dtype))
+            b = cpu["bundle"].prefill_fn(cpu["params"], request_batch(
+                rc, "cpu", bundle.dtype))
             a, b = a["logits"].cpu(), b["logits"]
             max_err = max(max_err, float((a - b).abs().max()))
             check(torch.allclose(a, b, atol=1e-4, rtol=1e-4),
@@ -3666,23 +3730,23 @@ def decode_logit_spread(torch, ctx, args, steps: int = 8):
     rows decoded one at a time (B = 1, as the sequential reference
     decodes), over ``steps`` greedy steps of the path's first ``slots``
     prompts, both fed the B = 1 stream's tokens."""
-    from repro_torch.serve import make_layout, write_slot
+    from repro_torch.launch.serve import _total_len
+    from repro_torch.serve import make_layout, request_batch, write_slot
     bundle, params = ctx["bundle"], ctx["params"]
     dev = params["embed"].device
     reqs = ctx["requests"][:args.slots]
     V = bundle.cfg.vocab_size
-    cap = args.prompt_len + args.gen_tokens
+    cap = _total_len(bundle.cfg, args)
     layout, one = make_layout(bundle, len(reqs), cap), make_layout(bundle, 1,
                                                                    cap)
-    slab, singles, toks = layout.init(dev), [], []
+    slab, singles, toks, starts = layout.init(dev), [], [], []
     for s, r in enumerate(reqs):
-        out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
-            r.tokens)[None].to(dev)})
+        out = bundle.prefill_fn(params, request_batch(r, dev, bundle.dtype))
         write_slot(layout, slab, out["cache"], s)
         singles.append(write_slot(one, one.init(dev), out["cache"], 0))
         toks.append(int(out["logits"][0, :V].float().argmax()))
-    pos = torch.tensor([len(r.tokens) for r in reqs], dtype=torch.int32,
-                       device=dev)
+        starts.append(int(out["pos"]))
+    pos = torch.tensor(starts, dtype=torch.int32, device=dev)
     per_step = []
     for t in range(steps):
         cur = torch.tensor(toks, dtype=torch.int32, device=dev)
@@ -3862,7 +3926,8 @@ def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
     decode stops at its first token off the engine's stream: nothing past
     it enters the record."""
     from repro_torch.core import prng
-    from repro_torch.serve import sequential_decode
+    from repro_torch.launch.serve import _total_len
+    from repro_torch.serve import request_batch, sequential_decode
     bundle, params = ctx["bundle"], ctx["params"]
     dev = params["embed"].device
     V = bundle.cfg.vocab_size
@@ -3880,11 +3945,10 @@ def margin_rule(torch, ctx, args, spread: float) -> list[dict]:
 
         try:
             seq = sequential_decode(
-                bundle, params, {"tokens": torch.as_tensor(r.tokens)[None]
-                                 .to(dev)}, r.req_id, r.max_new_tokens,
-                base_key=prng.key(args.seed),
-                max_seq_len=args.prompt_len + args.gen_tokens,
-                decode=decode, logits_out=rows)
+                bundle, params, request_batch(r, dev, bundle.dtype),
+                r.req_id, r.max_new_tokens, base_key=prng.key(args.seed),
+                max_seq_len=_total_len(bundle.cfg, args), decode=decode,
+                logits_out=rows)
         except _Diverged:
             seq = None
         if seq == eng:
@@ -3914,12 +3978,11 @@ def same_width_decode(torch, bundle, params, req, slots: int, cap: int,
     (row 0's tokens, whether every row gave the same logits at every
     step)."""
     from repro_torch.core import prng
-    from repro_torch.serve import (make_layout, sample_token, sampling_key,
-                                   write_slot)
+    from repro_torch.serve import (make_layout, request_batch, sample_token,
+                                   sampling_key, write_slot)
     dev = params["embed"].device
     V = bundle.cfg.vocab_size
-    out = bundle.prefill_fn(params, {"tokens": torch.as_tensor(
-        req.tokens)[None].to(dev)})
+    out = bundle.prefill_fn(params, request_batch(req, dev, bundle.dtype))
     layout = make_layout(bundle, slots, cap)
     slab = layout.init(dev)
     for s in range(slots):
@@ -3945,9 +4008,10 @@ def same_width_gate(torch, ctx, args) -> dict:
     """The engine's streams against `same_width_decode` for every request:
     a record of the requests whose streams differ (with the first
     diverging position); the caller fails the phase on any."""
+    from repro_torch.launch.serve import _total_len
     bundle, params = ctx["bundle"], ctx["params"]
     got = {c.req_id: c.tokens for c in ctx["completions"]}
-    cap = args.prompt_len + args.gen_tokens
+    cap = _total_len(bundle.cfg, args)
     mismatches, rows_equal = [], True
     t0 = time.perf_counter()
     for r in ctx["requests"]:
@@ -4384,7 +4448,13 @@ GQA_SCANNED_UNROLL = 2
 # ln V, consensus error 1e21)
 NEW_TRAIN_FLAGS = ("--grad-clip-kappa", "1.0")
 # (8 requests on 8 slots: cut from 9 for the script's time limit, so
-# these two cells refill no slot; the other serve cells do)
+# these two cells refill no slot; the other serve cells do; and, for the
+# same limit once the enc-dec and VLM cells came, mistral-nemo-12b at full
+# width with depth 40 -> 20 and olmoe-1b-7b at 16 -> 8: the two phases
+# took 65.8 and 32.7 s at full depth on an NVIDIA H100 80GB HBM3 at
+# 700.00 W)
+GQA_SERVE_LAYERS = 20
+MOE_SERVE_LAYERS = 8
 GQA_SERVE_ARGS = ("--arch", "mistral-nemo-12b", "--slots", "8",
                   "--requests", "8", "--prompt-len", "2000", "--gen-tokens",
                   "32", "--decode-chunk", "8", "--parity-check")
@@ -4510,34 +4580,52 @@ def phase_family_train_scanned(torch, K, train, cfg, phase: str):
                                  NEW_TRAIN_FLAGS)
 
 
+def gqa_serve_cfg():
+    """mistral-nemo-12b cut to GQA_SERVE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("mistral-nemo-12b"),
+                               num_layers=GQA_SERVE_LAYERS)
+
+
+def moe_serve_cfg():
+    """olmoe-1b-7b cut to MOE_SERVE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("olmoe-1b-7b"),
+                               num_layers=MOE_SERVE_LAYERS)
+
+
 def phase_gqa_serve_path(torch, K, serve):
-    """GQA_SERVE_ARGS: mistral-nemo-12b at full width and depth (40 layers,
-    32 query heads of 128 on 8 KV heads, d_model 5120), bf16, 8 requests
-    of 2000-token prompts on 8 slots, 32 tokens each in chunks of 8; B10
-    40 times a prefill (k and v repeated to 32 heads).  Gate: the engine's
-    streams equal the same-width oracle's (`_serve_path_phase`)."""
+    """GQA_SERVE_ARGS: mistral-nemo-12b at full width (32 query heads of
+    128 on 8 KV heads, d_model 5120), GQA_SERVE_LAYERS layers, bf16, 8
+    requests of 2000-token prompts on 8 slots, 32 tokens each in chunks
+    of 8; B10 once a layer a prefill (k and v repeated to 32 heads).
+    Gate: the engine's streams equal the same-width oracle's
+    (`_serve_path_phase`)."""
     return _serve_path_phase(
         torch, K, serve, "gqa_serve_path", GQA_SERVE_ARGS,
-        lambda cfg: (cfg.name == "mistral-nemo-12b" and cfg.num_layers == 40
+        lambda cfg: (cfg.name == "mistral-nemo-12b"
+                     and cfg.num_layers == GQA_SERVE_LAYERS
                      and cfg.d_model == 5120 and cfg.num_kv_heads == 8),
         lambda cfg, prefills, steps: {
             "flash_attention": cfg.num_layers * prefills},
-        margins=False)
+        margins=False, cfg=gqa_serve_cfg())
 
 
 def phase_moe_serve_path(torch, K, serve):
-    """MOE_SERVE_ARGS: olmoe-1b-7b at full width and depth (16 layers, 64
-    experts top 8), bf16, 8 requests of 2000-token prompts on 8 slots, 32
-    tokens each in chunks of 8; B10 16 times a prefill; prefill routes
-    with capacity, decode mixes all experts (the reference's).  Gate: the
-    engine's streams equal the same-width oracle's."""
+    """MOE_SERVE_ARGS: olmoe-1b-7b at full width (64 experts top 8),
+    MOE_SERVE_LAYERS layers, bf16, 8 requests of 2000-token prompts on 8
+    slots, 32 tokens each in chunks of 8; B10 once a layer a prefill;
+    prefill routes with capacity, decode mixes all experts (the
+    reference's).  Gate: the engine's streams equal the same-width
+    oracle's."""
     return _serve_path_phase(
         torch, K, serve, "moe_serve_path", MOE_SERVE_ARGS,
-        lambda cfg: (cfg.name == "olmoe-1b-7b" and cfg.num_layers == 16
+        lambda cfg: (cfg.name == "olmoe-1b-7b"
+                     and cfg.num_layers == MOE_SERVE_LAYERS
                      and cfg.d_model == 2048 and cfg.num_experts == 64),
         lambda cfg, prefills, steps: {
             "flash_attention": cfg.num_layers * prefills},
-        margins=False)
+        margins=False, cfg=moe_serve_cfg())
 
 
 def _rel_l2(torch, a, b) -> float:
@@ -4652,6 +4740,330 @@ def phase_granite_prefill(torch, K):
     torch.cuda.empty_cache()
     return rec["launches"]["b10"]
 
+# 0c-v: the enc-dec family and the VLM prefix, served.  seamless-m4t-medium
+# at full width and depth (12 + 12 layers, d_model 1024, vocab 256206
+# padded to 256512; 615,114,752 parameters, 1.23 GB of bf16 weights on
+# one NVIDIA H100 80GB HBM3, 700.00 W), oneshot (the only mode the
+# family has): 8 rows of 2000 frames and 2000-token prompts, 32 tokens
+ENCDEC_SERVE_ARGS = ("--arch", "seamless-m4t-medium", "--mode", "oneshot",
+                     "--slots", "8", "--prompt-len", "2000", "--gen-tokens",
+                     "32", "--decode-chunk", "8", "--parity-check")
+# llava-next-34b at full width (d_model 7168, 56 x 128 on 8 KV heads,
+# d_ff 20480, vocab 64000), depth 60 cut to 24 (13,847,321,600 parameters,
+# 27.7 GB bf16; on one NVIDIA H100 80GB HBM3 (700.00 W) full depth's
+# 67.9 GB of weights do not fit beside a 9.6 GB KV slab for the engine
+# and another for the oracle); the continuous engine, 8 requests of 2560
+# positions (2304 image embeddings, then 256 text tokens) on 8 slots, 32
+# tokens
+VLM_SERVE_LAYERS = 24
+VLM_SERVE_ARGS = ("--arch", "llava-next-34b", "--slots", "8", "--requests",
+                  "8", "--prompt-len", "2560", "--gen-tokens", "32",
+                  "--decode-chunk", "8", "--parity-check")
+# decode steps of the enc-dec parity phase, card against CPU
+ENCDEC_PARITY_STEPS = 4
+
+
+def _smoke_close(torch, got, want) -> float:
+    """``got`` (card) within atol 1e-3 of ``want``'s (CPU) largest entry
+    plus rtol 1e-4 (tests/test_torch_encdec.py's smoke tolerance);
+    returns max |got - want| / max |want|."""
+    got, want = got.float().cpu(), want.float()
+    scale = float(want.abs().max())
+    diff = (got - want).abs()
+    ok = bool((diff <= 1e-3 * scale + 1e-4 * want.abs()).all())
+    return float(diff.max()) / max(scale, 1e-30) if ok else math.inf
+
+
+def phase_encdec_serve_parity(torch, K, serve):
+    """seamless-m4t-medium-smoke in f32, oneshot through run_serving on the
+    card (B10 non-causal in the encoder, causal in the decoder) and on the
+    CPU (the plain attention), same weights: both --parity-check ok, the
+    rows equal, the prompts drawn bitwise alike; then the CLI's
+    batch prefilled on each (logits and the k, v, xk, xv caches) and
+    ENCDEC_PARITY_STEPS greedy decode steps from it at per-slot positions
+    (logits and the caches, written in place), each tensor within
+    `_smoke_close`.  The frames drawn on each device are within 3 ulp of
+    each other (`normal_draws_card_vs_cpu` counts the f32 draws that
+    differ); the tensors are compared on the CPU's batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("seamless-m4t-medium-smoke")
+    bundle = build_model(cfg)
+    gen = torch.Generator()
+    gen.manual_seed(7)
+    p0 = bundle.init(gen, "cpu")
+    flags = ["--arch", cfg.name, "--slots", "2", "--prompt-len", "37",
+             "--gen-tokens", "12", "--decode-chunk", "4", "--parity-check"]
+    K.reset_launch_counts()
+    gpu = serve.run_serving(serve.build_parser().parse_args(
+        flags + ["--device", "cuda"]), init_params=p0)
+    torch.cuda.synchronize()
+    b10 = K.launch_counts["flash_attention"]
+    cpu = serve.run_serving(serve.build_parser().parse_args(
+        flags + ["--device", "cpu"]), init_params=p0)
+    for run in (gpu, cpu):
+        check(run["result"]["mode"] == "oneshot"
+              and run["result"]["parity"] == "ok",
+              f"encdec_serve_parity: {run['result']}")
+    check(gpu["rows"] == cpu["rows"],
+          f"encdec_serve_parity rows {gpu['rows']} != {cpu['rows']}")
+    batch = cpu["batch"]
+    check(torch.equal(gpu["batch"]["tokens"].cpu(), batch["tokens"]),
+          "encdec_serve_parity: the card's prompts differ from the CPU's")
+    draws = normal_draws_card_vs_cpu(torch, serve)
+    frames_ulps = max_ulps(torch, gpu["batch"]["frames"].cpu(),
+                           batch["frames"])
+    check(frames_ulps <= 3, f"encdec_serve_parity: the card's frames are "
+                            f"{frames_ulps} ulp from the CPU's")
+    # prefills: the timed pair and one sequential re-decode a row
+    per_prefill = cfg.num_encoder_layers + cfg.num_layers
+    check(b10 == per_prefill * (2 + 2),
+          f"encdec_serve_parity B10 launches {b10}")
+    errs = {}
+
+    def hold(name, a, b):
+        errs[name] = max(errs.get(name, 0.0), _smoke_close(torch, a, b))
+        check(errs[name] <= 1.0, f"encdec_serve_parity {name}: "
+                                 f"beyond 1e-3 of its scale")
+
+    gp = gpu["params"]
+    with torch.no_grad():
+        a = bundle.prefill_fn(gp, {k: v.cuda() for k, v in batch.items()})
+        b = bundle.prefill_fn(p0, batch)
+        hold("prefill_logits", a["logits"], b["logits"])
+        for name in ("k", "v", "xk", "xv"):
+            hold(f"cache_{name}", a["cache"][name], b["cache"][name])
+        pos = torch.full((2,), b["pos"], dtype=torch.int32)
+        logits = b["logits"]
+        for _ in range(ENCDEC_PARITY_STEPS):
+            tok = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+            a = bundle.decode_fn(gp, tok.cuda(), a["cache"], pos.cuda())
+            b = bundle.decode_fn(p0, tok, b["cache"], pos)
+            hold("decode_logits", a["logits"], b["logits"])
+            for name in ("k", "v"):
+                hold(f"cache_{name}", a["cache"][name], b["cache"][name])
+            logits, pos = b["logits"], pos + 1
+    emit({"phase": "encdec_serve_parity", "arch": cfg.name,
+          "dtype": "float32", "rows": 2, "tokens_gpu": gpu["rows"],
+          "rows_equal": True, "frames_max_ulps_card_vs_cpu": frames_ulps,
+          "normal_draws_card_vs_cpu": draws,
+          "flash_attention_launches_gpu": b10,
+          "decode_steps": ENCDEC_PARITY_STEPS,
+          "max_err_over_scale": errs,
+          "tolerance": "streams equal; logits and caches within 1e-3 of "
+                       "the tensor's largest entry + rtol 1e-4"})
+
+
+def max_ulps(torch, a, b) -> float:
+    """max |a - b| in ulps of b, in b's dtype (f32 or bf16)."""
+    mag = b.abs()
+    word = torch.int32 if b.dtype == torch.float32 else torch.int16
+    ulp = (mag.view(word) + 1).view(b.dtype).float() - mag.float()
+    return float(((a.float() - b.float()).abs() / ulp).max())
+
+
+def normal_draws_card_vs_cpu(torch, serve, n: int = 1 << 20) -> dict:
+    """`launch.serve.synthetic_normal` drawn on the card and on the CPU
+    from one key, f32 and bf16: how many of ``n`` draws differ and by how
+    many ulps (the draw's float64 log1p and polynomial steps are the same
+    code on both devices; the libraries' float64 log1p may not be)."""
+    from repro_torch.core import prng
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = prng.fold_in(prng.key(1), 1)
+        a = serve.synthetic_normal(key, (4, n // 4), dtype, "cuda").cpu()
+        b = serve.synthetic_normal(key, (4, n // 4), dtype, "cpu")
+        diff = a != b
+        out[str(dtype)[6:]] = {
+            "draws": n, "differ": int(diff.sum()),
+            "max_ulps": max_ulps(torch, a, b) if bool(diff.any()) else 0.0,
+            "at": [float(x) for x in b[diff][:8]]}
+    return out
+
+
+def oneshot_same_width_gate(torch, ctx, args) -> dict:
+    """The oneshot path's oracle: each row's batch (tokens, frames, prefix)
+    repeated over all ``--slots`` rows, prefilled and decoded greedily at
+    that width, so every product has the oneshot run's shapes; row 0's
+    stream must equal the run's row exactly."""
+    from repro_torch.serve import sample_token
+    bundle, params, batch = ctx["bundle"], ctx["params"], ctx["batch"]
+    V, B = bundle.cfg.vocab_size, args.slots
+    mismatches, rows_equal = [], True
+    t0 = time.perf_counter()
+    for row, got in enumerate(ctx["rows"]):
+        out = bundle.prefill_fn(params, {
+            k: v[row:row + 1].expand(B, *v.shape[1:]).contiguous()
+            for k, v in batch.items()})
+        cache, logits = out["cache"], out["logits"].float()
+        pos = torch.full((B,), args.prompt_len, dtype=torch.int32,
+                         device=logits.device)
+        toks = []
+        while True:
+            toks.append(int(sample_token(logits[0], None, 0.0, V)))
+            if len(toks) >= args.gen_tokens:
+                break
+            cur = torch.full((B,), toks[-1], dtype=torch.int32,
+                             device=logits.device)
+            logits = bundle.decode_fn(params, cur, cache, pos)["logits"]
+            logits = logits.float()
+            rows_equal &= bool((logits == logits[0]).all())
+            pos = pos + 1
+        del out, cache
+        if toks != got:
+            p = next((j for j, (a, b) in enumerate(zip(got, toks)) if a != b),
+                     min(len(got), len(toks)))
+            mismatches.append({"row": row, "first_diverging_pos": p,
+                               "oneshot": got[p:p + 4],
+                               "oracle": toks[p:p + 4]})
+    return {"oracle": f"each row repeated over {B} rows", "rows": B,
+            "equal": not mismatches, "mismatches": mismatches,
+            "rows_equal_every_step": rows_equal,
+            "seconds": time.perf_counter() - t0}
+
+
+def oneshot_m1_divergence(torch, ctx, args, row: int) -> dict:
+    """A diagnostic of the oneshot M = 1 comparison at its first
+    mismatching ``row``: the B = 1 prefill's logits against the row's in
+    the batched (B = --slots) prefill, and the sequential decode's top-2
+    margin where its stream leaves the batched one."""
+    from repro_torch.core import prng
+    from repro_torch.serve import sequential_decode
+    bundle, params, batch = ctx["bundle"], ctx["params"], ctx["batch"]
+    V = bundle.cfg.vocab_size
+    one = {k: v[row:row + 1] for k, v in batch.items()}
+    full = bundle.prefill_fn(params, batch)["logits"][row]
+    gap = float((bundle.prefill_fn(params, one)["logits"][0].float()
+                 - full.float()).abs().max())
+    rows: list = []
+    seq = sequential_decode(bundle, params, one, row, args.gen_tokens,
+                            base_key=prng.key(args.seed), logits_out=rows)
+    got = ctx["rows"][row]
+    p = next((j for j, (a, b) in enumerate(zip(got, seq)) if a != b), None)
+    margins = [float(t[0] - t[1]) for t in
+               (torch.topk(x[:V], 2).values for x in rows)]
+    return {"row": row, "prefill_logits_gap_b1_vs_batched": gap,
+            "first_diverging_pos": p,
+            "margin_there": None if p is None else margins[p],
+            "min_margin_to_there": None if p is None else min(
+                margins[:p + 1])}
+
+
+def phase_encdec_serve_path(torch, K, serve):
+    """ENCDEC_SERVE_ARGS: seamless-m4t-medium at full width and depth, bf16,
+    oneshot, 8 rows of 2000 frames and 2000-token prompts, 32 tokens in
+    chunks of 8; B10 24 times a prefill (12 non-causal in the encoder, 12
+    causal in the decoder; cross-attention plain).  Gate: each row equals
+    the same-width oracle's stream (`oneshot_same_width_gate`); the M = 1
+    --parity-check printed beside it.  Then the encoder alone on row 0's
+    frames: B10 once a layer."""
+    from repro_torch.models import encdec
+    args, ctx, counts, peak, wall = _drive_serve(torch, K, serve,
+                                                 ENCDEC_SERVE_ARGS)
+    res, cfg = ctx["result"], ctx["bundle"].cfg
+    check(cfg.name == "seamless-m4t-medium" and cfg.num_layers == 12
+          and cfg.num_encoder_layers == 12 and cfg.d_model == 1024
+          and cfg.vocab_size == 256206,
+          f"encdec_serve_path: {cfg.name} is not at full width and depth")
+    B = args.slots
+    check(res["mode"] == "oneshot" and res["completed"] == B
+          and res["generated_tokens"] == B * args.gen_tokens,
+          f"encdec_serve_path: served {res['completed']} / "
+          f"{res['generated_tokens']}")
+    checked = B if res["parity"] == "ok" else 1 + int(re.match(
+        r"mismatch row (\d+)", res["parity"]).group(1))
+    prefills = 2 + checked
+    per_prefill = cfg.num_encoder_layers + cfg.num_layers
+    check(counts.get("flash_attention", 0) == per_prefill * prefills,
+          f"encdec_serve_path launches {counts}, expected {per_prefill} "
+          f"for each of {prefills} prefills")
+    with torch.no_grad():
+        K.reset_launch_counts()
+        enc = encdec.encode(ctx["params"], ctx["batch"]["frames"][:1], cfg)
+        torch.cuda.synchronize()
+        encoder_b10 = K.launch_counts["flash_attention"]
+        check(encoder_b10 == cfg.num_encoder_layers
+              and bool(torch.isfinite(enc).all()),
+              f"encdec_serve_path: the encoder launched B10 {encoder_b10} "
+              f"times")
+        del enc
+        gate = oneshot_same_width_gate(torch, ctx, args)
+        m1 = (None if res["parity"] == "ok" else
+              oneshot_m1_divergence(torch, ctx, args, checked - 1))
+    rec = {"phase": "encdec_serve_path", "entry_point": res,
+           "steady_prefill_ms": res["steady_prefill_ms"],
+           "steady_chunk_ms": res["steady_chunk_ms"],
+           "ms_per_decode_step": res["steady_chunk_ms"] / args.decode_chunk,
+           "tokens_per_s": res["tokens_per_s"],
+           "max_memory_allocated": peak, "run_wall_s": wall,
+           "prefills": prefills, "flash_attention_per_prefill": per_prefill,
+           "encoder_flash_attention_launches": encoder_b10,
+           "launches": counts, "gate": gate, "parity_m1": res["parity"],
+           "divergence_m1": m1}
+    emit(rec)
+    check(gate["equal"], f"encdec_serve_path: the oneshot rows differ from "
+                         f"the same-width oracle's: {gate['mismatches']}")
+    del ctx
+    return counts
+
+
+def _llava_gqa_smoke():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llava-next-34b-smoke"),
+                               name="llava-next-34b-gqa-smoke",
+                               num_kv_heads=2)
+
+
+def phase_vlm_serve_parity(torch, serve):
+    """llava-next-34b-smoke in f32 (KV = H after the smoke reduction) and
+    its variant with 2 KV heads of 8 (`_serve_parity`, prefix embeds in
+    every prefill): prefill attention through B10 on the card (k and v
+    repeated 4x for the variant), the naive attention on the CPU."""
+    out = {}
+    for arch, cfg in (("llava-next-34b-smoke", None),
+                      ("llava-next-34b-gqa-smoke", _llava_gqa_smoke())):
+        cfg, tokens, max_err, counts = _serve_parity(
+            torch, serve, arch, ("flash_attention",), cfg)
+        b10 = counts["flash_attention"]
+        # prefills: warm-up + 4 requests + 4 sequential
+        check(b10 == cfg.num_layers * 9,
+              f"vlm_serve_parity {arch} B10 launches {b10}")
+        out[arch] = {"kv_heads": cfg.num_kv_heads, "tokens_gpu": tokens,
+                     "prefill_logits_max_abs_err": max_err,
+                     "flash_attention_launches_gpu": b10}
+    emit({"phase": "vlm_serve_parity", "dtype": "float32", "slots": 2,
+          "requests": 4, "prefix_embeds": 16, "streams_equal": True,
+          "archs": out,
+          "tolerance": "tokens equal; prefix embeds bitwise; prefill "
+                       "logits atol = rtol = 1e-4"})
+
+
+def phase_vlm_serve_path(torch, K, serve):
+    """VLM_SERVE_ARGS: llava-next-34b at full width, VLM_SERVE_LAYERS
+    layers, bf16, 8 requests of 2304 image embeddings and 256 text tokens
+    on 8 slots, 32 tokens each in chunks of 8; B10 24 times a prefill at
+    (1, 2560, 56, 128) (k and v repeated 7x).  Gate: the engine's streams
+    equal the same-width oracle's, prefixes included
+    (`_serve_path_phase`)."""
+    return _serve_path_phase(
+        torch, K, serve, "vlm_serve_path", VLM_SERVE_ARGS,
+        lambda cfg: (cfg.name == "llava-next-34b" and cfg.family == "vlm"
+                     and cfg.num_layers == VLM_SERVE_LAYERS
+                     and cfg.d_model == 7168 and cfg.num_heads == 56
+                     and cfg.num_kv_heads == 8 and cfg.d_ff == 20480
+                     and cfg.num_prefix_embeds == 2304),
+        lambda cfg, prefills, steps: {
+            "flash_attention": cfg.num_layers * prefills},
+        margins=False, cfg=vlm_cfg())
+
+
+def vlm_cfg():
+    """llava-next-34b cut to VLM_SERVE_LAYERS layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llava-next-34b"),
+                               num_layers=VLM_SERVE_LAYERS)
+
+
 SOURCES = {
     "obfuscate_update": ("src/repro_torch/csrc/obfuscate.cu",
                          "src/repro/kernels/obfuscate.py:85"),
@@ -4687,7 +5099,7 @@ def main(argv=None) -> int:
                          "xLSTM, hybrid and MoE train-path steps, the "
                          "scanned main, fault and ring paths' replayed "
                          "chunks, a Fig. 2 trimmed-mean replay and the "
-                         "five serve paths with torch.profiler")
+                         "seven serve paths with torch.profiler")
     opts = ap.parse_args(argv)
     if not (ROOT / "src" / "repro_torch" / "__init__.py").exists():
         print("chip_smoke: src/repro_torch is not next to this script",
@@ -4890,7 +5302,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_profile_serve(torch, serve, requests=4, gen=16,
                                 path_args=GQA_SERVE_ARGS,
-                                path="gqa_serve_path")
+                                path="gqa_serve_path", cfg=gqa_serve_cfg())
         gc.collect()
         torch.cuda.empty_cache()
         moe_serve = phase_moe_serve_path(torch, K, serve)
@@ -4899,16 +5311,41 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase_profile_serve(torch, serve, requests=4, gen=16,
                                 path_args=MOE_SERVE_ARGS,
-                                path="moe_serve_path")
+                                path="moe_serve_path", cfg=moe_serve_cfg())
         gc.collect()
         torch.cuda.empty_cache()
         granite = phase_granite_prefill(torch, K)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_encdec_serve_parity(torch, K, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        encdec_serve = phase_encdec_serve_path(torch, K, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_vlm_serve_parity(torch, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        vlm_serve = phase_vlm_serve_path(torch, K, serve)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if opts.profile:
+            phase_profile_serve(torch, serve, gen=16,
+                                path_args=ENCDEC_SERVE_ARGS,
+                                path="encdec_serve_path")
+            gc.collect()
+            torch.cuda.empty_cache()
+            phase_profile_serve(torch, serve, requests=4, gen=16,
+                                path_args=VLM_SERVE_ARGS,
+                                path="vlm_serve_path", cfg=vlm_cfg())
+            gc.collect()
+            torch.cuda.empty_cache()
         # B10's launches: the serve paths' runs and granite-8b's prefill;
         # B11's: the xLSTM and hybrid train and serve paths' runs
         rows["flash_attention"] = ({"flash_attention": sum(
             c.get("flash_attention", 0) for c in (
                 stablelm_serve, hybrid_serve, gqa_serve, moe_serve,
-                granite))}, b10)
+                granite, encdec_serve, vlm_serve))}, b10)
         rows["ssd_intra_chunk"] = ({"ssd_intra_chunk": sum(
             c.get("ssd_intra_chunk", 0) for c in (
                 train_counts, serve_counts, hybrid_train, hybrid_serve))},

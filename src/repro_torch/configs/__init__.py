@@ -11,7 +11,9 @@ _ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m",
           "mistral-nemo-12b": "mistral_nemo_12b",
           "chatglm3-6b": "chatglm3_6b",
           "granite-moe-1b-a400m": "granite_moe_1b_a400m",
-          "olmoe-1b-7b": "olmoe_1b_7b"}
+          "olmoe-1b-7b": "olmoe_1b_7b",
+          "seamless-m4t-medium": "seamless_m4t_medium",
+          "llava-next-34b": "llava_next_34b"}
 
 ARCH_NAMES = tuple(_ARCHS)
 

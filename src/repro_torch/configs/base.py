@@ -1,7 +1,7 @@
 """Architecture configuration (counterpart of ``repro.configs.base``; the
-fields the dense, MoE, xLSTM and hybrid families use).  Field names and the
-``-smoke``/``-tiny`` reductions equal the reference's, so a config
-resolves to the same shapes in both packages."""
+fields the dense, MoE, xLSTM, hybrid, enc-dec and VLM families use).
+Field names and the ``-smoke``/``-tiny`` reductions equal the
+reference's, so a config resolves to the same shapes in both packages."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,7 +13,8 @@ __all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: Literal["dense", "moe", "xlstm", "hybrid"]
+    family: Literal["dense", "moe", "xlstm", "hybrid", "encdec", "vlm",
+                    "audio"]
     num_layers: int
     d_model: int
     num_heads: int
@@ -31,6 +32,11 @@ class ArchConfig:
     # blocked online-softmax form over attn_chunk-wide query and key blocks
     attn_impl: Literal["naive", "chunked"] = "naive"
     attn_chunk: int = 4096
+    # the reference's per-layer remat and lax.scan traversal: they change
+    # its memory and compile time, not values; the port's layer loop is
+    # the same Python loop either way and keeps every activation
+    remat_policy: Literal["full", "save_collectives"] = "full"
+    scan_layers: bool = False
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     mlp: Literal["swiglu", "gelu"] = "swiglu"
     tie_embeddings: bool = True
@@ -41,7 +47,12 @@ class ArchConfig:
     num_experts_per_tok: int = 0
     capacity_factor: float = 1.25
     moe_impl: Literal["allreduce", "deferred"] = "allreduce"
-    # modality embeddings ahead of the prompt; 0 for the dense family
+    # enc-dec (audio): encoder depth, and a local monotonic window of
+    # encoder frames for each decoder position's cross-attention
+    num_encoder_layers: int = 0
+    cross_attn_window: int | None = None
+    # modality embeddings (a VLM's image tokens) replacing the first
+    # positions of the prompt; 0 for the text-only families
     num_prefix_embeds: int = 0
     # Mamba2 (hybrid): state N, conv taps, inner width factor, head dim
     ssm_state: int = 0
@@ -67,10 +78,10 @@ class ArchConfig:
 
 
 def reduced_variant(cfg: ArchConfig) -> ArchConfig:
-    """``-smoke``: 2 layers, d_model <= 256, head_dim 32, vocab <= 1024,
-    <= 4 experts with top <= 2, ssm_state <= 16 with ssm_head_dim 32, a
-    shared attention block every 2 layers, float32 (the reference's CPU
-    smoke reduction)."""
+    """``-smoke``: 2 layers (and <= 2 encoder layers), d_model <= 256,
+    head_dim 32, vocab <= 1024, <= 4 experts with top <= 2, ssm_state <= 16
+    with ssm_head_dim 32, a shared attention block every 2 layers, <= 16
+    prefix embeds, float32 (the reference's CPU smoke reduction)."""
     d_model = min(cfg.d_model, 256)
     head_dim = 32
     heads = max(2, min(cfg.num_heads, d_model // head_dim))
@@ -85,13 +96,16 @@ def reduced_variant(cfg: ArchConfig) -> ArchConfig:
         num_experts_per_tok=min(cfg.num_experts_per_tok, 2),
         ssm_state=min(cfg.ssm_state, 16),
         ssm_head_dim=32 if cfg.ssm_state else cfg.ssm_head_dim,
-        hybrid_attn_every=2, dtype="float32")
+        num_encoder_layers=min(cfg.num_encoder_layers, 2),
+        hybrid_attn_every=2,
+        num_prefix_embeds=min(cfg.num_prefix_embeds, 16), dtype="float32")
 
 
 def tiny_variant(cfg: ArchConfig) -> ArchConfig:
-    """``-tiny``: 1 layer, d_model 32, head_dim 16, vocab <= 64, 2 experts
-    with top 1 (a MoE config), ssm_state <= 8 with ssm_head_dim 16, a
-    shared attention block after every layer."""
+    """``-tiny``: 1 layer (and 1 encoder layer for an enc-dec), d_model 32,
+    head_dim 16, vocab <= 64, 2 experts with top 1 (a MoE config),
+    ssm_state <= 8 with ssm_head_dim 16, a shared attention block after
+    every layer, <= 4 prefix embeds."""
     base = reduced_variant(cfg)
     d_model, head_dim = 32, 16
     heads = max(2, d_model // head_dim)
@@ -106,4 +120,6 @@ def tiny_variant(cfg: ArchConfig) -> ArchConfig:
         num_experts_per_tok=1 if base.num_experts_per_tok else 0,
         ssm_state=min(base.ssm_state, 8),
         ssm_head_dim=16 if base.ssm_state else base.ssm_head_dim,
-        hybrid_attn_every=1)
+        num_encoder_layers=min(base.num_encoder_layers, 1),
+        hybrid_attn_every=1,
+        num_prefix_embeds=min(base.num_prefix_embeds, 4))

@@ -4,7 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
       --slots 8 --requests 16 --prompt-len 2000 --gen-tokens 64
 
-Modes (``--mode auto`` = continuous):
+Modes (``--mode auto``: oneshot for the enc-dec (audio) family,
+continuous for the others):
 
 * ``continuous``: `serve.ServeEngine` slot-based continuous batching;
   queued requests prefill into free slots while the rest of the batch
@@ -13,17 +14,23 @@ Modes (``--mode auto`` = continuous):
 * ``static``: the same engine with gang admission (run-to-completion
   waves), the baseline continuous batching is measured against.
 * ``oneshot``: one fixed uniform batch through the device-resident chunk
-  loop (`serve.loop`).
+  loop (`serve.loop`); the only mode for the enc-dec family, whose
+  cross-attention cache is encoder-length-shaped per request.
 
-First-call and steady-state times are reported apart; sampling keys live
-in `serve.loop.SAMPLE_DOMAIN`, keyed per (request, position), disjoint
-from the prompt stream.  Runs on the card unless ``--device cpu``; the
+The synthetic data are the reference's, bitwise: prompts from
+``key(seed + 1)``, an enc-dec batch's frames (B, prompt_len, d) from its
+``fold_in(., 1)`` and a VLM's prefix embeds (n, P, d) from its ``fold_in(.,
+2)``, both ``normal * 0.1`` in the model's dtype.  First-call and
+steady-state times are reported apart; sampling keys live in
+`serve.loop.SAMPLE_DOMAIN`, keyed per (request, position), disjoint from
+the data streams.  Runs on the card unless ``--device cpu``; the
 reference's ``--model-parallel`` is not ported yet.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 
 import numpy as np
@@ -34,32 +41,59 @@ from ..core import prng
 from ..models import build_model
 from ..models.common import pad_vocab
 from ..serve import (Request, ServeEngine, init_loop_state, make_decode_loop,
-                     sequential_decode)
+                     request_batch, sequential_decode)
 from ..serve.engine import Completion, _sync
 
-__all__ = ["build_parser", "run_serving", "main"]
+__all__ = ["build_parser", "synthetic_normal", "run_serving", "main"]
 
 
 def _percentile(xs, q):
     return float(np.percentile(np.asarray(xs, np.float64), q)) if xs else None
 
 
-def _synthetic_requests(cfg, args) -> list[Request]:
+def synthetic_normal(key: torch.Tensor, shape, dtype: torch.dtype,
+                     device) -> torch.Tensor:
+    """``jax.random.normal(key, shape, dtype) * 0.1`` bit for bit (the
+    reference's synthetic frames and prefix embeds), drawn on ``device``
+    one leading row at a time.  The 0.1 is rounded to ``dtype`` before the
+    product, as jnp rounds a Python scalar."""
+    n = math.prod(shape)
+    row = n // shape[0]
+    key = key.to(device)
+    scale = torch.tensor(0.1, dtype=dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for i in range(shape[0]):
+        idx = torch.arange(i * row, (i + 1) * row, dtype=torch.int64,
+                           device=device)
+        bits = prng.bits_at(key, idx, n, byte=dtype == torch.bfloat16)
+        out[i] = (prng.normal_from_bits(bits, dtype) * scale).reshape(
+            shape[1:])
+    return out
+
+
+def _synthetic_requests(cfg, args, device="cpu") -> list[Request]:
     """Prompts from the data key stream ``key(seed + 1)`` (bitwise the
-    reference's ``jax.random.randint`` draw); sampling keys never touch
-    it (SAMPLE_DOMAIN separation)."""
-    if cfg.num_prefix_embeds:
-        raise NotImplementedError("prefix-embed (vlm) serving is not ported")
+    reference's ``jax.random.randint`` draw) and, for a VLM, each
+    request's prefix embeds from its ``fold_in(., 2)`` (`synthetic_normal`,
+    on ``device``); sampling keys never touch them (SAMPLE_DOMAIN
+    separation)."""
     n = args.requests
-    prompts = prng.randint(prng.key(args.seed + 1), (n, args.prompt_len), 0,
+    key = prng.key(args.seed + 1)
+    prompts = prng.randint(key, (n, args.prompt_len), 0,
                            cfg.vocab_size).numpy()
+    prefix = [None] * n
+    if cfg.num_prefix_embeds:
+        prefix = synthetic_normal(
+            prng.fold_in(key, 2), (n, cfg.num_prefix_embeds, cfg.d_model),
+            getattr(torch, cfg.dtype), device)
     arrivals = np.zeros(n)
     if args.arrival_rate > 0:
         rng = np.random.default_rng(args.seed)
         arrivals = np.cumsum(rng.exponential(1.0 / args.arrival_rate, n))
     return [Request(req_id=i, tokens=prompts[i],
                     max_new_tokens=args.gen_tokens,
-                    arrival_time=float(arrivals[i])) for i in range(n)]
+                    arrival_time=float(arrivals[i]),
+                    prefix_embeds=prefix[i]) for i in range(n)]
 
 
 def _summarize(completions: list[Completion], steady_chunk_s, compile_stats):
@@ -88,11 +122,6 @@ def _total_len(cfg, args):
     return args.prompt_len + args.gen_tokens + (cfg.num_prefix_embeds or 0)
 
 
-def _prompt_batch(tokens: np.ndarray, device) -> dict:
-    return {"tokens": torch.as_tensor(np.asarray(tokens, np.int32))
-            .reshape(1, -1).to(device)}
-
-
 def _run_engine(bundle, params, args, ctx: dict):
     eng = ServeEngine(
         bundle, params, slots=args.slots,
@@ -101,7 +130,7 @@ def _run_engine(bundle, params, args, ctx: dict):
         eos_id=args.eos_id, seed=args.seed,
         admission="gang" if args.mode == "static" else "continuous")
     compile_stats = eng.warmup(args.prompt_len)
-    reqs = _synthetic_requests(bundle.cfg, args)
+    reqs = _synthetic_requests(bundle.cfg, args, eng.device)
     completions = eng.run(reqs)
     ctx.update(engine=eng, requests=reqs, completions=completions)
     out = _summarize(completions, eng.chunk_times[1:], compile_stats)
@@ -119,7 +148,7 @@ def _parity(bundle, params, reqs, completions, args):
     device = params["embed"].device
     for r in reqs:
         ref = sequential_decode(
-            bundle, params, _prompt_batch(r.tokens, device), r.req_id,
+            bundle, params, request_batch(r, device, bundle.dtype), r.req_id,
             r.max_new_tokens, temperature=args.temperature,
             eos_id=args.eos_id, base_key=prng.key(args.seed),
             max_seq_len=_total_len(bundle.cfg, args))
@@ -129,21 +158,34 @@ def _parity(bundle, params, reqs, completions, args):
 
 
 def _run_oneshot(bundle, params, args, ctx: dict):
-    """One fixed uniform batch through the chunk loop; first-call and
-    steady-state prefill timed apart."""
+    """One fixed uniform batch through the chunk loop (with an enc-dec's
+    frames and a VLM's prefix embeds); first-call and steady-state
+    prefill timed apart."""
     cfg = bundle.cfg
     device = params["embed"].device
     B = args.slots
-    tokens = prng.randint(prng.key(args.seed + 1), (B, args.prompt_len), 0,
-                          cfg.vocab_size)
-    batch = {"tokens": tokens.to(device)}
+    key = prng.key(args.seed + 1)
+    batch = {"tokens": prng.randint(key, (B, args.prompt_len), 0,
+                                    cfg.vocab_size).to(device)}
+    if cfg.family == "audio":
+        batch["frames"] = synthetic_normal(
+            prng.fold_in(key, 1), (B, args.prompt_len, cfg.d_model),
+            bundle.dtype, device)
+    if cfg.num_prefix_embeds:
+        batch["prefix_embeds"] = synthetic_normal(
+            prng.fold_in(key, 2), (B, cfg.num_prefix_embeds, cfg.d_model),
+            bundle.dtype, device)
+    # the ranges name the prefills and chunks in a torch.profiler trace, as
+    # the engine's do
     t0 = time.perf_counter()
-    bundle.prefill_fn(params, batch)
-    _sync(device)
+    with torch.profiler.record_function("serve_prefill"):
+        bundle.prefill_fn(params, batch)
+        _sync(device)
     prefill_compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out = bundle.prefill_fn(params, batch)
-    _sync(device)
+    with torch.profiler.record_function("serve_prefill"):
+        out = bundle.prefill_fn(params, batch)
+        _sync(device)
     prefill_s = time.perf_counter() - t0
 
     loop = make_decode_loop(bundle, chunk=args.decode_chunk,
@@ -163,8 +205,9 @@ def _run_oneshot(bundle, params, args, ctx: dict):
     n_chunks = -(-args.gen_tokens // args.decode_chunk)
     for _ in range(n_chunks):
         t0 = time.perf_counter()
-        state, toks, emitted = loop(params, state)
-        toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
+        with torch.profiler.record_function("serve_chunk"):
+            state, toks, emitted = loop(params, state)
+            toks, emitted = toks.cpu().numpy(), emitted.cpu().numpy()
         chunk_times.append(time.perf_counter() - t0)
         for b in range(B):
             toks_rows[b].extend(toks[emitted[:, b], b].tolist())
@@ -183,12 +226,13 @@ def _run_oneshot(bundle, params, args, ctx: dict):
                     "chunk_compile_s": round(chunk_times[0], 3)},
         "generated_first_req": toks_rows[0],
     }
+    ctx.update(batch=batch, rows=toks_rows)
     if args.parity_check:
         ok = "ok"
         for b in range(B):
             ref = sequential_decode(
-                bundle, params, _prompt_batch(tokens[b].numpy(), device), b,
-                args.gen_tokens, temperature=args.temperature,
+                bundle, params, {k: v[b:b + 1] for k, v in batch.items()},
+                b, args.gen_tokens, temperature=args.temperature,
                 eos_id=args.eos_id, base_key=prng.key(args.seed))
             if ref != toks_rows[b]:
                 ok = f"mismatch row {b}: {toks_rows[b]} != {ref}"
@@ -226,7 +270,8 @@ def build_parser() -> argparse.ArgumentParser:
 def run_serving(args, init_params=None, cfg=None) -> dict:
     """Serve ``args``' synthetic requests; returns ``{"result": the JSON
     summary, "bundle", "params"}`` and, in continuous/static mode, the
-    ``"engine"``, its ``"requests"`` and ``"completions"``.
+    ``"engine"``, its ``"requests"`` and ``"completions"``; in oneshot
+    mode the ``"batch"`` and each row's tokens, ``"rows"``.
     ``init_params`` (a parameter tree) replaces the random init from a
     ``torch.Generator`` seeded with ``--seed``; ``cfg`` overrides
     ``--arch`` (e.g. a depth-cut config object), as in `run_training`."""
@@ -236,7 +281,7 @@ def run_serving(args, init_params=None, cfg=None) -> dict:
                            "(pass --device cpu to serve on the CPU)")
     cfg = cfg if cfg is not None else get_config(args.arch)
     if args.mode == "auto":
-        args.mode = "continuous"
+        args.mode = "oneshot" if cfg.family == "audio" else "continuous"
     if args.requests is None:
         args.requests = args.slots
     bundle = build_model(cfg)

@@ -8,6 +8,7 @@
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
         [--kernel-layout ring] [--privacy-audit]
         [--checkpoint-dir ck --checkpoint-every 50 [--resume]]
+        [--scan-layers]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
@@ -59,6 +60,7 @@ layout of sharded agents is not ported yet (ROADMAP 7).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -195,6 +197,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="restore the latest full state (with its step "
                         "counter) from --checkpoint-dir and continue")
+    p.add_argument("--scan-layers", action="store_true",
+                   help="sets the config's scan_layers (the reference's "
+                        "lax.scan over the layer stack); the port's layer "
+                        "loop is the same either way, so it changes "
+                        "neither values nor memory")
     p.add_argument("--steps", type=int, default=100)
     p.add_argument("--per-agent-batch", type=int, default=2)
     p.add_argument("--seq-len", type=int, default=64)
@@ -284,6 +291,8 @@ def run_training(args, cfg=None, init_params=None,
         raise RuntimeError("--device cuda but no CUDA device is available "
                            "(pass --device cpu to train on the CPU)")
     cfg = cfg if cfg is not None else get_config(args.arch)
+    if args.scan_layers:
+        cfg = dataclasses.replace(cfg, scan_layers=True)
     kernel_layout = "concat" if args.kernel_layout == "auto" \
         else args.kernel_layout
     if kernel_layout == "ring":

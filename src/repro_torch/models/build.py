@@ -1,5 +1,6 @@
 """Family dispatch: ArchConfig -> ModelBundle (counterpart of
-``repro.models.build``; the dense, MoE, xLSTM and hybrid families)."""
+``repro.models.build``; the dense, MoE, VLM, xLSTM, hybrid and enc-dec
+(audio) families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,16 +9,14 @@ from typing import Any, Callable
 import torch
 
 from ..configs.base import ArchConfig
-from . import hybrid, transformer, xlstm
+from . import encdec, hybrid, transformer, xlstm
 from .common import init_params
 
 __all__ = ["ModelBundle", "build_model"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-_FAMILIES = {"dense": transformer, "moe": transformer, "xlstm": xlstm,
-             "hybrid": hybrid}
-# the reference's families that wait for later slices
-_NOT_PORTED = ("ssm_mamba2", "encdec", "vlm", "audio")
+_FAMILIES = {"dense": transformer, "moe": transformer, "vlm": transformer,
+             "xlstm": xlstm, "hybrid": hybrid, "audio": encdec}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,8 +43,7 @@ class ModelBundle:
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family not in _FAMILIES:
-        raise KeyError(f"family {cfg.family!r} is not ported (still to port: "
-                       f"{', '.join(_NOT_PORTED)}); have "
+        raise KeyError(f"unknown family {cfg.family!r}; have "
                        f"{sorted(_FAMILIES)}")
     mod = _FAMILIES[cfg.family]
     return ModelBundle(

@@ -1,7 +1,7 @@
 """Shared model machinery (counterpart of ``repro.models.common``):
 parameter definitions, norms, rotary embeddings, naive and blocked
 (online-softmax) causal GQA attention, ring-buffer decode attention,
-SwiGLU and the padded-vocab cross-entropy.
+SwiGLU, the GELU MLP and the padded-vocab cross-entropy.
 
 Layouts follow the reference: activations (B, S, d), attention heads
 (B, S, H, hd), weights as the reference's einsum operands.  Every function
@@ -26,7 +26,8 @@ __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
            "rope_tables", "rope_tables_at", "apply_rope", "attention",
            "chunked_attention", "decode_attention", "ring_buffer_write",
            "decode_cache_valid", "decode_positions", "swiglu",
-           "cross_entropy", "pad_vocab", "einsum_promoted", "layer_views"]
+           "gelu_mlp", "cross_entropy", "pad_vocab", "einsum_promoted",
+           "layer_views"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,6 +308,14 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = einsum_promoted("...d,df->...f", x, w_gate)
     u = einsum_promoted("...d,df->...f", x, w_up)
     h = F.silu(g.float()).to(x.dtype) * u
+    return einsum_promoted("...f,fd->...d", h, w_down)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """up, GELU in f32 (the tanh form, ``jax.nn.gelu``'s default), down."""
+    h = einsum_promoted("...d,df->...f", x, w_up)
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
     return einsum_promoted("...f,fd->...d", h, w_down)
 
 

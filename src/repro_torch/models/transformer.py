@@ -1,14 +1,18 @@
-"""Decoder-only transformer LM, dense and MoE families (counterpart of
-``repro.models.transformer``): ``param_defs``, ``forward_train`` and
+"""Decoder-only transformer LM, dense, MoE and VLM families (counterpart
+of ``repro.models.transformer``): ``param_defs``, ``forward_train`` and
 ``loss_fn`` for training; ``forward_prefill``, ``forward_decode``,
-``cache_len_for`` and ``cache_spec`` for serving.
+``cache_len_for`` and ``cache_spec`` for serving.  A VLM batch's
+``prefix_embeds`` (B, P, d) replace the first P token embeddings (a
+prompt shorter than P gives a sequence of P), and its loss leaves those
+positions out unless the batch brings ``loss_weights``.
 
 Parameters are a nested dict with the reference's leaf names and shapes —
 layer weights stacked on a leading (L,) axis, e.g. ``layers/wq`` is
 (L, d, H, hd) — so the reference's weights load unchanged
 (`repro_torch.convert`).  The layers run in an unrolled Python loop with
 no recomputation (the reference's per-layer remat changes memory, not
-values).
+values; ``remat_policy`` and ``scan_layers`` are accepted and change
+nothing here).
 
 Prefill attention on a CUDA tensor runs the hand-written flash-attention
 kernel (B10, `kernels.flash_attention`); on the CPU, and in training
@@ -27,9 +31,9 @@ from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, chunked_attention,
                      cross_entropy, decode_attention, decode_cache_valid,
-                     decode_positions, einsum_promoted, layer_norm,
-                     layer_views, pad_vocab, ring_buffer_write, rms_norm,
-                     rope_tables, rope_tables_at, swiglu)
+                     decode_positions, einsum_promoted, gelu_mlp,
+                     layer_norm, layer_views, pad_vocab, ring_buffer_write,
+                     rms_norm, rope_tables, rope_tables_at, swiglu)
 from .moe import moe_defs, moe_ffn_decode, moe_ffn_train
 
 __all__ = ["param_defs", "attn_defs", "mlp_defs", "forward_train",
@@ -59,14 +63,14 @@ def attn_defs(L: int, cfg: ArchConfig) -> dict:
 
 
 def mlp_defs(L: int, cfg: ArchConfig) -> dict:
-    if cfg.mlp != "swiglu":
-        raise ValueError(f"mlp {cfg.mlp!r} is not ported; only 'swiglu' is")
     d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "w_gate": ArrayDef((L, d, ff), ("layers", "embed", "mlp")),
+    defs = {
         "w_up": ArrayDef((L, d, ff), ("layers", "embed", "mlp")),
         "w_down": ArrayDef((L, ff, d), ("layers", "mlp", "embed")),
     }
+    if cfg.mlp == "swiglu":
+        defs["w_gate"] = ArrayDef((L, d, ff), ("layers", "embed", "mlp"))
+    return defs
 
 
 def param_defs(cfg: ArchConfig) -> dict:
@@ -106,17 +110,19 @@ def _qkv(p: dict, h: torch.Tensor, rope):
 
 
 def _plain_attn(q, k, v, window: int | None,
-                cfg: ArchConfig | None = None) -> torch.Tensor:
-    """The reference's ``_attn``: `chunked_attention` when ``cfg.attn_impl
-    == "chunked"``, else `attention` (also with no ``cfg``)."""
+                cfg: ArchConfig | None = None,
+                causal: bool = True) -> torch.Tensor:
+    """The reference's ``_attn`` (and, with ``causal=False``, its
+    encoder's self-attention): `chunked_attention` when ``cfg.attn_impl ==
+    "chunked"``, else `attention` (also with no ``cfg``)."""
     if cfg is not None and cfg.attn_impl == "chunked":
-        return chunked_attention(q, k, v, causal=True, window=window,
+        return chunked_attention(q, k, v, causal=causal, window=window,
                                  chunk=cfg.attn_chunk)
-    return attention(q, k, v, causal=True, window=window)
+    return attention(q, k, v, causal=causal, window=window)
 
 
-def _attn(q, k, v, window: int | None,
-          cfg: ArchConfig | None = None) -> torch.Tensor:
+def _attn(q, k, v, window: int | None, cfg: ArchConfig | None = None,
+          causal: bool = True) -> torch.Tensor:
     """Prefill attention: B10 on a CUDA tensor (the blocked kernel, whatever
     ``attn_impl`` says), `_plain_attn` on the CPU.  B10 takes equal head
     counts, as the reference's kernel ("GQA repeat happens outside"): with
@@ -124,13 +130,13 @@ def _attn(q, k, v, window: int | None,
     head h reads KV head h // (H / KV), the grouping of `attention` and
     `decode_attention`."""
     if q.device.type != "cuda":
-        return _plain_attn(q, k, v, window, cfg)
+        return _plain_attn(q, k, v, window, cfg, causal)
     group = q.shape[2] // k.shape[2]
     if group > 1:
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=True, window=window)
+                           causal=causal, window=window)
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig, decode: bool):
@@ -138,7 +144,9 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ArchConfig, decode: bool):
         if decode:
             return moe_ffn_decode(p["moe"], h, cfg)
         return moe_ffn_train(p["moe"], h, cfg)
-    return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    if cfg.mlp == "swiglu":
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
+    return gelu_mlp(h, p["w_up"], p["w_down"])
 
 
 def _mlp_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
@@ -189,7 +197,14 @@ def _layer_decode(p: dict, x: torch.Tensor, k_cache: torch.Tensor,
 
 
 def embed_tokens(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    return params["embed"][batch["tokens"].long()]
+    """Token embeddings (B, S, d); with ``batch["prefix_embeds"]`` (B, P,
+    d) the first P positions are those embeddings instead (the stub
+    frontend's image tokens), so a prompt shorter than P gives P."""
+    x = params["embed"][batch["tokens"].long()]
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x[:, prefix.shape[1]:]], dim=1)
+    return x
 
 
 def unembed(params: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -216,8 +231,24 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
 
 
 def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+    """Mean cross-entropy; with ``batch["loss_weights"]``, or with prefix
+    embeds configured (weights 0 on the first ``num_prefix_embeds``
+    positions, 1 after), the weighted mean over the whole padded vocab,
+    as the reference's."""
     logits = forward_train(params, batch, cfg)
-    return cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    labels = batch["labels"]
+    weights = batch.get("loss_weights")
+    if weights is None and cfg.num_prefix_embeds:
+        S = labels.shape[-1]
+        weights = (torch.arange(S, device=labels.device)
+                   >= cfg.num_prefix_embeds).float().expand(labels.shape)
+    if weights is None:
+        return cross_entropy(logits, labels, cfg.vocab_size)
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    return ((logz - gold) * weights).sum() / torch.clamp_min(weights.sum(),
+                                                              1.0)
 
 
 def cache_len_for(cfg: ArchConfig, seq_len: int) -> int:

@@ -11,6 +11,12 @@ batch.
 ``admission="gang"`` is the run-to-completion static-batching baseline:
 requests are admitted only when EVERY slot is free.
 
+A VLM request carries its image tokens as ``prefix_embeds`` (P, d); they
+go into its prefill batch, and the slot's position is the prefill's
+``pos`` (a prompt shorter than P still fills P positions).  The enc-dec
+(audio) family is refused, as the reference's engine refuses it: its
+cross-attention cache is encoder-length-shaped per request.
+
 The reference's model-parallel placement (``mesh``/``rules``) waits for
 the port's distributed layer and is refused.
 """
@@ -28,7 +34,7 @@ from ..models.common import pad_vocab
 from . import cache as slot_cache
 from .loop import init_loop_state, make_decode_loop
 
-__all__ = ["Request", "Completion", "ServeEngine"]
+__all__ = ["Request", "Completion", "ServeEngine", "request_batch"]
 
 
 @dataclasses.dataclass
@@ -37,6 +43,17 @@ class Request:
     tokens: np.ndarray            # (Lp,) int32 prompt token ids
     max_new_tokens: int
     arrival_time: float = 0.0     # offset from run() start (open loop)
+    prefix_embeds: torch.Tensor | None = None  # (P, d) image tokens (vlm)
+
+
+def request_batch(req: Request, device, dtype: torch.dtype) -> dict:
+    """The B=1 prefill batch of ``req``: its tokens and, for a VLM request,
+    its prefix embeds in the model's dtype."""
+    batch = {"tokens": torch.as_tensor(
+        np.asarray(req.tokens, np.int32))[None].to(device)}
+    if req.prefix_embeds is not None:
+        batch["prefix_embeds"] = req.prefix_embeds.to(device, dtype)[None]
+    return batch
 
 
 @dataclasses.dataclass
@@ -134,14 +151,15 @@ class ServeEngine:
         return [i for i, m in enumerate(self._slot_meta) if m is None]
 
     def _admit_one(self, req: Request, slot: int, now: float):
-        batch = {"tokens": torch.as_tensor(
-            np.asarray(req.tokens, np.int32))[None].to(self.device)}
+        batch = request_batch(req, self.device, self.bundle.dtype)
         t0 = time.perf_counter()
         # the range names the prefill in a torch.profiler trace
         with torch.profiler.record_function("serve_prefill"):
             out = self._prefill(self.params, batch)
             _sync(self.device)
         self.prefill_times.append(time.perf_counter() - t0)
+        # the slot's position is the prefill's: prefix embeds (vlm) can
+        # reach past the prompt
         self._admit_state(slot, out["cache"], out["logits"][0],
                           int(out["pos"]), req.req_id, req.max_new_tokens)
         self._slot_meta[slot] = _SlotMeta(req=req, admitted_at=now)

@@ -42,6 +42,18 @@ def test_no_jax_or_reference_import(path):
         assert name not in text
 
 
+def test_walk_reaches_every_module():
+    """The file walk above covers every package and module of the port,
+    the model families' modules among them."""
+    files = {str(p.relative_to(PORT)) for p in _port_files()
+             if p.is_relative_to(PORT)}
+    for pkg in (p for p in PORT.rglob("*") if p.is_dir()
+                and p.name != "__pycache__" and p.name != "csrc"):
+        assert str((pkg / "__init__.py").relative_to(PORT)) in files, pkg
+    for name in ("transformer", "moe", "xlstm", "ssm", "hybrid", "encdec"):
+        assert f"models/{name}.py" in files
+
+
 def test_importing_the_port_loads_no_jax():
     mods = sorted(
         "repro_torch." + ".".join(p.relative_to(PORT).with_suffix("").parts)

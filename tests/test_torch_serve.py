@@ -267,11 +267,13 @@ def test_engine_gang_admission_reset_and_refusals():
                            max_new_tokens=1))
     with pytest.raises(NotImplementedError, match="model-parallel"):
         ServeEngine(pb, pp, slots=2, max_seq_len=16, mesh=object())
-    audio = build_model(get_config(ARCH))
-    audio = dataclasses.replace(audio, cfg=dataclasses.replace(
-        audio.cfg, family="audio"))
+    # the enc-dec family is oneshot only (the reference's test_engine_
+    # refusals builds the same bundle)
+    audio = build_model(get_config("seamless-m4t-medium-tiny"))
+    gen = torch.Generator()
+    gen.manual_seed(0)
     with pytest.raises(NotImplementedError, match="enc-dec"):
-        ServeEngine(audio, pp, slots=2, max_seq_len=16)
+        ServeEngine(audio, audio.init(gen, "cpu"), slots=2, max_seq_len=16)
 
 
 def test_open_loop_arrivals_honored():

@@ -158,3 +158,26 @@ def test_fig2_estimation_300_eager_steps_match_reference():
     want, got = err(np.asarray(js.params)), err(ts.params.numpy())
     np.testing.assert_allclose(got, want, rtol=1e-5)
     assert got < 0.2 and np.isfinite(float(aux["loss"]))
+
+
+def test_scan_layers_changes_neither_history_nor_state():
+    """``--scan-layers`` sets the config's ``scan_layers`` (the reference's
+    lax.scan over layers); the port's layer loop is the same with it, so
+    two steps of stablelm-3b-smoke at seq 32 on one torch thread give the
+    same history (times aside) and the same parameters, bit for bit."""
+    flags = ["--arch", ARCH, "--steps", "2", "--log-every", "1",
+             "--seq-len", "32", "--device", "cpu"]
+    assert build_parser().parse_args(flags).scan_layers is False
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        runs = [run_training(build_parser().parse_args(flags + extra))
+                for extra in ([], ["--scan-layers"])]
+    finally:
+        torch.set_num_threads(n)
+    plain, scanned = ([{k: v for k, v in r.items() if k != "elapsed_s"}
+                       for r in run["history"]] for run in runs)
+    assert len(plain) == 2 and plain == scanned
+    for a, b in zip(tree_leaves(runs[0]["state"].params),
+                    tree_leaves(runs[1]["state"].params)):
+        assert torch.equal(a, b)
