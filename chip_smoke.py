@@ -2,14 +2,16 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: builds the hand-written kernels, holds each against its plain
 PyTorch version, trains stablelm-3b at full width and serves it at full
-width and depth, trains and serves xlstm-125m at full width and depth,
-trains zamba2-7b at full width (depth 12) and serves it at full width and
-depth, trains chatglm3-6b at full width (depth 4) and granite-moe-1b-a400m
-at full width and depth, serves mistral-nemo-12b and olmoe-1b-7b at full
-width and depth, runs a granite-8b prefill, serves the enc-dec
+width, trains and serves xlstm-125m at full width, trains zamba2-7b at
+full width (depth 12) and serves it at full width, trains chatglm3-6b at
+full width (depth 4) and granite-moe-1b-a400m at full width and depth,
+serves mistral-nemo-12b and olmoe-1b-7b at full width, runs a granite-8b
+prefill, serves the enc-dec
 seamless-m4t-medium at full width and depth (oneshot) and the VLM
-llava-next-34b at full width (depth 24) with its image-token prefix, all
-through the port's entry points, and reports what ran.
+llava-next-34b at full width (depth 12) with its image-token prefix, all
+through the port's entry points, with per-layer recompute in training;
+runs the tree forms, the leafwise layout and the trivial one-card mesh;
+and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
@@ -29,6 +31,9 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               at (rows, 2^22) against the plain versions; B4
               masked_gossip_update, B5 masked_gossip_update_krng and B6
               guarded_gossip_update at m = 4, 5, 32 in f32 and bf16
+  kernel_strided  B1, B2, B4 and B6 launched once per leaf of ragged,
+              unaligned leaves on the leaf's columns of flat buffers, in
+              place: bitwise the whole-buffer launch
   step_parity stablelm-3b-smoke f32, 4 agents, 2 steps: card vs CPU, for
               PDSGD, DSGD, DSGT, DP-DSGD and PDSGD with the gradient clip
   main_path   stablelm-3b (full width, depth 8), 4 agents on a ring, bf16,
@@ -42,12 +47,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               0.07891825798133546; then one replay traced by
               torch.profiler: kernels and device time a replayed step, B3
               and B2 kernels counted in the trace
-  main_path_scanned  the main path with --unroll-k 4: a warm-up chunk,
+  main_path_scanned  the main path at SCANNED_LAYERS = 4 layers (cut
+              from 8 for the time limit) with --unroll-k 4: a warm-up chunk,
               then 8 steps replayed from the CUDA graph, beside the same
               12 steps eager; the states equal bit for bit; launches
               counted on the warm-up chunk and, for the replays, from the
               capture
-  dropout_path_scanned  the main path with --topology-dropout 0.25 and
+  dropout_path_scanned  the same depth with --topology-dropout 0.25 and
               --unroll-k 4 (a warm-up chunk, then 8 steps replayed from the
               CUDA graph, each W_k realized in it from the device step
               counter, B3 + B4), beside the same 12 steps eager; then with
@@ -78,12 +84,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               against the CPU's realization, steps 0-511, Markov,
               failstop and corrupt, bitwise; the card's log1p against the
               CPU's over all 2^23 uniforms (diagnostic)
-  fault_path_scanned  the fault path (below) with --unroll-k 4: a warm-up
+  fault_path_scanned  the fault path (below) at the same depth with
+              --unroll-k 4: a warm-up
               chunk and two replayed chunks (faults realized in the
               graph, down rows and the skip as where on one held anchor)
               beside the same 12 steps eager; bitwise, records and fault
               counters equal; B3 and B6 4 counted + 8 replayed
-  ring_path_scanned  the ring path (below) with --unroll-k 4, static and
+  ring_path_scanned  the ring path (below) at the same depth with
+              --unroll-k 4, static and
               with Markov crash/restart, each beside 12 eager steps;
               bitwise; B9 4 + 8
   rollback_path  stablelm-3b-smoke f32: nan-corrupt senders, guard off,
@@ -179,25 +187,40 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               2: B1 + B2, B1 timed and checked at that path's shapes
   ring_bits_path  the bits path with --kernel-layout ring: B8 every step,
               checked and timed at that path's shapes
+  tree_forms  obfuscate_tree and gossip_tree (B1, B2 once each over the
+              concatenated buffer) on 4 agents' trees of the bits path's
+              layout: the bits against the CPU's draw, v bitwise the plain
+              version, x' bitwise B2's FMA chains on samples and within
+              one bf16 ulp of the plain version; timed
+  leafwise_path  the bits path with --kernel-layout leafwise (B1 and B2,
+              B4 with dropout 0.25, B6 with the fault flags, once per leaf
+              a step), each beside the concat bits path: states and
+              records bitwise; then --unroll-k 2 beside 4 eager steps
+  trivial_mesh_step  the (1, 1, 1) data x fsdp x model mesh on a one-rank
+              NCCL group, leaf specs from TRAIN_RULES: three leafwise
+              steps over DTensors, each against mesh=None from the same
+              state, within B2's bf16 tolerance
   serve_parity  stablelm-3b-smoke f32, 4 requests on 2 slots, greedy,
               through launch/serve.run_serving on the card (B10) and on the
               CPU (naive attention), same weights: equal token streams,
               prefill logits within 1e-4
   serve_path  launch/serve with --arch stablelm-3b --slots 8 --requests 9
               --prompt-len 2000 --gen-tokens 64 --decode-chunk 8
-              --parity-check: full width, depth 8 (cut from 32), bf16,
-              B10 8 times a prefill; gate: the engine's streams equal the
+              --parity-check: full width, depth 4 (cut from 32), bf16,
+              B10 4 times a prefill; gate: the engine's streams equal the
               same-width oracle's exactly (below); --parity-check's M = 1
               comparison printed, and where it differs the batched-vs-B=1
               logit spread, the margin rule's record (the first near tie, a
               top-2 margin below the spread) and a layer-by-layer trace of
               the two residual streams in bf16 and in f32
   xlstm_step_parity  xlstm-125m-smoke f32, 4 agents, 2 steps: card vs CPU
-  xlstm_train_path  run_training --arch xlstm-125m, 12 blocks, d_model 768,
-              4 agents on a ring, bf16, PDSGD, per-agent batch 2, seq 128
-              (cut for the sLSTM's host loop), 1 warm-up + 3 timed steps:
-              B3 + B2 every step, B11 48 times a step
-  xlstm_train_scanned  xlstm-125m at full width, 4 blocks (cut from 12
+  xlstm_train_path  run_training --arch xlstm-125m, 6 blocks (cut from 12
+              for the time limit), d_model 768, 4 agents on a ring, bf16,
+              PDSGD, per-agent batch 2, seq 128 (cut for the sLSTM's host
+              loop), 1 warm-up + 3 timed steps: B3 + B2 every step, B11 48
+              times a step (each mLSTM forward run again in its backward's
+              recompute)
+  xlstm_train_scanned  xlstm-125m at full width, 2 blocks (cut from 12
               for the time limit), 4 agents, seq 128, with --unroll-k 2: a
               warm-up chunk and two replays of one CUDA graph holding the
               sLSTM token loop, beside 6 eager steps; bitwise; B11 counted
@@ -207,24 +230,25 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   xlstm_serve_path  launch/serve with --arch xlstm-125m --slots 8
               --requests 9 --prompt-len 500 (cut for the sLSTM's host loop)
               --gen-tokens 32 --decode-chunk 8 --parity-check: full width,
-              6 blocks (cut from 12), bf16; B11 6 times a prefill and a
+              4 blocks (cut from 12), bf16; B11 4 times a prefill and a
               decode step; the same gate as serve_path
   hybrid_step_parity  zamba2-7b-smoke f32 at 4 layers (both shared
               blocks), 4 agents, 1 step: card vs CPU
   hybrid_train_path  run_training --arch zamba2-7b, full width, 12 mamba
               layers (sites 5 and 11), 4 agents on a ring, bf16, PDSGD,
               per-agent batch 2, seq 512, 1 warm-up + 3 timed steps: B3 +
-              B2 every step, B11 48 times a step (112 heads sharing B and C)
+              B2 every step, B11 96 times a step (112 heads sharing B and
+              C; each mamba forward run again in its backward's recompute)
   hybrid_train_scanned  the same with --unroll-k 2 (a warm-up chunk and
-              two replays) beside 6 eager steps; bitwise; B11 48 a step
+              two replays) beside 6 eager steps; bitwise; B11 96 a step
               counted and replayed
   hybrid_serve_parity  zamba2-7b-smoke f32, 4 requests on 2 slots: card vs
               CPU (B11 and B10 in every prefill)
   hybrid_serve_path  launch/serve with --arch zamba2-7b --slots 8
               --requests 9 --prompt-len 2000 --gen-tokens 32
-              --decode-chunk 8 --parity-check: full width, 24 mamba layers
-              and 4 attention sites (cut from 81 and 13), bf16 weights
-              and an f32 residual stream; B11 24 and B10 4 times a
+              --decode-chunk 8 --parity-check: full width, 12 mamba layers
+              and 2 attention sites (cut from 81 and 13), bf16 weights
+              and an f32 residual stream; B11 12 and B10 2 times a
               prefill, none in
               decode; the same gate as serve_path; where the M = 1 check
               differs, the logit spread and a block-by-block trace of one
@@ -242,13 +266,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               agents on a ring, bf16, PDSGD, per-agent batch 2, seq 512,
               --grad-clip-kappa 1.0, 1 warm-up + 5 timed steps: B3 + B2
               every step
-  gqa_train_scanned  the same with --unroll-k 2 beside 6 eager steps;
-              bitwise
+  gqa_train_scanned  the same with --unroll-k 2 (a warm-up chunk and
+              two replays) beside 6 eager steps; bitwise
+  recompute_peak_gqa  chatglm3-6b at full width, 4 layers: one agent's
+              value and gradients at batch 1, seq 4096 (train_4k's), under
+              remat_policy "full", "save_collectives" and no recompute:
+              peak memory and ms each, loss and gradients bitwise equal
+              (recompute_peak_hybrid: the same for zamba2-7b, 12 layers)
   moe_train_path  run_training --arch granite-moe-1b-a400m at full width
               and depth (24 layers, 32 experts top 8), the same flags;
               the routing in plain torch
-  moe_train_scanned  the same with --unroll-k 2 (the routing captured)
-              beside 6 eager steps; bitwise
+  moe_train_scanned  the same with --unroll-k 2 (the routing captured;
+              two replays) beside 6 eager steps; bitwise
   gqa_serve_path  launch/serve with --arch mistral-nemo-12b --slots 8
               --requests 8 --prompt-len 2000 --gen-tokens 32
               --decode-chunk 8 --parity-check: full width (KV 8, H hd
@@ -286,8 +315,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
   vlm_serve_path  launch/serve with --arch llava-next-34b --slots 8
               --requests 8 --prompt-len 2560 --gen-tokens 32
               --decode-chunk 8 --parity-check: full width (d_model 7168,
-              56 x 128 on 8 KV heads), depth 24 (cut from 60), bf16, 2304
-              image embeddings and 256 text tokens a request; B10 24 times
+              56 x 128 on 8 KV heads), depth 12 (cut from 60), bf16, 2304
+              image embeddings and 256 text tokens a request; B10 12 times
               a prefill at (1, 2560, 56, 128); the same gate as serve_path
   kernels     every kernel with its launches in its own path's run (B3
               and B2: main_path; B10: the seven serve paths and
@@ -754,6 +783,68 @@ def phase_kernels_coupled(torch, K):
               "B5_out": "bitwise B4 on its mask",
               "B6": "nan/inf positions exact; finite: f32 1e-5 (1 + S), "
                     "bf16 1 bf16 ulp + 1e-6 S, S = sum of |terms|"},
+          "results": out})
+
+
+# leaves of a flat buffer for the strided launches (the leafwise layout):
+# ragged sizes at starts on no vector boundary, a one-column leaf, a leaf
+# shorter than the run to its first aligned column
+LEAF_SIZES = (1_000_003, 5, 1, 2_097_152, 77, 3, 999_999, 1)
+
+
+def phase_kernels_strided(torch, K):
+    """B1, B2, B4 and B6 launched once per leaf on its columns of (m,
+    width) flat buffers, read and written in place (rows width apart,
+    starts unaligned), bitwise the same kernel launched once on the
+    whole contiguous buffer, at m = 4, 5, 32, f32 and bf16."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    offs = [0, *itertools.accumulate(LEAF_SIZES)]
+    width = -(-offs[-1] // 512) * 512
+    cols = list(zip(offs[:-1], offs[1:]))
+    out = {}
+    for m in (4, 5, 32):
+        eye = torch.eye(m, device=dev)
+        mask = rand_mask(torch, m, g, dev)
+        B = col_stochastic(torch, mask + eye, g)
+        W = col_stochastic(torch, mask + eye, g)
+        corrupt = torch.zeros(m, device=dev)
+        corrupt[m - 1] = 1.0
+        for dtype in (torch.float32, torch.bfloat16):
+            X = torch.randn(m, width, generator=g, device=dev).to(dtype)
+            G = torch.randn(m, width, generator=g, device=dev).to(dtype)
+            bits = torch.randint(0, 2**32, (m, width), generator=g,
+                                 device=dev, dtype=torch.int64
+                                 ).to(torch.uint32)
+            lam = torch.tensor(0.03, device=dev)
+            whole_u = K.obfuscate_update(X, G, bits, lam, 0.0, -1.0)
+            U = torch.empty_like(G)
+            for o, o1 in cols:
+                K.obfuscate_update(X[:, o:o1], G[:, o:o1], bits[:, o:o1],
+                                   lam, 0.0, -1.0, out=U[:, o:o1])
+            what = f"m={m} {str(dtype)[6:]}"
+            check(same_bits(torch, U[:, :offs[-1]], whole_u[:, :offs[-1]]),
+                  f"B1 strided {what} differs from the whole-buffer launch")
+            runs = {
+                "B2": (lambda x, u, o: K.gossip_update(W, B, x, u, out=o)),
+                "B4": (lambda x, u, o: K.masked_gossip_update(mask, B, x, u,
+                                                              out=o)),
+                "B6": (lambda x, u, o: K.guarded_gossip_update(
+                    mask, B, x, u, clip=1e3, corrupt=corrupt, mode="scale",
+                    scale=1e4, out=o))}
+            for name, run in runs.items():
+                whole = run(X, whole_u, None)
+                Y = X.clone()
+                for o, o1 in cols:
+                    run(Y[:, o:o1], whole_u[:, o:o1], Y[:, o:o1])
+                torch.cuda.synchronize()
+                check(same_bits(torch, Y[:, :offs[-1]], whole[:, :offs[-1]]),
+                      f"{name} strided {what} differs from the whole-buffer "
+                      f"launch")
+            out[what] = "bitwise"
+    emit({"phase": "kernel_strided", "leaf_sizes": list(LEAF_SIZES),
+          "width": width, "tolerance": "bitwise the whole-buffer launch",
           "results": out})
 
 
@@ -2044,6 +2135,386 @@ def phase_bits_path(torch, K, train, prng, cfg):
     return {"obfuscate_update": (counts, b1)}
 
 
+# a training layer's forward runs twice a step under per-layer recompute:
+# in the forward, and again in its backward (`models.common.remat`)
+RECOMPUTE = 2
+RECOMPUTE_SEQ = 4096  # the reference's train_4k length
+RECOMPUTE_RUNS = ("full", "save_collectives", "none")
+
+
+def _plain_forward_train(cfg):
+    """The family's forward_train with its layer bodies called directly (no
+    recompute): the phase's own loop."""
+    from repro_torch.models import common, hybrid
+    from repro_torch.models import transformer as tfm
+
+    def dense(params, batch, cfg):
+        x = tfm.embed_tokens(params, batch, cfg)
+        rope = common.rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
+                                  cfg.rope_theta, x.device)
+        for p in common.layer_views(params["layers"]):
+            x = tfm._layer_train(p, x, rope, cfg)
+        return tfm.unembed(params, tfm._final_norm(params, x, cfg), cfg)
+
+    def mamba(params, batch, cfg):
+        x = tfm.embed_tokens(params, batch, cfg)
+        rope = hybrid._rope(cfg, x.shape[1], x.device)
+        for p, site in hybrid._blocks(params, cfg):
+            x = hybrid.ssm.mamba_block_train(p, x, cfg)
+            if site is not None:
+                x = tfm._layer_train(site[1], x, rope, cfg)
+        return tfm.unembed(params, common.rms_norm(
+            x, params["final_norm_gamma"]), cfg)
+
+    if cfg.family == "hybrid":
+        return hybrid, mamba
+    return tfm, dense
+
+
+def phase_recompute_peak(torch, K, cfg, phase: str) -> dict:
+    """One agent's value and gradients at full width, per-agent batch 1
+    and seq 4096 (train_4k's length), under remat_policy "full",
+    "save_collectives" and the phase's own loop without recompute: the
+    peak of max_memory_allocated (reset before each run; above what was
+    allocated before it, the weights and one held gradient set) and the
+    ms of each (a warm-up run first).  Gate: the loss and every gradient
+    bitwise equal across the three."""
+    from repro_torch.core.privacy import tree_leaves, tree_unflatten
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    params = build_model(cfg).init(gen, dev)
+    leaves = tree_leaves(params)
+    batch = {n: torch.randint(0, cfg.vocab_size, (1, RECOMPUTE_SEQ),
+                              generator=gen, device=dev)
+             for n in ("tokens", "labels")}
+    mod, plain = _plain_forward_train(cfg)
+
+    def run(policy):
+        c = dataclasses.replace(
+            cfg, remat_policy="full" if policy == "none" else policy)
+        saved = mod.forward_train
+        if policy == "none":
+            mod.forward_train = plain
+        try:
+            ps = [t.detach().requires_grad_() for t in leaves]
+            gc.collect()
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = build_model(c).loss_fn(tree_unflatten(params, ps), batch)
+            grads = torch.autograd.grad(loss, ps, allow_unused=True)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            mod.forward_train = saved
+        return loss.detach(), grads, ms, peak, base
+
+    warm = run("full")  # cuBLAS handles, workspaces, the allocator's pool
+    del warm
+    rec = {}
+    want = None
+    for policy in RECOMPUTE_RUNS:
+        loss, grads, ms, peak, base = run(policy)
+        if want is None:
+            want = (loss, grads)
+        else:
+            check(torch.equal(loss, want[0]),
+                  f"{phase} {policy}: loss differs from full's")
+            check(all((g is None and w is None) or torch.equal(g, w)
+                      for g, w in zip(grads, want[1])),
+                  f"{phase} {policy}: gradients differ from full's")
+        rec[policy] = {"ms": ms, "peak_bytes": peak,
+                       "peak_above_start_bytes": peak - base,
+                       "loss": float(loss)}
+        del grads
+    del want
+    out = {"phase": phase, "arch": cfg.name, "num_layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.dtype, "batch": 1,
+           "seq_len": RECOMPUTE_SEQ,
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "runs": rec, "bitwise_equal": True}
+    emit(out)
+    del params, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_tree_forms(torch, K, prng, cfg):
+    """`obfuscate_tree` (B1 over the concatenated buffer, its bits drawn
+    from one key over the 256-padded buffer) and `gossip_tree` (B2) on 4
+    agents' trees of the bits path's layout, bf16.  Gates: one launch
+    each; the bits' first 2^20 columns of every row equal the CPU's draw;
+    v bitwise the plain version; x' bitwise B2 on the flat buffers and,
+    on three 2^22-column samples, bitwise the f32 FMA chains B2 sums
+    (`core.pdsgd.fma_f32`); everywhere within B2's tolerance of the plain
+    version.  Timed: the tree calls and the kernels alone."""
+    from repro_torch.core.pdsgd import fma_f32
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    dev = torch.device("cuda")
+    m = 4
+    layout = ops.FlatLayout.of(build_model(cfg).abstract())
+    D, width = layout.size, layout.width
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    X = torch.randn((m, width), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    G = torch.randn((m, width), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    X[:, D:] = 0
+    G[:, D:] = 0
+    lam = 0.01
+    key = prng.key(5)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_tree = K.obfuscate_tree(key, layout.tree(X), layout.tree(G), lam, 0.0,
+                              -1.0)
+    torch.cuda.synchronize()
+    obf_tree_ms = (time.perf_counter() - t0) * 1e3
+    check(K.launch_counts.get("obfuscate_update", 0) == 1,
+          f"obfuscate_tree launches {dict(K.launch_counts)}")
+    V = layout.flatten(v_tree, m)
+    del v_tree
+    bits = ops.tree_bits(key.to(dev), m, layout)
+    n_cols = -(-D // 256) * 256
+    head = min(1 << 20, D)
+    idx = (torch.arange(m, dtype=torch.int64)[:, None] * n_cols
+           + torch.arange(head, dtype=torch.int64)[None, :])
+    check(torch.equal(bits[:, :head].cpu(),
+                      prng.bits_at(key, idx, m * n_cols).to(torch.uint32)),
+          "tree_forms: the card's bits differ from the CPU's draw")
+    for s, e in _chunks(width):
+        check(same_bits(torch, V[:, s:e], K.ref.obfuscate_ref(
+            X[:, s:e], G[:, s:e], bits[:, s:e], lam, 0.0, -1.0)),
+            f"obfuscate_tree differs from the plain version at {s}:{e}")
+    Wg = torch.Generator(device=dev)
+    Wg.manual_seed(17)
+    W = torch.rand(m, m, generator=Wg, device=dev)
+    B = torch.rand(m, m, generator=Wg, device=dev)
+    W, B = W / W.sum(0), B / B.sum(0)
+    K.reset_launch_counts()
+    out_tree = K.gossip_tree(W, B, layout.tree(X), layout.tree(V))
+    torch.cuda.synchronize()
+    check(K.launch_counts.get("gossip_update", 0) == 1,
+          f"gossip_tree launches {dict(K.launch_counts)}")
+    Y = layout.flatten(out_tree, m)
+    del out_tree
+    check(same_bits(torch, Y[:, :D], K.gossip_update(W, B, X, V)[:, :D]),
+          "gossip_tree differs from B2 on the flat buffers")
+    ulps = 0.0
+    for s, e in _chunks(width):
+        exact = K.ref.gossip_ref(W, B, X[:, s:e].float(), V[:, s:e].float())
+        ulps = max(ulps, bf16_ulps(torch, Y[:, s:e], exact, gossip_scale(
+            W, B, X[:, s:e], V[:, s:e])))
+    check(ulps <= 1.0, f"gossip_tree: {ulps} bf16 ulps from the plain version")
+    sample = min(1 << 22, D)
+    for s in (0, (D - sample) // 2, D - sample):
+        e = s + sample
+        mixed = torch.zeros((m, e - s), dtype=torch.float32, device=dev)
+        desc = torch.zeros_like(mixed)
+        for j in range(m):
+            mixed = fma_f32(W[:, j:j + 1], X[j:j + 1, s:e].float(), mixed)
+            desc = fma_f32(B[:, j:j + 1], V[j:j + 1, s:e].float(), desc)
+        check(same_bits(torch, Y[:, s:e], (mixed - desc).bfloat16()),
+              f"gossip_tree at {s}:{e} differs from B2's FMA chains")
+    rec = {"phase": "tree_forms", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "shape": [m, width],
+           "n_leaves": layout.n_leaves, "dtype": "bfloat16",
+           "B2_max_bf16_ulps": ulps,
+           "obfuscate_tree_ms": obf_tree_ms,
+           "gossip_tree_ms": time_ms(torch, lambda: K.gossip_tree(
+               W, B, layout.tree(X), layout.tree(V)), iters=3, warmup=1),
+           "B1_ms": time_ms(torch, lambda: K.obfuscate_update(
+               X, G, bits, lam, 0.0, -1.0, out=V), iters=10),
+           "B2_ms": time_ms(torch, lambda: K.gossip_update(W, B, X, V,
+                                                           out=Y), iters=10)}
+    emit(rec)
+    del X, G, V, Y, bits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+LEAFWISE_FLAGS = ("--kernel-layout", "leafwise")
+LEAFWISE_STEPS = 2
+# the leafwise route's gossip kernel by coupling
+LEAFWISE_GOSSIP = {"static": "gossip_update", "dropout":
+                   "masked_gossip_update", "fault": "guarded_gossip_update"}
+
+
+def phase_leafwise_path(torch, K, train, cfg):
+    """The bits path's configuration with --kernel-layout leafwise beside
+    the concat bits path (both reading the step's Lambda bits), static,
+    dropout 0.25 and FAULT_FLAGS: B1 and the gossip kernel (B2, B4, B6)
+    once per leaf a step, on the leaf's columns of the flat buffers.
+    Gates: the states and step records bitwise the concat runs'; B1 and
+    the gossip kernel leaves x steps, B3 0.  Then --unroll-k 2 beside the
+    same 4 steps eager (`_scanned_beside_eager`).  Returns the leafwise
+    runs' launches, summed."""
+    n_leaves = None
+    total: dict = {}
+    runs = {}
+    fseed = fault_seed(train, LEAFWISE_STEPS)[0]
+    for name, flags in (("static", ()), ("dropout", DROPOUT_FLAGS),
+                        ("fault", (*FAULT_FLAGS, "--fault-seed",
+                                   str(fseed)))):
+        cres, ccounts, cwall, cpeak = _run_path(
+            torch, K, train, cfg, LEAFWISE_STEPS, False, flags)
+        concat_flat = cres["state"].flat
+        chist = _step_records(cres)
+        del cres
+        lres, lcounts, lwall, lpeak = _run_path(
+            torch, K, train, cfg, LEAFWISE_STEPS, False,
+            (*flags, *LEAFWISE_FLAGS), held=True)
+        n_leaves = lres["state"].layout.n_leaves
+        lhist = _step_records(lres)
+        same = same_bits(torch, lres["state"].flat, concat_flat)
+        check(same, f"leafwise {name}: state differs from the concat run's")
+        check(_strip_times(lhist) == _strip_times(chist),
+              f"leafwise {name}: step records differ from the concat run's")
+        gk = LEAFWISE_GOSSIP[name]
+        n = n_leaves * LEAFWISE_STEPS
+        check(lcounts.get("obfuscate_update", 0) == n
+              and lcounts.get(gk, 0) == n
+              and lcounts.get("obfuscate_update_krng", 0) == 0,
+              f"leafwise {name} launches {lcounts}")
+        for k, v in lcounts.items():
+            total[k] = total.get(k, 0) + v
+        runs[name] = {
+            "flags": list(flags), "losses": [r["loss"] for r in lhist],
+            "ms_per_step": _ms_per_step(lhist, 0),
+            "ms_per_step_concat": _ms_per_step(chist, 0),
+            "run_wall_s": lwall, "run_wall_s_concat": cwall,
+            "max_memory_allocated": lpeak,
+            "max_memory_allocated_concat": cpeak,
+            "launches": lcounts, "launches_concat": ccounts,
+            "state_equals_concat_bitwise": same}
+        del lres, concat_flat
+        gc.collect()
+        torch.cuda.empty_cache()
+    scanned = _scanned_beside_eager(
+        torch, K, train, cfg, LEAFWISE_FLAGS,
+        {"obfuscate_update": n_leaves, "gossip_update": n_leaves},
+        steps=4, unroll=2)
+    emit({"phase": "leafwise_path", "arch": cfg.name,
+          "num_layers": cfg.num_layers, "agents": 4, "topology": "ring",
+          "per_agent_batch": 2, "seq_len": 512, "steps": LEAFWISE_STEPS,
+          "n_leaves": n_leaves, "runs": runs, "scanned": scanned})
+    return total
+
+
+def phase_trivial_mesh_step(torch, K, train, cfg):
+    """`launch.mesh.make_sharded_mesh(agents=4, fsdp=1, tensor=1)` on a
+    one-rank NCCL group, leaf specs from TRAIN_RULES, three leafwise steps
+    of the bits path's configuration each from the mesh=None leafwise
+    trajectory's state.  Gates: equal losses; the parameters within B2's
+    bf16 tolerance of mesh=None: |mesh - none| <= (2^-7 + 1e-6) |W||X| +
+    2^-6 |x'| per entry (the mesh form rounds its two f32 products and
+    their difference to bf16, B2 only the difference: at most 2^-8 (2
+    |W X| + 3 |x'|) apart); the max deviation printed."""
+    import torch.distributed as dist
+    from repro_torch.core.pdsgd import (DecentralizedState, init_state,
+                                        make_decentralized_step)
+    from repro_torch.core.privacy import tree_leaves, tree_unflatten
+    from repro_torch.core.schedules import warmup_harmonic
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.dist.sharding import TRAIN_RULES, logical_spec
+    from repro_torch.kernels.build import to_device
+    from repro_torch.launch.mesh import make_sharded_mesh
+    from repro_torch.launch.specs import with_agent_axis
+    from repro_torch.models import build_model
+    from repro_torch.core import prng
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        m = 4
+        mesh = make_sharded_mesh(agents=m, fsdp=1, tensor=1)
+        bundle = build_model(cfg)
+        abs_m, log_m = with_agent_axis(bundle.abstract(),
+                                       bundle.logical_axes(), m)
+        specs = tree_unflatten(abs_m, [
+            logical_spec(mesh, a.shape, log, TRAIN_RULES)
+            for a, log in zip(tree_leaves(abs_m), tree_leaves(log_m))])
+        check(all(s == () for s in tree_leaves(specs)),
+              "trivial mesh: every leaf replicated")
+        args = _path_args(train, 3)
+        mixing = train.build_mixing(args)
+        sched = warmup_harmonic(args.lr, hold=args.warmup_hold)
+        step_mesh = make_decentralized_step(
+            bundle.loss_fn, mixing, sched, kernel_rng=False,
+            kernel_layout="leafwise", mesh=mesh, leaf_specs=specs)
+        step_none = make_decentralized_step(
+            bundle.loss_fn, mixing, sched, kernel_rng=False,
+            kernel_layout="leafwise")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(args.seed)
+        state = init_state(bundle.init(gen, dev), m, device=dev)
+        pipeline = make_lm_pipeline(cfg.vocab_size, m, 2, 512,
+                                    seed=args.seed)
+        key = prng.key(args.seed + 1)
+        worst, ratio, times = 0.0, 0.0, {"mesh": [], "none": []}
+        losses = []
+        K.reset_launch_counts()
+        for k in range(3):
+            batch = {n: to_device(torch.from_numpy(v), dev)
+                     for n, v in pipeline.batch_at(k).items()}
+            X0 = state.flat.clone()
+            other = DecentralizedState(flat=X0.clone(), layout=state.layout,
+                                       step=state.step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            other, aux_m = step_mesh(other, batch, prng.fold_in(key, k))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, aux = step_none(state, batch, prng.fold_in(key, k))
+            torch.cuda.synchronize()
+            times["mesh"].append((t1 - t0) * 1e3)
+            times["none"].append((time.perf_counter() - t1) * 1e3)
+            check(float(aux_m["loss"]) == float(aux["loss"]),
+                  f"trivial mesh step {k}: losses differ")
+            losses.append(float(aux["loss"]))
+            W = mixing.realize(k, dev)[0]
+            for s, e in _chunks(X0.shape[1]):
+                a, b = other.flat[:, s:e].float(), state.flat[:, s:e].float()
+                diff = (a - b).abs()
+                wx = W.abs().float() @ X0[:, s:e].float().abs()
+                # + 1e-6 |W||X|: the f32 products' own summation orders
+                # (B2's FMA chain, the einsum's), as B2's checks allow
+                tol = (2.0 ** -7 + 1e-6) * wx + 2.0 ** -6 * b.abs()
+                worst = max(worst, float(diff.max()))
+                ratio = max(ratio, float((diff / tol.clamp_min(1e-30))
+                                         .max()))
+            check(ratio <= 1.0, f"trivial mesh step {k}: {ratio} of B2's "
+                                f"bf16 tolerance")
+            del other, X0
+        counts = dict(K.launch_counts)
+        rec = {"phase": "trivial_mesh_step", "arch": cfg.name,
+               "num_layers": cfg.num_layers, "mesh": dict(zip(
+                   mesh.mesh_dim_names, tuple(mesh.shape))),
+               "backend": dist.get_backend(), "agents": m, "steps": 3,
+               "losses": losses, "max_abs_deviation": worst,
+               "max_share_of_tolerance": ratio,
+               "ms_per_step_mesh": times["mesh"],
+               "ms_per_step_none": times["none"], "launches": counts}
+        emit(rec)
+        print(f"trivial_mesh_step: max |mesh - none| {worst} "
+              f"({ratio:.3f} of the tolerance)", flush=True)
+        del state
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 FIG2_ITERS = 600
 FIG2_UNROLL = 100
 # the reference's recorded final_err_scanned of the Fig. 2 workload
@@ -2051,6 +2522,9 @@ FIG2_UNROLL = 100
 NORTH_STAR = 0.07891825798133546
 SCANNED_UNROLL = 4
 SCANNED_STEPS = 12  # a warm-up chunk, then two replayed chunks
+# the stablelm scanned cells' depth (the main path's 8 halved for the
+# time limit: those cells are bound by the host's dispatch)
+SCANNED_LAYERS = 4
 BASELINE_STEPS = 3
 
 
@@ -2574,10 +3048,12 @@ def phase_rollback_path_scanned(torch, K, train, cfg):
 
 XLSTM_SCANNED_STEPS = 6  # a warm-up chunk, then two replayed chunks
 XLSTM_SCANNED_UNROLL = 2
-# the scanned xLSTM cell at depth 12 -> 6 blocks, then 4 (2 mLSTM, 2
-# sLSTM) for the script's time limit: on an NVIDIA H100 80GB HBM3 at
-# 700.00 W its capture took 47.5 s of 106.5 at 12, the phase 49.8 s at 6
-XLSTM_SCANNED_LAYERS = 4
+# the scanned xLSTM cell at depth 12 -> 6 blocks, then 4, then 2 (1
+# mLSTM, 1 sLSTM) for the script's time limit: on an NVIDIA H100 80GB HBM3
+# at 700.00 W its capture took 47.5 s of 106.5 at 12, the phase 49.8 s at
+# 6, and 44.9 s at 4 with per-layer recompute (the sLSTM loop's forward
+# runs twice a step)
+XLSTM_SCANNED_LAYERS = 2
 
 
 def _family_train_scanned(torch, K, train, cfg, phase: str, b11: int,
@@ -2615,12 +3091,13 @@ def phase_xlstm_train_scanned(torch, K, train, cfg):
     then two chunks replayed from one CUDA graph that holds the sLSTM
     token loop unrolled and B11's autograd Function, beside the same 6
     steps eager.  Gates: states and step records equal; B3 and B2 once a
-    step and B11 4 agents x the mLSTM blocks x 2 calls a step."""
+    step and B11 4 agents x the mLSTM blocks x 2 calls x RECOMPUTE a
+    step."""
     check(cfg.num_layers == XLSTM_SCANNED_LAYERS and cfg.d_model == 768,
           "xlstm-125m at full width")
     return _family_train_scanned(
         torch, K, train, cfg, "xlstm_train_scanned",
-        4 * _mlstm_blocks(cfg) * 2, XLSTM_SCANNED_STEPS,
+        4 * _mlstm_blocks(cfg) * 2 * RECOMPUTE, XLSTM_SCANNED_STEPS,
         XLSTM_SCANNED_UNROLL, XLSTM_TRAIN_SEQ)
 
 
@@ -3318,9 +3795,10 @@ def phase_privacy_capture_path(torch, K, train, prng, cfg):
 # dsgd last but one: its state is held for the comparison with the graph
 BASELINE_RUNS = (
     ("dsgt", ("--algorithm", "dsgt"), BASELINE_STEPS),
-    ("dp_dsgd", ("--algorithm", "dp_dsgd", "--sigma-dp", "0.01"),
-     BASELINE_STEPS),
-    ("pdsgd_clip", ("--grad-clip-kappa", "1.0"), BASELINE_STEPS),
+    # 2 steps (a warm-up and a timed one) for the script's time limit:
+    # DP-DSGD's normals take ~6 s a step in int64 torch ops
+    ("dp_dsgd", ("--algorithm", "dp_dsgd", "--sigma-dp", "0.01"), 2),
+    ("pdsgd_clip", ("--grad-clip-kappa", "1.0"), 2),
     ("dsgd", ("--algorithm", "dsgd"), 2 * BASELINE_STEPS),
     ("dsgd_unroll3", ("--algorithm", "dsgd", "--unroll-k", "3"),
      2 * BASELINE_STEPS),
@@ -3616,17 +4094,17 @@ def phase_profile_serve(torch, serve, requests: int = 8, gen: int = 24,
 # slots, so admission refills slots of a live slab.  For the script's time
 # limit (1331 s with every cell at its earlier size, 1054 s after a first
 # round of cuts, on one H100 80GB HBM3 at 700 W) stablelm-3b is served at
-# full width, depth 32 -> 8, and 16 -> 9 requests; its oracle decodes
-# every request's 64 tokens at M = 8
-SERVE_LAYERS = 8
+# full width, depth 32 -> 8, then 4, and 16 -> 9 requests; its
+# oracle decodes every request's 64 tokens at M = 8
+SERVE_LAYERS = 4
 SERVE_PATH_ARGS = ("--arch", "stablelm-3b", "--slots", "8", "--requests",
                    "9", "--prompt-len", "2000", "--gen-tokens", "64",
                    "--decode-chunk", "8", "--parity-check")
 # xlstm-125m at full width: prompts of 500 (no multiple of 64, so the dt
 # = 0 padding runs), cut from stablelm's 2000 for the sLSTM's host loop
 # (a few ops a token and block); 9 requests on 8 slots; cut for the
-# script's time limit to 6 blocks (12) and 9 requests (16)
-XLSTM_SERVE_LAYERS = 6
+# script's time limit to 6 blocks (12), then 4, and 9 requests (16)
+XLSTM_SERVE_LAYERS = 4
 XLSTM_SERVE_ARGS = ("--arch", "xlstm-125m", "--slots", "8", "--requests",
                     "9", "--prompt-len", "500", "--gen-tokens", "32",
                     "--decode-chunk", "8", "--parity-check")
@@ -4305,22 +4783,28 @@ def _family_train_path(torch, K, train, cfg, phase: str, full: bool,
 
 def phase_xlstm_step_parity(torch, K, train):
     """2 steps of xlstm-125m-smoke (one mLSTM and one sLSTM block) on the
-    card against the CPU (`_family_step_parity`); B11 8 a step (4 agents x
-    1 mLSTM block x 2 calls)."""
+    card against the CPU (`_family_step_parity`); B11 16 a step (4 agents x
+    1 mLSTM block x 2 calls x RECOMPUTE)."""
     from repro_torch.configs import get_config
     cfg = get_config("xlstm-125m-smoke")
     _family_step_parity(torch, K, train, "xlstm_step_parity", cfg, 2,
-                        4 * _mlstm_blocks(cfg) * 2)
+                        4 * _mlstm_blocks(cfg) * 2 * RECOMPUTE)
+
+
+# xlstm-125m's train path cut from 12 to 6 blocks for the script's time
+# limit: with per-layer recompute its eager step took 9.97 s at 12 on an
+# NVIDIA H100 80GB HBM3 at 700.00 W (the sLSTM's host loop twice a step)
+XLSTM_TRAIN_LAYERS = 6
 
 
 def phase_xlstm_train_path(torch, K, train, cfg):
-    """xlstm-125m at full width and depth (12 blocks, d_model 768), seq
-    XLSTM_TRAIN_SEQ (`_family_train_path`): B11 in every mLSTM forward, 4
-    agents x 6 blocks x 2 calls a step."""
+    """xlstm-125m at full width (d_model 768), XLSTM_TRAIN_LAYERS blocks,
+    seq XLSTM_TRAIN_SEQ (`_family_train_path`): B11 in every mLSTM
+    forward, 4 agents x 3 mLSTM blocks x 2 calls x RECOMPUTE a step."""
     return _family_train_path(
         torch, K, train, cfg, "xlstm_train_path",
-        cfg.num_layers == 12 and cfg.d_model == 768, XLSTM_TRAIN_SEQ,
-        4 * _mlstm_blocks(cfg) * 2)
+        cfg.num_layers == XLSTM_TRAIN_LAYERS and cfg.d_model == 768,
+        XLSTM_TRAIN_SEQ, 4 * _mlstm_blocks(cfg) * 2 * RECOMPUTE)
 
 
 # zamba2-7b (arXiv:2411.15242, the reference's config): training cut from
@@ -4334,8 +4818,9 @@ HYBRID_SCANNED_UNROLL = 2
 # padding runs) on 8 slots; 9 requests (one admitted into a live slab) of
 # 32 tokens, cut from 16 requests for the script's time limit (a
 # request's oracle decode costs a prefill and a chunk's steps); depth 81
-# -> 24 mamba layers (4 sites, both shared blocks), for the same limit
-HYBRID_SERVE_LAYERS = 24
+# -> 24 mamba layers (4 sites, both shared blocks), then 12 (2 sites, both
+# shared blocks) for the same limit
+HYBRID_SERVE_LAYERS = 12
 HYBRID_SERVE_ARGS = ("--arch", "zamba2-7b", "--slots", "8", "--requests",
                      "9", "--prompt-len", "2000", "--gen-tokens", "32",
                      "--decode-chunk", "8", "--parity-check")
@@ -4351,33 +4836,33 @@ def phase_hybrid_step_parity(torch, K, train):
     """One PDSGD step of zamba2-7b-smoke at 4 layers (sites 1 and 3 on
     shared blocks 0 and 1) on the card against the CPU
     (`_family_step_parity`); B11 in each mamba forward with B and C shared
-    by the heads, 4 agents x 4 layers a step."""
+    by the heads, 4 agents x 4 layers x RECOMPUTE a step."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config("zamba2-7b-smoke"), num_layers=4)
     _family_step_parity(torch, K, train, "hybrid_step_parity", cfg, 1,
-                        4 * cfg.num_layers)
+                        4 * cfg.num_layers * RECOMPUTE)
 
 
 def phase_hybrid_train_path(torch, K, train, cfg):
     """zamba2-7b at full width and HYBRID_TRAIN_LAYERS mamba layers, seq
     512 (`_family_train_path`): B11 in every mamba forward, 4 agents x 12
-    layers a step (G = 16 chunks, 112 heads)."""
+    layers x RECOMPUTE a step (G = 16 chunks, 112 heads)."""
     n_mamba, n_sites = _hybrid_counts(cfg)
     return _family_train_path(
         torch, K, train, cfg, "hybrid_train_path",
         cfg.family == "hybrid" and cfg.d_model == 3584
         and n_mamba == HYBRID_TRAIN_LAYERS and n_sites == 2, 512,
-        4 * n_mamba, attn_sites=n_sites)
+        4 * n_mamba * RECOMPUTE, attn_sites=n_sites)
 
 
 def phase_hybrid_train_scanned(torch, K, train, cfg):
     """The hybrid train path through `--unroll-k 2`: a warm-up chunk, then
-    two chunks replayed from one CUDA graph, beside the same 6 steps eager
-    (`_family_train_scanned`); B11 48 times a step (4 agents x 12 mamba
-    layers)."""
+    two chunks replayed from a CUDA graph, beside the same 6 steps eager
+    (`_family_train_scanned`); B11 96 times a step (4 agents x 12 mamba
+    layers x RECOMPUTE)."""
     return _family_train_scanned(
         torch, K, train, cfg, "hybrid_train_scanned",
-        4 * _hybrid_counts(cfg)[0], HYBRID_SCANNED_STEPS,
+        4 * _hybrid_counts(cfg)[0] * RECOMPUTE, HYBRID_SCANNED_STEPS,
         HYBRID_SCANNED_UNROLL, 512)
 
 
@@ -4403,7 +4888,8 @@ def phase_hybrid_serve_parity(torch, serve):
 
 def phase_hybrid_serve_path(torch, K, serve):
     """HYBRID_SERVE_ARGS: zamba2-7b at full width, HYBRID_SERVE_LAYERS
-    mamba layers (4 shared attention sites), bf16 weights (the residual stream
+    mamba layers (a shared attention site after every sixth), bf16 weights
+    (the residual stream
     f32 from the first mamba block on, as the reference's), 9 requests of
     2000-token prompts on 8 slots, 32 tokens each in chunks of 8.  Every
     prefill runs B11 in each mamba layer (G = 32 chunks, 112 heads) and
@@ -4415,7 +4901,8 @@ def phase_hybrid_serve_path(torch, K, serve):
 
     def full(cfg):
         return (cfg.family == "hybrid" and cfg.d_model == 3584
-                and _hybrid_counts(cfg) == (HYBRID_SERVE_LAYERS, 4))
+                and _hybrid_counts(cfg) == (HYBRID_SERVE_LAYERS,
+                                            HYBRID_SERVE_LAYERS // 6))
 
     def expect(cfg, prefills, steps):
         n_mamba, n_sites = _hybrid_counts(cfg)
@@ -4754,8 +5241,8 @@ ENCDEC_SERVE_ARGS = ("--arch", "seamless-m4t-medium", "--mode", "oneshot",
 # 67.9 GB of weights do not fit beside a 9.6 GB KV slab for the engine
 # and another for the oracle); the continuous engine, 8 requests of 2560
 # positions (2304 image embeddings, then 256 text tokens) on 8 slots, 32
-# tokens
-VLM_SERVE_LAYERS = 24
+# tokens; depth 24 cut to 12 for the script's time limit
+VLM_SERVE_LAYERS = 12
 VLM_SERVE_ARGS = ("--arch", "llava-next-34b", "--slots", "8", "--requests",
                   "8", "--prompt-len", "2560", "--gen-tokens", "32",
                   "--decode-chunk", "8", "--parity-check")
@@ -5041,7 +5528,8 @@ def phase_vlm_serve_parity(torch, serve):
 def phase_vlm_serve_path(torch, K, serve):
     """VLM_SERVE_ARGS: llava-next-34b at full width, VLM_SERVE_LAYERS
     layers, bf16, 8 requests of 2304 image embeddings and 256 text tokens
-    on 8 slots, 32 tokens each in chunks of 8; B10 24 times a prefill at
+    on 8 slots, 32 tokens each in chunks of 8; B10 VLM_SERVE_LAYERS times
+    a prefill at
     (1, 2560, 56, 128) (k and v repeated 7x).  Gate: the engine's streams
     equal the same-width oracle's, prefixes included
     (`_serve_path_phase`)."""
@@ -5122,6 +5610,7 @@ def main(argv=None) -> int:
     smi = phase_device(torch, build)
     phase_kernels(torch, K, prng)
     phase_kernels_coupled(torch, K)
+    phase_kernels_strided(torch, K)
     phase_kernels_ring(torch, K, prng)
     b10 = phase_kernel_attention(torch, K)
     b11 = phase_kernel_ssd(torch, K)
@@ -5141,17 +5630,18 @@ def main(argv=None) -> int:
         phase_fig2_trimmed_mean(torch, K, prng, opts.profile)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_main_path_scanned(torch, K, train, main_cfg)
+        scanned_cfg = dataclasses.replace(full, num_layers=SCANNED_LAYERS)
+        phase_main_path_scanned(torch, K, train, scanned_cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_dropout_path_scanned(torch, K, train, main_cfg)
+        phase_dropout_path_scanned(torch, K, train, scanned_cfg)
         gc.collect()
         torch.cuda.empty_cache()
         phase_fault_realize(torch, prng)
-        phase_fault_path_scanned(torch, K, train, main_cfg)
+        phase_fault_path_scanned(torch, K, train, scanned_cfg)
         gc.collect()
         torch.cuda.empty_cache()
-        phase_ring_path_scanned(torch, K, train, main_cfg)
+        phase_ring_path_scanned(torch, K, train, scanned_cfg)
         gc.collect()
         torch.cuda.empty_cache()
         phase_checkpoint_path(torch, K, train, dataclasses.replace(
@@ -5167,11 +5657,11 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         if opts.profile:
-            phase_profile_scanned(torch, train, main_cfg)
+            phase_profile_scanned(torch, train, scanned_cfg)
             gc.collect()
             torch.cuda.empty_cache()
             phase_profile_scanned(
-                torch, train, main_cfg, "fault_path_scanned",
+                torch, train, scanned_cfg, "fault_path_scanned",
                 (*FAULT_FLAGS, "--fault-seed", str(fault_seed_replayed(
                     train, FAULT_FLAGS, SCANNED_STEPS, SCANNED_UNROLL))),
                 {"obfuscate_update_krng": "obfuscate_krng_kernel",
@@ -5179,7 +5669,7 @@ def main(argv=None) -> int:
             gc.collect()
             torch.cuda.empty_cache()
             phase_profile_scanned(
-                torch, train, main_cfg, "ring_path_scanned", RING_FLAGS,
+                torch, train, scanned_cfg, "ring_path_scanned", RING_FLAGS,
                 {"ring_obfuscate_gossip_krng": "ring_krng_kernel"})
             gc.collect()
             torch.cuda.empty_cache()
@@ -5206,6 +5696,11 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         rows.update(phase_ring_bits_path(torch, K, train, prng, bits_cfg))
         torch.cuda.empty_cache()
+        phase_tree_forms(torch, K, prng, bits_cfg)
+        leafwise = phase_leafwise_path(torch, K, train, bits_cfg)
+        phase_trivial_mesh_step(torch, K, train, bits_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
         phase_privacy_capture_path(torch, K, train, prng, bits_cfg)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5221,7 +5716,9 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         phase_xlstm_step_parity(torch, K, train)
         xlstm_cfg = get_config("xlstm-125m")
-        train_counts = phase_xlstm_train_path(torch, K, train, xlstm_cfg)
+        train_counts = phase_xlstm_train_path(
+            torch, K, train, dataclasses.replace(
+                xlstm_cfg, num_layers=XLSTM_TRAIN_LAYERS))
         torch.cuda.empty_cache()
         phase_xlstm_train_scanned(torch, K, train, dataclasses.replace(
             xlstm_cfg, num_layers=XLSTM_SCANNED_LAYERS))
@@ -5260,6 +5757,7 @@ def main(argv=None) -> int:
         phase_hybrid_train_scanned(torch, K, train, hybrid_cfg)
         gc.collect()
         torch.cuda.empty_cache()
+        phase_recompute_peak(torch, K, hybrid_cfg, "recompute_peak_hybrid")
         phase_hybrid_serve_parity(torch, serve)
         gc.collect()
         torch.cuda.empty_cache()
@@ -5282,6 +5780,7 @@ def main(argv=None) -> int:
                                    "gqa_train_scanned")
         gc.collect()
         torch.cuda.empty_cache()
+        phase_recompute_peak(torch, K, gqa_cfg, "recompute_peak_gqa")
         phase_moe_step_parity(torch, K, train)
         moe_cfg = get_config("granite-moe-1b-a400m")
         phase_moe_train_path(torch, K, train, moe_cfg)
@@ -5350,8 +5849,14 @@ def main(argv=None) -> int:
             c.get("ssd_intra_chunk", 0) for c in (
                 train_counts, serve_counts, hybrid_train, hybrid_serve))},
             b11)
-        # each kernel's launches from its own path's run, counted there
-        # with the counts set to 0 just before it
+        # B1, B2, B4 and B6 also ran once per leaf in the leafwise runs
+        for name in ("obfuscate_update", "gossip_update",
+                     "masked_gossip_update", "guarded_gossip_update"):
+            counts, r = rows[name]
+            rows[name] = ({**counts, name: counts.get(name, 0)
+                           + leafwise.get(name, 0)}, r)
+        # each kernel's launches from its own path's runs, counted there
+        # with the counts set to 0 just before each
         kernels = []
         for name, (counts, r) in rows.items():
             src, replaces = SOURCES[name]

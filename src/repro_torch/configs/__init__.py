@@ -1,10 +1,13 @@
 """Config registry: ``get_config("<arch-id>")`` with the ``-smoke`` and
-``-tiny`` suffixes.  Only the architectures the port runs are listed."""
+``-tiny`` suffixes, and the input-shape table with `config_for_shape`
+(counterpart of ``repro.configs``)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
-from .base import ArchConfig, reduced_variant, tiny_variant
+from .base import (INPUT_SHAPES, ArchConfig, InputShape, reduced_variant,
+                   tiny_variant)
 
 _ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m",
           "zamba2-7b": "zamba2_7b", "granite-8b": "granite_8b",
@@ -16,6 +19,8 @@ _ARCHS = {"stablelm-3b": "stablelm_3b", "xlstm-125m": "xlstm_125m",
           "llava-next-34b": "llava_next_34b"}
 
 ARCH_NAMES = tuple(_ARCHS)
+
+LONG_WINDOW = 4096  # the sliding window long_500k applies to windowed archs
 
 
 def get_config(name: str) -> ArchConfig:
@@ -29,5 +34,22 @@ def get_config(name: str) -> ArchConfig:
     return importlib.import_module(f".{_ARCHS[name]}", __package__).CONFIG
 
 
-__all__ = ["ArchConfig", "ARCH_NAMES", "get_config", "reduced_variant",
+def config_for_shape(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
+    """The config a shape runs: long_500k turns on the sub-quadratic
+    paths, a sliding window of LONG_WINDOW on the attention (on the
+    enc-dec family's cross-attention too), except for the xLSTM
+    (recurrent) and a ``long_context_mode="full_kv"`` config outside the
+    hybrid family (it keeps every position)."""
+    if shape.name != "long_500k" or cfg.family == "xlstm" \
+            or (cfg.family != "hybrid"
+                and cfg.long_context_mode == "full_kv"):
+        return cfg
+    if cfg.family == "audio":
+        return dataclasses.replace(cfg, attn_window=LONG_WINDOW,
+                                   cross_attn_window=LONG_WINDOW)
+    return dataclasses.replace(cfg, attn_window=LONG_WINDOW)
+
+
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "ARCH_NAMES",
+           "LONG_WINDOW", "get_config", "config_for_shape", "reduced_variant",
            "tiny_variant"]

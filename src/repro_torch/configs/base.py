@@ -7,7 +7,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Literal
 
-__all__ = ["ArchConfig", "reduced_variant", "tiny_variant"]
+__all__ = ["ArchConfig", "InputShape", "INPUT_SHAPES", "reduced_variant",
+           "tiny_variant"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,9 +33,11 @@ class ArchConfig:
     # blocked online-softmax form over attn_chunk-wide query and key blocks
     attn_impl: Literal["naive", "chunked"] = "naive"
     attn_chunk: int = 4096
-    # the reference's per-layer remat and lax.scan traversal: they change
-    # its memory and compile time, not values; the port's layer loop is
-    # the same Python loop either way and keeps every activation
+    # per-layer recompute in training: "full" keeps only each layer's
+    # input for the backward, "save_collectives" also the attention's
+    # output projection (the dense, MoE and VLM layers; the other
+    # families recompute fully under either, as the reference's); the
+    # reference's lax.scan traversal changes its compile time, not values
     remat_policy: Literal["full", "save_collectives"] = "full"
     scan_layers: bool = False
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
@@ -75,6 +78,25 @@ class ArchConfig:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One workload's input: ``global_batch`` sequences of ``seq_len``
+    tokens, for training, a prefill or decoding."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 def reduced_variant(cfg: ArchConfig) -> ArchConfig:

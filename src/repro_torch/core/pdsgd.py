@@ -7,7 +7,8 @@ and the baselines it is evaluated against (counterpart of
 
   * ``pdsgd``   : Eq. (4), over a static or time-varying mixing process,
                   with agent faults, sentinels and trimmed-mean
-                  aggregation, in the concat or the ring kernel layout;
+                  aggregation, in the concat, the ring or the leafwise
+                  kernel layout;
   * ``dsgd``    : x^{k+1} = W x^k - lam^k g^k                  (Lian et al.)
   * ``dsgt``    : gradient tracking, x and the tracker y both gossiped
                   (2x PDSGD's message volume);
@@ -50,12 +51,14 @@ from typing import Any, Callable
 import torch
 
 from ..dist import collectives as C
+from ..dist.sharding import mesh_pdsgd_tree
 from ..faults.inject import (guarded_gossip_mix, neighbor_avg_warmstart,
                              trimmed_mean_mix)
 from ..faults.process import FaultProcess, realize_coupling
 from ..kernels.build import launch_counts, to_device
 from ..kernels.obfuscate import obfuscate_update, obfuscate_update_krng
-from ..kernels.ops import FlatLayout, fused_pdsgd_flat, ring_pdsgd_flat
+from ..kernels.ops import (FlatLayout, fused_pdsgd_flat, leafwise_pdsgd_flat,
+                           ring_pdsgd_flat)
 from ..optim.base import tree_map
 from ..privacy import observe as O
 from . import prng
@@ -72,20 +75,25 @@ __all__ = ["ALGORITHMS", "DecentralizedState", "init_state",
            "make_decentralized_step", "make_scanned_steps"]
 
 ALGORITHMS = ("pdsgd", "dsgd", "dsgt", "dp_dsgd")
-_LAYOUTS = ("concat", "ring")
+_LAYOUTS = ("concat", "leafwise", "ring")
 _RING_CORRUPT = ("kernel_layout='ring' does not carry corrupt-link "
                  "injection; the guarded fault path stays dense")
 _RING_STREAM = ("kernel_layout='ring' draws jax's partitionable threefry "
                 "stream only")
+_LEAFWISE_OBSERVE = ("observation capture is defined on the concatenated "
+                     "wire buffer; kernel_layout='leafwise' does not "
+                     "support it")
 # columns a chunk of the plain (m, width) passes
 _CHUNK = 1 << 24
 
 
-def _check_layout(kernel_layout: str) -> None:
+def _check_layout(kernel_layout: str, mesh=None) -> None:
     if kernel_layout not in _LAYOUTS:
         raise ValueError(f"unknown kernel_layout {kernel_layout!r}; have "
-                         f"{_LAYOUTS} (the leafwise layout of sharded "
-                         f"agents is not ported yet)")
+                         f"{_LAYOUTS}")
+    if mesh is not None and kernel_layout != "leafwise":
+        raise ValueError(f"a mesh runs the leafwise layout only, not "
+                         f"kernel_layout={kernel_layout!r}")
 
 
 @dataclasses.dataclass
@@ -404,7 +412,8 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                  kernel_layout: str = "concat",
                  torus_shape: tuple[int, int] | None = None,
                  partitionable: bool = True, observe: bool = False,
-                 fields: tuple[str, ...] = O.RECORD_FIELDS):
+                 fields: tuple[str, ...] = O.RECORD_FIELDS,
+                 mesh=None, leaf_specs=None):
     """One iteration of Eq. (4) on flat (m, width) buffers; returns x'.
 
     ``W``/``support`` are this step's realized coupling and its support
@@ -435,6 +444,18 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     and an exactly-zero message.  ``corrupt`` is refused (the guarded
     fault path stays dense).
 
+    ``kernel_layout="leafwise"`` runs the two kernels once per leaf, on
+    the leaf's own columns of the flat buffers (`kernels.ops.
+    leafwise_pdsgd_flat`: B1 reading the `per_agent_bits` buffer, then
+    B2, B4 with ``mask`` or B6 with ``corrupt``), every column the concat
+    bits path's bit for bit.  With ``mesh`` (a `DeviceMesh`) and
+    ``leaf_specs`` (a partition spec per leaf, agent axis included,
+    `dist.sharding`) each leaf is a DTensor on the mesh
+    (`dist.sharding.mesh_pdsgd_tree`): B1 on its local shard, the
+    gossip an f32 product over the agent axis; ``corrupt`` is refused
+    there.  ``observe`` is refused (capture is defined on the
+    concatenated wire buffer).
+
     ``eager=True`` is the reference's unfused formula (its
     ``use_pallas=False`` branch, whatever the layout): per agent
     `privacy.obfuscated_gradient` over the leaves, then per leaf
@@ -458,10 +479,12 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     bits as without it.  ``corrupt`` is refused with it (a poisoned wire
     is not an audited scenario).
     """
-    _check_layout(kernel_layout)
+    _check_layout(kernel_layout, mesh)
     if observe and corrupt is not None:
         raise ValueError("observation capture with corrupt links is not "
                          "an audited scenario")
+    if observe and kernel_layout == "leafwise" and not eager:
+        raise ValueError(_LEAFWISE_OBSERVE)
     B = sample_B(agent_key(prng.fold_in(key, 2), step, 0), support,
                  partitionable)
     D = layout.size
@@ -500,6 +523,11 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
         if "u" in fields:
             rec["u_flat"] = flats["u"][:, :D]
         return out, O.full_record(v=rec.pop("v"), **rec)
+    if kernel_layout == "leafwise" and not eager:
+        return _leafwise_update(X, G, layout, W, B, lam_bar, key, step,
+                                in_place, mask, corrupt, corrupt_mode,
+                                corrupt_scale, guard_clip, partitionable,
+                                mesh, leaf_specs)
     if eager:
         u_rows = _obfuscated_rows(G, layout, key, step, lam_bar,
                                   partitionable)
@@ -532,6 +560,30 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     if not observe:
         return out
     return out, O.full_record(v=rec.pop("v"), **rec)
+
+
+def _leafwise_update(X, G, layout: FlatLayout, W, B, lam_bar, key, step,
+                     in_place: bool, mask, corrupt, corrupt_mode,
+                     corrupt_scale, guard_clip, partitionable: bool, mesh,
+                     leaf_specs) -> torch.Tensor:
+    """`pdsgd_update`'s leafwise layout (x' written over X with
+    ``in_place``, else into a new buffer)."""
+    m = X.shape[0]
+    bits = per_agent_bits(key, step, layout, m, device=X.device,
+                          partitionable=partitionable)
+    if not in_place:
+        X, G = X.clone(), G.clone()
+    if mesh is None:
+        return leafwise_pdsgd_flat(
+            W, B, X, G, bits, layout, lam_bar, mask=mask, corrupt=corrupt,
+            corrupt_mode=corrupt_mode, corrupt_scale=corrupt_scale,
+            guard_clip=guard_clip)
+    out = mesh_pdsgd_tree(W, B, layout.tree(X), layout.tree(G),
+                          layout.tree(bits), lam_bar, mesh=mesh,
+                          leaf_specs=leaf_specs, mask=mask, corrupt=corrupt)
+    for view, leaf in zip(layout.leaf_views(X), tree_leaves(out)):
+        view.copy_(leaf.full_tensor())
+    return X
 
 
 def _tap_record(rec: dict, fields, W, B, X: torch.Tensor, U: torch.Tensor,
@@ -641,11 +693,15 @@ def _trimmed_mean(flat: torch.Tensor, U: torch.Tensor, support, corrupt, *,
                                     scale=scale))
 
 
-def _graph_refusal(eager: bool) -> str | None:
+def _graph_refusal(eager: bool, mesh=None) -> str | None:
     """What keeps a step out of the CUDA graph of `make_scanned_steps`, or
-    None: only the port's unfused oracle (``eager=True``), which is the
-    tests' reference for the kernels' route, not a route to train by."""
-    return "the unfused oracle (eager=True)" if eager else None
+    None: the port's unfused oracle (``eager=True``), which is the tests'
+    reference for the kernels' route, not a route to train by, and the
+    leafwise layout over a mesh (DTensor's dispatch runs on the host at
+    every call)."""
+    if eager:
+        return "the unfused oracle (eager=True)"
+    return "the leafwise layout over a mesh" if mesh is not None else None
 
 
 def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
@@ -661,7 +717,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                             kernel_layout: str = "concat",
                             torus_shape: tuple[int, int] | None = None,
                             partitionable: bool = True,
-                            observer: O.Adversary | None = None):
+                            observer: O.Adversary | None = None,
+                            mesh=None, leaf_specs=None):
     """``step(state, batch, key) -> (state, aux)`` for one of `ALGORITHMS`.
 
     ``loss_fn(params_i, batch_i)`` is ONE agent's scalar loss; batch leaves
@@ -673,7 +730,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     gets Lambda's bits (see `pdsgd_update`); ``eager=True`` runs the
     unfused formula instead of the kernels (the tests' oracle).
     ``kernel_layout``/``torus_shape`` pick the update's layout
-    (`pdsgd_update`): ``"ring"`` runs it as one ring kernel per step.
+    (`pdsgd_update`): ``"ring"`` runs it as one ring kernel per step,
+    ``"leafwise"`` as the two kernels once per leaf (with ``mesh`` and
+    ``leaf_specs``: on a device mesh, the leaves DTensors).
 
     ``algorithm``: ``pdsgd`` (Eq. 4, the kernels), or a baseline — ``dsgd``
     (`dsgd_update`), ``dsgt`` (in place on ``state.tracker``, the
@@ -755,7 +814,9 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
     if aggregation not in ("gossip", "trimmed_mean"):
         raise ValueError(f"unknown aggregation {aggregation!r}; "
                          f"have ('gossip', 'trimmed_mean')")
-    _check_layout(kernel_layout)
+    _check_layout(kernel_layout, mesh)
+    if kernel_layout == "leafwise" and observer is not None:
+        raise ValueError(_LEAFWISE_OBSERVE)
     process = as_process(topology)
     if faults is not None and faults.is_inert:
         faults = None  # the rate-0 path IS the fault-free path
@@ -886,7 +947,8 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
                     else 1e4,
                     guard_clip=faults.guard_clip if corrupting else 1e3,
                     kernel_layout=kernel_layout, torus_shape=torus_shape,
-                    partitionable=partitionable,
+                    partitionable=partitionable, mesh=mesh,
+                    leaf_specs=leaf_specs,
                     observe=observer is not None,
                     fields=(observer.fields if observer is not None
                             else O.RECORD_FIELDS))
@@ -936,7 +998,7 @@ def make_decentralized_step(loss_fn: Callable[[Any, Any], torch.Tensor],
         return inner(state, batch, key, state.step)
 
     step.inner = inner
-    step.graph_refusal = _graph_refusal(eager)
+    step.graph_refusal = _graph_refusal(eager, mesh)
     return step
 
 

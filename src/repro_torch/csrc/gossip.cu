@@ -35,6 +35,17 @@
 // order other than the reference's dot product, so parity with the plain
 // version is to a tolerance.
 //
+// Strided leaves.  The leafwise layout runs a kernel on one leaf's columns
+// [o, o + n) of the (m, width) flat buffers, read in place: rows ld = width
+// apart, the start o on no particular boundary.  The columns up to the first
+// VEC-aligned one and after the last whole vector go one at a time, in a
+// second launch of one block (the same sums, so each column's value does not
+// depend on the split); a call on a whole contiguous buffer with n a
+// multiple of VEC has ld = n and no such columns, and one launch.  The
+// wrapper counts a call as one launch of its kernel either way.  The
+// in-kernel mask draw (masked_gossip_update_krng) takes whole vectors only:
+// an edge launch would draw the mask a second time.
+//
 // Masked weights.  Each block turns the mask into W_k in shared memory:
 // deg_i = sum_j mask_ij (integers, exact), w_ij = mask_ij / (1 + max(deg_i,
 // deg_j)) with a correctly rounded division (__fdiv_rn), w_ii = 1 - sum_j
@@ -164,11 +175,79 @@ __device__ __forceinline__ void metropolis(float* w_s, float* deg_s, int m) {
   __syncthreads();
 }
 
-template <typename T, int M, int VEC, int SRC>
+// V consecutive columns of row r, starting at column c (aligned to V).
+template <int V, typename T>
+__device__ __forceinline__ VecT<T, V> cols_at(const T* p, int64_t ld, int r,
+                                              int64_t c) {
+  return *reinterpret_cast<const VecT<T, V>*>(p + (int64_t)r * ld + c);
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_cols(T* p, int64_t ld, int r, int64_t c,
+                                           const VecT<T, V>& v) {
+  *reinterpret_cast<VecT<T, V>*>(p + (int64_t)r * ld + c) = v;
+}
+
+// The columns [c, c + V) of every row: x'_i = sum_j w_ij x_j - b_ij u_j.
+template <typename T, int M, int V>
+__device__ __forceinline__ void gossip_cols(const float* w_s,
+                                            const float* b_s, const T* X,
+                                            const T* U, T* out, int m,
+                                            int64_t ld, int64_t c) {
+  float mixed[M][V];
+  float desc[M][V];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      mixed[i][v] = 0.0f;
+      desc[i][v] = 0.0f;
+    }
+  }
+  // unrolled by 4, not fully: at M = 32 a full unroll hoists all 2 M
+  // loads next to the 2 M accumulators and spills
+#pragma unroll 4
+  for (int j = 0; j < M; ++j) {
+    if (j < m) {
+      const VecT<T, V> xv = cols_at<V>(X, ld, j, c);
+      const VecT<T, V> uv = cols_at<V>(U, ld, j, c);
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float wij = w_s[i * M + j];
+        const float bij = b_s[i * M + j];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          mixed[i][v] = fmaf(wij, to_f(xv.v[v]), mixed[i][v]);
+          desc[i][v] = fmaf(bij, to_f(uv.v[v]), desc[i][v]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i < m) {
+      VecT<T, V> ov;
+#pragma unroll
+      for (int v = 0; v < V; ++v) from_f(&ov.v[v], mixed[i][v] - desc[i][v]);
+      store_cols<V>(out, ld, i, c, ov);
+    }
+  }
+}
+
+// Column split of a launch: [0, head) and [tail0, n) one column
+// at a time, the aligned middle VEC columns at a time.
+struct Cols {
+  int64_t n;      // columns
+  int64_t ld;     // row stride of every (m, .) buffer, in elements
+  int64_t head;   // leading columns before the first VEC-aligned one
+  int64_t tail0;  // the first column after the last whole vector
+};
+
+template <typename T, int M, int VEC, int SRC, bool EDGE>
 __global__ void gossip_kernel(const float* __restrict__ wm,
                               const float* __restrict__ B, const T* X,
                               const T* __restrict__ U, T* out, int m,
-                              int64_t n, MaskDraw draw) {
+                              Cols cols, MaskDraw draw) {
   __shared__ float w_s[M * M];
   __shared__ float b_s[M * M];
   __shared__ float deg_s[M];
@@ -189,49 +268,18 @@ __global__ void gossip_kernel(const float* __restrict__ wm,
   } else {
     metropolis<M>(w_s, deg_s, m);
   }
-  const int64_t nv = n / VEC;
+  const int64_t body = (cols.tail0 - cols.head) / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < nv;
-       t += stride) {
-    float mixed[M][VEC];
-    float desc[M][VEC];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        mixed[i][v] = 0.0f;
-        desc[i][v] = 0.0f;
-      }
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (EDGE) {
+    for (int64_t t = tid; t < cols.head + cols.n - cols.tail0; t += stride) {
+      const int64_t c = t < cols.head ? t : cols.tail0 + (t - cols.head);
+      gossip_cols<T, M, 1>(w_s, b_s, X, U, out, m, cols.ld, c);
     }
-    // unrolled by 4, not fully: at M = 32 a full unroll hoists all 2 M
-    // loads next to the 2 M accumulators and spills
-#pragma unroll 4
-    for (int j = 0; j < M; ++j) {
-      if (j < m) {
-        const VecT<T, VEC> xv =
-            reinterpret_cast<const VecT<T, VEC>*>(X + (int64_t)j * n)[t];
-        const VecT<T, VEC> uv =
-            reinterpret_cast<const VecT<T, VEC>*>(U + (int64_t)j * n)[t];
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          const float wij = w_s[i * M + j];
-          const float bij = b_s[i * M + j];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            mixed[i][v] = fmaf(wij, to_f(xv.v[v]), mixed[i][v]);
-            desc[i][v] = fmaf(bij, to_f(uv.v[v]), desc[i][v]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      if (i < m) {
-        VecT<T, VEC> ov;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) from_f(&ov.v[v], mixed[i][v] - desc[i][v]);
-        reinterpret_cast<VecT<T, VEC>*>(out + (int64_t)i * n)[t] = ov;
-      }
+  } else {
+    for (int64_t t = tid; t < body; t += stride) {
+      gossip_cols<T, M, VEC>(w_s, b_s, X, U, out, m, cols.ld,
+                             cols.head + t * VEC);
     }
   }
 }
@@ -253,12 +301,89 @@ struct Guard {
   int use_clip;          // 0: no guard, raw transmits reach the sum
 };
 
-template <typename T, int M, int VEC, bool STAGED>
+// The columns [c, c + V) of every row of the guarded update.
+template <typename T, int M, int V, bool STAGED>
+__device__ __forceinline__ void guarded_cols(
+    const float* w_s, const float* b_s, const float* bad_s, const T* X,
+    const T* U, const T* XT, const T* UT, T* out, int m, int64_t ld,
+    int64_t c, const Guard& g) {
+  float self[M][V];
+  float acc[M][V];
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      self[i][v] = 0.0f;
+      acc[i][v] = 0.0f;
+    }
+  }
+#pragma unroll 4
+  for (int j = 0; j < M; ++j) {
+    if (j < m) {
+      const VecT<T, V> xv = cols_at<V>(X, ld, j, c);
+      const VecT<T, V> uv = cols_at<V>(U, ld, j, c);
+      float x[V], u[V], xt[V], ut[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        x[v] = to_f(xv.v[v]);
+        u[v] = to_f(uv.v[v]);
+      }
+      if (STAGED) {
+        const VecT<T, V> xtv = cols_at<V>(XT, ld, j, c);
+        const VecT<T, V> utv = cols_at<V>(UT, ld, j, c);
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          xt[v] = to_f(xtv.v[v]);
+          ut[v] = to_f(utv.v[v]);
+        }
+      } else {
+        const bool bad = bad_s[j] > 0.0f;
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          xt[v] = bad ? poison<T>(x[v], g.mode, g.scale) : x[v];
+          ut[v] = bad ? poison<T>(u[v], g.mode, g.scale) : u[v];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const bool diag = i == j;
+        const float wij = diag ? 0.0f : w_s[i * M + j];
+        const float bij = diag ? 0.0f : b_s[i * M + j];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (diag) {
+            self[i][v] = __fsub_rn(__fmul_rn(w_s[i * M + i], x[v]),
+                                   __fmul_rn(b_s[i * M + i], u[v]));
+          }
+          float link = __fsub_rn(__fmul_rn(wij, xt[v]), __fmul_rn(bij, ut[v]));
+          if (g.use_clip) {
+            link = isfinite(link) ? fminf(fmaxf(link, -g.clip), g.clip)
+                                  : 0.0f;
+          }
+          acc[i][v] = __fadd_rn(acc[i][v], link);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+    if (i < m) {
+      VecT<T, V> ov;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        from_f(&ov.v[v], __fadd_rn(self[i][v], acc[i][v]));
+      }
+      store_cols<V>(out, ld, i, c, ov);
+    }
+  }
+}
+
+template <typename T, int M, int VEC, bool STAGED, bool EDGE>
 __global__ void guarded_kernel(const float* __restrict__ mask,
                                const float* __restrict__ B, const T* X,
                                const T* U, const T* __restrict__ XT,
                                const T* __restrict__ UT, T* out, int m,
-                               int64_t n, Guard g) {
+                               Cols cols, Guard g) {
   __shared__ float w_s[M * M];
   __shared__ float b_s[M * M];
   __shared__ float deg_s[M];
@@ -269,82 +394,19 @@ __global__ void guarded_kernel(const float* __restrict__ mask,
     bad_s[i] = (!STAGED && g.corrupt != nullptr && i < m) ? g.corrupt[i] : 0.0f;
   }
   metropolis<M>(w_s, deg_s, m);
-  const int64_t nv = n / VEC;
+  const int64_t body = (cols.tail0 - cols.head) / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < nv;
-       t += stride) {
-    float self[M][VEC];
-    float acc[M][VEC];
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) {
-        self[i][v] = 0.0f;
-        acc[i][v] = 0.0f;
-      }
+  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (EDGE) {
+    for (int64_t t = tid; t < cols.head + cols.n - cols.tail0; t += stride) {
+      const int64_t c = t < cols.head ? t : cols.tail0 + (t - cols.head);
+      guarded_cols<T, M, 1, STAGED>(w_s, b_s, bad_s, X, U, XT, UT, out, m,
+                                    cols.ld, c, g);
     }
-#pragma unroll 4
-    for (int j = 0; j < M; ++j) {
-      if (j < m) {
-        const VecT<T, VEC> xv =
-            reinterpret_cast<const VecT<T, VEC>*>(X + (int64_t)j * n)[t];
-        const VecT<T, VEC> uv =
-            reinterpret_cast<const VecT<T, VEC>*>(U + (int64_t)j * n)[t];
-        float x[VEC], u[VEC], xt[VEC], ut[VEC];
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          x[v] = to_f(xv.v[v]);
-          u[v] = to_f(uv.v[v]);
-        }
-        if (STAGED) {
-          const VecT<T, VEC> xtv =
-              reinterpret_cast<const VecT<T, VEC>*>(XT + (int64_t)j * n)[t];
-          const VecT<T, VEC> utv =
-              reinterpret_cast<const VecT<T, VEC>*>(UT + (int64_t)j * n)[t];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            xt[v] = to_f(xtv.v[v]);
-            ut[v] = to_f(utv.v[v]);
-          }
-        } else {
-          const bool bad = bad_s[j] > 0.0f;
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            xt[v] = bad ? poison<T>(x[v], g.mode, g.scale) : x[v];
-            ut[v] = bad ? poison<T>(u[v], g.mode, g.scale) : u[v];
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < M; ++i) {
-          const bool diag = i == j;
-          const float wij = diag ? 0.0f : w_s[i * M + j];
-          const float bij = diag ? 0.0f : b_s[i * M + j];
-#pragma unroll
-          for (int v = 0; v < VEC; ++v) {
-            if (diag) {
-              self[i][v] = __fsub_rn(__fmul_rn(w_s[i * M + i], x[v]),
-                                     __fmul_rn(b_s[i * M + i], u[v]));
-            }
-            float link = __fsub_rn(__fmul_rn(wij, xt[v]), __fmul_rn(bij, ut[v]));
-            if (g.use_clip) {
-              link = isfinite(link) ? fminf(fmaxf(link, -g.clip), g.clip)
-                                    : 0.0f;
-            }
-            acc[i][v] = __fadd_rn(acc[i][v], link);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < M; ++i) {
-      if (i < m) {
-        VecT<T, VEC> ov;
-#pragma unroll
-        for (int v = 0; v < VEC; ++v) {
-          from_f(&ov.v[v], __fadd_rn(self[i][v], acc[i][v]));
-        }
-        reinterpret_cast<VecT<T, VEC>*>(out + (int64_t)i * n)[t] = ov;
-      }
+  } else {
+    for (int64_t t = tid; t < body; t += stride) {
+      guarded_cols<T, M, VEC, STAGED>(w_s, b_s, bad_s, X, U, XT, UT, out,
+                                      m, cols.ld, cols.head + t * VEC, g);
     }
   }
 }
@@ -367,30 +429,76 @@ struct Args {
   void* out;
   int m;
   int64_t n;
+  int64_t ld;
   cudaStream_t s;
 };
 
+// Where the VEC-aligned columns start: every (m, .) buffer must sit at the
+// same offset from a VEC boundary (and its rows ld apart, ld a multiple of
+// VEC), else every column takes the one-column path.
+template <typename T, int VEC>
+Cols cols_for(const Args& a) {
+  auto mis = [](const void* p) {
+    return (int64_t)(((uintptr_t)p / sizeof(T)) % VEC);
+  };
+  const int64_t m0 = mis(a.X);
+  const bool same = (a.m == 1 || a.ld % VEC == 0) && mis(a.U) == m0 &&
+                    mis(a.out) == m0 &&
+                    (a.XT == nullptr || (mis(a.XT) == m0 && mis(a.UT) == m0));
+  const int64_t lead = (VEC - m0) % VEC;
+  const int64_t head = same ? (lead < a.n ? lead : a.n) : a.n;
+  return Cols{a.n, a.ld, head, head + (a.n - head) / VEC * VEC};
+}
+
+// The aligned middle and, when there are any, the edge columns, as two
+// launches: compiled into the middle's loop, the one-column path raised the
+// guarded kernel's registers from 118 to 168 at M = 4 and its time by half.
+// The edge launch (a few columns, one block) is the M = 32 instance for any
+// m, so each weight source compiles it once.
 template <typename T, int M, int VEC, int SRC>
 int launch_gossip(const Args& a, const MaskDraw& d) {
-  if (a.n % VEC != 0) return (int)cudaErrorInvalidValue;
-  gossip_kernel<T, M, VEC, SRC><<<grid_for(a.n / VEC), kThreads, 0, a.s>>>(
-      (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U, (T*)a.out, a.m,
-      a.n, d);
+  const Cols c = cols_for<T, VEC>(a);
+  const int64_t body = (c.tail0 - c.head) / VEC;
+  if (body > 0) {
+    gossip_kernel<T, M, VEC, SRC, false><<<grid_for(body), kThreads, 0,
+                                           a.s>>>(
+        (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U, (T*)a.out,
+        a.m, c, d);
+  }
+  if (c.n > body * VEC) {
+    gossip_kernel<T, 32, 1, SRC, true><<<1, kThreads, 0, a.s>>>(
+        (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U, (T*)a.out,
+        a.m, c, d);
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename T, int M, int VEC, bool STAGED, bool EDGE>
+void launch_guarded_part(int grid, const Args& a, const Cols& c,
+                         const Guard& g) {
+  guarded_kernel<T, M, VEC, STAGED, EDGE><<<grid, kThreads, 0, a.s>>>(
+      (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U,
+      (const T*)a.XT, (const T*)a.UT, (T*)a.out, a.m, c, g);
 }
 
 template <typename T, int M, int VEC>
 int launch_guarded(const Args& a, const Guard& g) {
-  if (a.n % VEC != 0) return (int)cudaErrorInvalidValue;
-  const int grid = grid_for(a.n / VEC);
-  if (a.XT != nullptr) {
-    guarded_kernel<T, M, VEC, true><<<grid, kThreads, 0, a.s>>>(
-        (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U,
-        (const T*)a.XT, (const T*)a.UT, (T*)a.out, a.m, a.n, g);
-  } else {
-    guarded_kernel<T, M, VEC, false><<<grid, kThreads, 0, a.s>>>(
-        (const float*)a.wm, a.B, (const T*)a.X, (const T*)a.U, nullptr,
-        nullptr, (T*)a.out, a.m, a.n, g);
+  const Cols c = cols_for<T, VEC>(a);
+  const int64_t body = (c.tail0 - c.head) / VEC;
+  const bool staged = a.XT != nullptr;
+  if (body > 0) {
+    if (staged) {
+      launch_guarded_part<T, M, VEC, true, false>(grid_for(body), a, c, g);
+    } else {
+      launch_guarded_part<T, M, VEC, false, false>(grid_for(body), a, c, g);
+    }
+  }
+  if (c.n > body * VEC) {
+    if (staged) {
+      launch_guarded_part<T, 32, 1, true, true>(1, a, c, g);
+    } else {
+      launch_guarded_part<T, 32, 1, false, true>(1, a, c, g);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -428,14 +536,15 @@ int dispatch(int dtype, int kind, const Args& a, const MaskDraw& d,
 
 // Common to every entry point: dtype 0 = float32, 1 = bfloat16 (X, U, XT, UT
 // and out share it).  (m, m) matrices are float32 row-major; X, U, out are
-// (m, n) row-major and out may alias X.  n must be a multiple of the column
-// vector width (8 covers every m) and the rows aligned to it; the Python
-// wrappers check both.
+// (m, n) with row stride ld >= n elements (ld = n: contiguous; a leaf's
+// columns inside a wider flat buffer otherwise), and out may alias X.  Any
+// n and any start column: the columns before the first vector-aligned one
+// and after the last whole vector take the one-column path.
 
 extern "C" int gossip_update(int dtype, const void* W, const void* B,
                              const void* X, const void* U, void* out, int m,
-                             long long n, void* stream) {
-  const Args a{W, (const float*)B, X, U, nullptr, nullptr, out, m, n,
+                             long long n, long long ld, void* stream) {
+  const Args a{W, (const float*)B, X, U, nullptr, nullptr, out, m, n, ld,
                (cudaStream_t)stream};
   return dispatch(dtype, kWeightsGiven, a, MaskDraw{}, Guard{});
 }
@@ -444,8 +553,9 @@ extern "C" int gossip_update(int dtype, const void* W, const void* B,
 extern "C" int masked_gossip_update(int dtype, const void* mask,
                                     const void* B, const void* X,
                                     const void* U, void* out, int m,
-                                    long long n, void* stream) {
-  const Args a{mask, (const float*)B, X, U, nullptr, nullptr, out, m, n,
+                                    long long n, long long ld,
+                                    void* stream) {
+  const Args a{mask, (const float*)B, X, U, nullptr, nullptr, out, m, n, ld,
                (cudaStream_t)stream};
   return dispatch(dtype, kMaskGiven, a, MaskDraw{}, Guard{});
 }
@@ -458,8 +568,10 @@ extern "C" int masked_gossip_update_krng(int dtype, const void* key,
                                          const void* X, const void* U,
                                          void* out, void* mask_out, int m,
                                          long long n, void* stream) {
+  // whole vectors only: an edge launch would draw the mask again
+  if (n % 8 != 0) return (int)cudaErrorInvalidValue;
   const Args a{nullptr, (const float*)B, X, U, nullptr, nullptr, out, m, n,
-               (cudaStream_t)stream};
+               n, (cudaStream_t)stream};
   const MaskDraw d{(const uint32_t*)key, keep_prob, (const float*)adj,
                    (float*)mask_out};
   return dispatch(dtype, kMaskDrawn, a, d, Guard{});
@@ -474,11 +586,12 @@ extern "C" int guarded_gossip_update(int dtype, const void* mask,
                                      const void* UT, const void* corrupt,
                                      int mode, float scale, float clip,
                                      int use_clip, void* out, int m,
-                                     long long n, void* stream) {
+                                     long long n, long long ld,
+                                     void* stream) {
   if ((XT == nullptr) != (UT == nullptr) || mode < 0 || mode > 2) {
     return (int)cudaErrorInvalidValue;
   }
-  const Args a{mask, (const float*)B, X, U, XT, UT, out, m, n,
+  const Args a{mask, (const float*)B, X, U, XT, UT, out, m, n, ld,
                (cudaStream_t)stream};
   const Guard g{(const float*)corrupt, mode, scale, clip, use_clip};
   return dispatch(dtype, 3, a, MaskDraw{}, g);

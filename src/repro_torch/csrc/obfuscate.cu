@@ -89,33 +89,41 @@ __device__ __forceinline__ float obf_math(float x, float g, uint32_t bits,
 // scal = [lam_bar, w_self, b_self] in device memory: the step never has to
 // bring lam_bar to the host.  x and g carry no __restrict__: the step writes
 // u over g in place (each thread reads its 8 elements before it writes them).
+// Row blockIdx.y of n columns, rows ld elements apart (one leaf's columns of
+// the flat buffers in the leafwise layout); columns [head, head + 8 body)
+// go 8 at a time with vector loads, the rest one at a time.
 template <typename T>
 __global__ void obfuscate_kernel(const T* x, const T* g,
                                  const uint32_t* __restrict__ bits,
                                  const float* __restrict__ scal,
-                                 T* out, int64_t n, int vec_ok) {
+                                 T* out, int64_t n, int64_t ld,
+                                 int64_t head) {
+  const int64_t r = (int64_t)blockIdx.y * ld;
+  x += r;
+  g += r;
+  bits += r;
+  out += r;
   const float lam2 = __fmul_rn(2.0f, scal[0]);
   const float w_self = scal[1], b_self = scal[2];
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  int64_t done = 0;
-  if (vec_ok) {
-    const int64_t nv = n / kVec;
-    for (int64_t i = tid; i < nv; i += stride) {
-      Vec8<T> xv = reinterpret_cast<const Vec8<T>*>(x)[i];
-      Vec8<T> gv = reinterpret_cast<const Vec8<T>*>(g)[i];
-      Bits8 bv = reinterpret_cast<const Bits8*>(bits)[i];
-      Vec8<T> ov;
+  const int64_t body = (n - head) / kVec;
+  for (int64_t i = tid; i < body; i += stride) {
+    const int64_t c = head + i * kVec;
+    Vec8<T> xv = *reinterpret_cast<const Vec8<T>*>(x + c);
+    Vec8<T> gv = *reinterpret_cast<const Vec8<T>*>(g + c);
+    Bits8 bv = *reinterpret_cast<const Bits8*>(bits + c);
+    Vec8<T> ov;
 #pragma unroll
-      for (int k = 0; k < kVec; ++k) {
-        store_f(&ov.v[k], obf_math(load_f(&xv.v[k]), load_f(&gv.v[k]),
-                                   bv.v[k], lam2, w_self, b_self));
-      }
-      reinterpret_cast<Vec8<T>*>(out)[i] = ov;
+    for (int k = 0; k < kVec; ++k) {
+      store_f(&ov.v[k], obf_math(load_f(&xv.v[k]), load_f(&gv.v[k]),
+                                 bv.v[k], lam2, w_self, b_self));
     }
-    done = nv * kVec;
+    *reinterpret_cast<Vec8<T>*>(out + c) = ov;
   }
-  for (int64_t i = done + tid; i < n; i += stride) {
+  const int64_t tail0 = head + body * kVec;
+  for (int64_t t = tid; t < head + n - tail0; t += stride) {
+    const int64_t i = t < head ? t : tail0 + (t - head);
     store_f(&out[i], obf_math(load_f(&x[i]), load_f(&g[i]), bits[i], lam2,
                               w_self, b_self));
   }
@@ -192,22 +200,43 @@ int grid_for(int64_t work) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, g and out share it).
+// Elements from p to the next 8-element boundary of its buffer.
+static int64_t misalign(const void* p, int64_t elem) {
+  return (int64_t)(((uintptr_t)p / elem) % kVec);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, g and out share it).  rows of n
+// columns, ld elements apart in every buffer (ld = n: contiguous); out may
+// alias g.
 extern "C" int obfuscate_update(int dtype, const void* x, const void* g,
                                 const void* bits, const void* scal, void* out,
-                                long long n, int vec_ok, void* stream) {
+                                long long rows, long long n, long long ld,
+                                void* stream) {
+  if (rows < 1 || ld < n) return (int)cudaErrorInvalidValue;
+  if (ld == n) {  // contiguous: one row of every element
+    n *= rows;
+    ld = n;
+    rows = 1;
+  }
+  if (rows > 65535) return (int)cudaErrorInvalidValue;
+  const int64_t es = dtype == 0 ? 4 : 2;
+  const int64_t m0 = misalign(x, es);
+  const bool same = (rows == 1 || ld % kVec == 0) && misalign(g, es) == m0 &&
+                    misalign(out, es) == m0 && misalign(bits, 4) == m0;
+  int64_t head = same ? (kVec - m0) % kVec : n;
+  if (head > n) head = n;
   cudaStream_t s = (cudaStream_t)stream;
-  const int64_t work = vec_ok ? n / kVec : n;
-  const int grid = grid_for(work);
+  int64_t blocks = grid_for(n / kVec + kVec) / rows;
+  const dim3 grid((unsigned)(blocks < 1 ? 1 : blocks), (unsigned)rows);
   if (dtype == 0) {
     obfuscate_kernel<float><<<grid, kThreads, 0, s>>>(
         (const float*)x, (const float*)g, (const uint32_t*)bits,
-        (const float*)scal, (float*)out, n, vec_ok);
+        (const float*)scal, (float*)out, n, ld, head);
   } else if (dtype == 1) {
     obfuscate_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
         (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
         (const uint32_t*)bits, (const float*)scal, (__nv_bfloat16*)out, n,
-        vec_ok);
+        ld, head);
   } else {
     return (int)cudaErrorInvalidValue;
   }

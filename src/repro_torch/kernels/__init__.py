@@ -13,7 +13,8 @@ from .gossip import (gossip_update, guarded_gossip_update,
 from .obfuscate import obfuscate_update, obfuscate_update_krng
 from .ssm_scan import ssd_intra_chunk
 from .ops import (FlatLayout, fused_pdsgd_flat, fused_pdsgd_tree,
-                  ring_pdsgd_flat, ring_pdsgd_tree)
+                  gossip_tree, leafwise_pdsgd_flat, obfuscate_tree,
+                  ring_pdsgd_flat, ring_pdsgd_tree, sharded_pdsgd_tree)
 
 __all__ = ["ref", "build_all", "launch_counts", "reset_launch_counts",
            "gossip_update", "masked_gossip_update",
@@ -22,4 +23,6 @@ __all__ = ["ref", "build_all", "launch_counts", "reset_launch_counts",
            "ring_obfuscate_gossip_krng", "obfuscate_update",
            "obfuscate_update_krng", "FlatLayout", "fused_pdsgd_flat",
            "fused_pdsgd_tree", "ring_pdsgd_flat", "ring_pdsgd_tree",
+           "obfuscate_tree", "gossip_tree", "leafwise_pdsgd_flat",
+           "sharded_pdsgd_tree",
            "flash_attention", "ssd_intra_chunk"]

@@ -7,9 +7,11 @@ library) and loaded with ctypes; the sources expose plain C functions, so
 no PyTorch header is compiled and a build takes seconds.  `build_all` starts one ``nvcc`` per source in
 parallel.  Set ``REPRO_TORCH_BUILD_DIR`` to build elsewhere.
 
-Every kernel wrapper counts its launches in `launch_counts` (one per launch
-of its kernel, nowhere else), so a run can show which kernels its path
-went through.
+Every kernel wrapper counts its launches in `launch_counts` (one per call
+that launches its kernel, nowhere else; a strided call of B1, B2, B4 or
+B6 whose columns do not start and end on a vector boundary launches it
+twice, the body and a one-block edge), so a run can show which kernels
+its path went through.
 """
 from __future__ import annotations
 
@@ -42,22 +44,23 @@ _FLOAT = ctypes.c_float
 _SIGNATURES = {
     "obfuscate": {
         "obfuscate_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                             _LL, _INT, _VOIDP],
+                             _LL, _LL, _LL, _VOIDP],
         "obfuscate_update_krng": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
                                   _LL, _LL, _VOIDP, _VOIDP, _VOIDP, _INT,
                                   _VOIDP],
     },
     "gossip": {
         "gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT,
-                          _LL, _VOIDP],
+                          _LL, _LL, _VOIDP],
         "masked_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
-                                 _VOIDP, _INT, _LL, _VOIDP],
+                                 _VOIDP, _INT, _LL, _LL, _VOIDP],
         "masked_gossip_update_krng": [_INT, _VOIDP, _FLOAT, _VOIDP,
                                       _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                       _INT, _LL, _VOIDP],
         "guarded_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
                                   _VOIDP, _VOIDP, _VOIDP, _INT, _FLOAT,
-                                  _FLOAT, _INT, _VOIDP, _INT, _LL, _VOIDP],
+                                  _FLOAT, _INT, _VOIDP, _INT, _LL, _LL,
+                                  _VOIDP],
     },
     "ring": {
         "ring_gossip_update": [_INT, _VOIDP, _VOIDP, _VOIDP, _INT, _VOIDP,

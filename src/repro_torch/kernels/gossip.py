@@ -21,7 +21,10 @@ tables (the reference's ``gossip.py:337-616``):
 
 A tensor on the CPU goes to the plain version in `ref`; a CUDA tensor
 launches the kernel (and counts the launch) or raises.  ``out`` may be
-``X`` itself: the step writes x' over the parameters in place.
+``X`` itself: the step writes x' over the parameters in place.  B2, B4
+and B6 also take column ranges of wider buffers (rows contiguous, one
+row stride, `obfuscate.row_stride`): the leafwise layout's per-leaf
+call, read and written in place.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ import torch
 from . import ref
 from .build import (check_status, dtype_code, launch_counts, library,
                     stream_ptr, to_device)
+from .obfuscate import row_stride
 
 __all__ = ["gossip_update", "masked_gossip_update",
            "masked_gossip_update_krng", "guarded_gossip_update",
@@ -70,8 +74,8 @@ def _check(name: str, X: torch.Tensor, U: torch.Tensor, out,
 
 
 def _columns(name: str, *bufs: torch.Tensor) -> None:
-    """The kernels' layout: contiguous rows, n a multiple of 8, rows
-    aligned to 8 elements."""
+    """The layout of the ring kernels and of B5: contiguous buffers, n a
+    multiple of 8, rows aligned to 8 elements (whole vectors only)."""
     n = bufs[0].shape[1]
     vec_bytes = 8 * bufs[0].element_size()
     if n % 8 or not all(t.is_contiguous() and t.data_ptr() % vec_bytes == 0
@@ -92,11 +96,11 @@ def gossip_update(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
         return _plain_out(ref.gossip_ref(W, B, X, U), out)
     if out is None:
         out = torch.empty_like(X)
-    _columns("gossip_update", X, U, out)
+    ld = row_stride("gossip_update", X, U, out)
     W, B = W.contiguous(), B.contiguous()
     status = library("gossip").gossip_update(
         dtype_code(X.dtype), W.data_ptr(), B.data_ptr(), X.data_ptr(),
-        U.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1],
+        U.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1], ld,
         stream_ptr(X.device))
     check_status("gossip_update", status)
     launch_counts["gossip_update"] += 1
@@ -113,11 +117,11 @@ def masked_gossip_update(mask: torch.Tensor, B: torch.Tensor,
         return _plain_out(ref.masked_gossip_ref(mask, B, X, U), out)
     if out is None:
         out = torch.empty_like(X)
-    _columns("masked_gossip_update", X, U, out)
+    ld = row_stride("masked_gossip_update", X, U, out)
     mask, B = mask.contiguous(), B.contiguous()
     status = library("gossip").masked_gossip_update(
         dtype_code(X.dtype), mask.data_ptr(), B.data_ptr(), X.data_ptr(),
-        U.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1],
+        U.data_ptr(), out.data_ptr(), X.shape[0], X.shape[1], ld,
         stream_ptr(X.device))
     check_status("masked_gossip_update", status)
     launch_counts["masked_gossip_update"] += 1
@@ -213,8 +217,8 @@ def guarded_gossip_update(mask: torch.Tensor, B: torch.Tensor,
     if out is None:
         out = torch.empty_like(X)
     staged = XT is not None
-    _columns("guarded_gossip_update", X, U, out,
-             *((XT, UT) if staged else ()))
+    ld = row_stride("guarded_gossip_update", X, U, out,
+                    *((XT, UT) if staged else ()))
     if corrupt is not None and corrupt.device != X.device:
         raise ValueError(f"corrupt must lie on X's device {X.device}, got "
                          f"{corrupt.device}")
@@ -229,7 +233,7 @@ def guarded_gossip_update(mask: torch.Tensor, B: torch.Tensor,
         UT.data_ptr() if staged else None,
         corrupt_dev.data_ptr() if corrupt_dev is not None else None,
         _MODE_CODES[mode], scale_t, 0.0 if clip is None else float(clip),
-        int(clip is not None), out.data_ptr(), m, X.shape[1],
+        int(clip is not None), out.data_ptr(), m, X.shape[1], ld,
         stream_ptr(X.device))
     check_status("guarded_gossip_update", status)
     launch_counts["guarded_gossip_update"] += 1

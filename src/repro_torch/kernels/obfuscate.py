@@ -52,11 +52,30 @@ def _aligned(t: torch.Tensor, nbytes: int) -> bool:
     return t.data_ptr() % nbytes == 0
 
 
+def row_stride(name: str, *bufs: torch.Tensor) -> int:
+    """The common row stride of (R, n) buffers whose rows are contiguous:
+    n for contiguous buffers, the flat buffer's width for one leaf's
+    columns of it (the leafwise layout reads them in place)."""
+    lds = {t.stride(0) if t.shape[0] > 1 else t.shape[1] for t in bufs}
+    if (any(t.shape[1] > 1 and t.stride(1) != 1 for t in bufs)
+            or len(lds) != 1):
+        raise ValueError(f"{name} needs buffers with contiguous rows and one "
+                         f"row stride, got strides "
+                         f"{[tuple(t.stride()) for t in bufs]}")
+    ld = lds.pop()
+    if ld < bufs[0].shape[1]:
+        raise ValueError(f"{name}: row stride {ld} below the row length "
+                         f"{bufs[0].shape[1]}")
+    return ld
+
+
 def obfuscate_update(x: torch.Tensor, g: torch.Tensor, bits: torch.Tensor,
                      lam_bar, w_self, b_self,
                      out: torch.Tensor | None = None) -> torch.Tensor:
     """x, g: (R, C) float32/bfloat16; bits: (R, C) ``torch.uint32``.
-    Returns v (R, C) in x's dtype (written into ``out`` when given)."""
+    Returns v (R, C) in x's dtype (written into ``out`` when given).  On
+    the card the four may be column ranges of wider buffers (rows
+    contiguous, one row stride): the leafwise layout's per-leaf call."""
     _check_xg(x, g, out)
     if bits.shape != x.shape or bits.dtype != torch.uint32:
         raise ValueError("bits must be a torch.uint32 tensor shaped like x")
@@ -66,20 +85,14 @@ def obfuscate_update(x: torch.Tensor, g: torch.Tensor, bits: torch.Tensor,
     if x.device.type != "cuda" or bits.device != x.device:
         raise ValueError(f"obfuscate_update runs on CUDA or CPU tensors, got "
                          f"{x.device} / {bits.device}")
-    tensors = [x, g, bits] + ([out] if out is not None else [])
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("obfuscate_update needs contiguous tensors")
     if out is None:
         out = torch.empty_like(x)
-    vec_ok = int(x.numel() % 8 == 0
-                 and all(_aligned(t, 8 * t.element_size())
-                         for t in (x, g, out))
-                 and _aligned(bits, 32))
+    ld = row_stride("obfuscate_update", x, g, bits, out)
     scal = _scalars(lam_bar, w_self, b_self, x.device)
     lib = library("obfuscate")
     status = lib.obfuscate_update(
         dtype_code(x.dtype), x.data_ptr(), g.data_ptr(), bits.data_ptr(),
-        scal.data_ptr(), out.data_ptr(), x.numel(), vec_ok,
+        scal.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], ld,
         stream_ptr(x.device))
     check_status("obfuscate_update", status)
     launch_counts["obfuscate_update"] += 1

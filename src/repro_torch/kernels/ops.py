@@ -6,7 +6,11 @@
                             drawn in-kernel, or the guarded fault path)
 
 and of ``ring_pdsgd_tree`` (the ring layout): both in ONE kernel from the
-per-direction tables, u never stored.
+per-direction tables, u never stored.  Also the reference's two-pass tree
+forms (`obfuscate_tree`, `gossip_tree`: one kernel each over the
+concatenated buffer) and its leafwise layout (`sharded_pdsgd_tree`, and
+`leafwise_pdsgd_flat` on the flat buffers): the same two kernels once
+per leaf, on the leaf's own columns.
 
 The reference flattens each agent's leaves, concatenates them in tree
 order and pads the columns to a multiple of 512 on every step.  The port
@@ -22,6 +26,7 @@ import math
 
 import torch
 
+from ..core import prng
 from ..core.privacy import tree_leaves, tree_paths, tree_unflatten
 from .build import to_device
 from .gossip import (gossip_update, guarded_gossip_update,
@@ -30,7 +35,8 @@ from .gossip import (gossip_update, guarded_gossip_update,
 from .obfuscate import obfuscate_update, obfuscate_update_krng
 
 __all__ = ["FlatLayout", "fused_pdsgd_flat", "fused_pdsgd_tree",
-           "ring_pdsgd_flat", "ring_pdsgd_tree", "PAD"]
+           "ring_pdsgd_flat", "ring_pdsgd_tree", "obfuscate_tree",
+           "gossip_tree", "leafwise_pdsgd_flat", "sharded_pdsgd_tree", "PAD"]
 
 PAD = 512
 
@@ -258,3 +264,121 @@ def ring_pdsgd_tree(w_tab, b_tab, perms, x_tree, g_tree, lam_bar, *,
     D = layout.size
     return layout.tree(out), {"x": flats["x"][:, :D], "u": flats["u"][:, :D],
                               "v": flats["v"][:, :, :D]}
+
+
+def _layout_of(x_tree) -> tuple[FlatLayout, int]:
+    """The `FlatLayout` of one agent of a tree of (m, ...) leaves, and m."""
+    leaves = tree_leaves(x_tree)
+    return (FlatLayout.of(tree_unflatten(x_tree, [l[0] for l in leaves])),
+            leaves[0].shape[0])
+
+
+def tree_bits(key: torch.Tensor, m: int, layout: FlatLayout,
+              pad: int = 256, chunk: int = 1 << 22) -> torch.Tensor:
+    """``jax.random.bits(key, (m, D_pad))`` over the concatenated buffer
+    padded to a multiple of ``pad`` columns (the reference's
+    `obfuscate_tree` draw), laid into an (m, width) uint32 buffer on
+    key's device: its first D columns, the rest 0.  Drawn ``chunk``
+    columns at a time."""
+    D = layout.size
+    n_cols = -(-D // pad) * pad
+    out = torch.zeros((m, layout.width), dtype=torch.uint32,
+                      device=key.device)
+    rows = torch.arange(m, dtype=torch.int64, device=key.device)[:, None]
+    for c in range(0, D, chunk):
+        c1 = min(D, c + chunk)
+        idx = rows * n_cols + torch.arange(c, c1, dtype=torch.int64,
+                                           device=key.device)[None, :]
+        out[:, c:c1] = prng.bits_at(key, idx, m * n_cols).to(torch.uint32)
+    return out
+
+
+def obfuscate_tree(key: torch.Tensor, x_tree, g_tree, lam_bar, w_self,
+                   b_self):
+    """``v = w_self x - b_self (Lambda ∘ g)`` over a tree of (m, ...)
+    leaves in ONE obfuscate kernel (B1) on the concatenated buffer, the
+    reference's ``ops.py::obfuscate_tree``: the bits are
+    ``jax.random.bits(key, ...)`` over that buffer padded to 256 columns
+    (`tree_bits`, drawn on key's device).  Returns the v tree."""
+    layout, m = _layout_of(x_tree)
+    X = layout.flatten(x_tree, m)
+    G = layout.flatten(g_tree, m)
+    bits = tree_bits(to_device(key, X.device), m, layout)
+    return layout.tree(obfuscate_update(X, G, bits, lam_bar, w_self,
+                                        b_self, out=G))
+
+
+def gossip_tree(W: torch.Tensor, B: torch.Tensor, x_tree, u_tree):
+    """``x' = W X - B U`` over a tree of (m, ...) leaves in ONE gossip
+    kernel (B2) on the concatenated buffer, the reference's
+    ``ops.py::gossip_tree``.  Returns the x' tree."""
+    layout, m = _layout_of(x_tree)
+    X = layout.flatten(x_tree, m)
+    U = layout.flatten(u_tree, m)
+    dev = X.device
+    return layout.tree(gossip_update(to_device(W, dev), to_device(B, dev),
+                                     X, U, out=X))
+
+
+def _leaf_pdsgd(W, B, x, g, bits, lam_bar, mask, corrupt, corrupt_mode,
+                corrupt_scale, guard_clip, u_out, out):
+    """One leaf of the leafwise layout, x/g/bits (m, n) (columns of the flat
+    buffers, read in place on the card): u = Lambda ∘ g by the obfuscate
+    kernel (B1), then the gossip kernel the coupling asks for — the
+    guarded one (B6) with ``corrupt``, the masked one (B4) with ``mask``,
+    else W X - B U (B2).  The kernels treat columns independently, so
+    every column is the concat path's bit for bit."""
+    u = obfuscate_update(x, g, bits, lam_bar, 0.0, -1.0, out=u_out)
+    if corrupt is not None:
+        return guarded_gossip_update(mask, B, x, u, clip=guard_clip,
+                                     corrupt=corrupt, mode=corrupt_mode,
+                                     scale=corrupt_scale, out=out)
+    if mask is not None:
+        return masked_gossip_update(mask, B, x, u, out=out)
+    return gossip_update(W, B, x, u, out=out)
+
+
+def leafwise_pdsgd_flat(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
+                        G: torch.Tensor, bits: torch.Tensor,
+                        layout: FlatLayout, lam_bar, *,
+                        mask: torch.Tensor | None = None,
+                        corrupt: torch.Tensor | None = None,
+                        corrupt_mode: str = "nan",
+                        corrupt_scale: float = 1e4,
+                        guard_clip: float | None = 1e3) -> torch.Tensor:
+    """The leafwise layout on the flat (m, width) buffers, in place: per
+    leaf of ``layout``, `_leaf_pdsgd` on its columns, u written over G and
+    x' over X (two kernel calls a leaf).  ``bits`` (m, width) uint32 laid like
+    the buffer (`core.pdsgd.per_agent_bits`), so the realized Lambda is
+    the concat path's.  Returns X."""
+    if corrupt is not None and mask is None:
+        raise ValueError("corrupt injection needs the realized edge mask; "
+                         "compose faults through faults.realize_coupling")
+    for o, o1 in zip(layout.offsets[:-1], layout.offsets[1:]):
+        cols = slice(o, o1)
+        _leaf_pdsgd(W, B, X[:, cols], G[:, cols], bits[:, cols], lam_bar,
+                    mask, corrupt, corrupt_mode, corrupt_scale, guard_clip,
+                    u_out=G[:, cols], out=X[:, cols])
+    return X
+
+
+def sharded_pdsgd_tree(W: torch.Tensor, B: torch.Tensor, x_tree, g_tree,
+                       bits_tree, lam_bar, *,
+                       mask: torch.Tensor | None = None,
+                       corrupt: torch.Tensor | None = None,
+                       corrupt_mode: str = "nan",
+                       corrupt_scale: float = 1e4,
+                       guard_clip: float | None = 1e3):
+    """The leafwise Eq. (4) update over a tree of (m, ...) leaves (the
+    reference's ``ops.py::sharded_pdsgd_tree`` without a mesh);
+    ``bits_tree`` holds the uint32 draws per leaf.  The trees are copied
+    into fresh flat buffers and `leafwise_pdsgd_flat` runs B1, then B2
+    (B4 with ``mask``, B6 with ``corrupt``) on each leaf's columns, bit
+    for bit the concat path's.  Returns a new tree.  The mesh form
+    (DTensor leaves) is `dist.sharding.mesh_pdsgd_tree`."""
+    layout, m = _layout_of(x_tree)
+    X, G, bits = (layout.flatten(t, m) for t in (x_tree, g_tree, bits_tree))
+    return layout.tree(leafwise_pdsgd_flat(
+        W, B, X, G, bits, layout, lam_bar, mask=mask, corrupt=corrupt,
+        corrupt_mode=corrupt_mode, corrupt_scale=corrupt_scale,
+        guard_clip=guard_clip))

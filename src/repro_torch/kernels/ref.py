@@ -52,11 +52,21 @@ def obfuscate_krng_ref(x: torch.Tensor, g: torch.Tensor, keys: torch.Tensor,
     return obfuscate_ref(x, g, bits, lam_bar, w_self, b_self), bits
 
 
+def _agent_mm(M: torch.Tensor, Y: torch.Tensor) -> torch.Tensor:
+    """M @ Y in f32 with every column summed as a matrix product sums it:
+    a one-column Y goes as two equal columns (a matrix-vector product
+    sums in another order), so a column's value does not depend on how
+    many columns come with it (the leafwise layout's one-column leaves)."""
+    M, Y = M.float(), Y.float()
+    if Y.shape[-1] == 1:
+        return (M @ torch.cat([Y, Y], dim=-1))[..., :1]
+    return M @ Y
+
+
 def gossip_ref(W: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
                U: torch.Tensor) -> torch.Tensor:
     """x' = W X - B U over the leading agent dim, accumulated in f32."""
-    out = W.float() @ X.float() - B.float() @ U.float()
-    return out.to(X.dtype)
+    return (_agent_mm(W, X) - _agent_mm(B, U)).to(X.dtype)
 
 
 def metropolis_ref(mask: torch.Tensor) -> torch.Tensor:
@@ -136,7 +146,9 @@ def guarded_gossip_ref(mask: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
     None: no guard).  X, U are the agents' own buffers (self terms only);
     XT, UT what they transmit.  The sum over j runs over every j, the zero
     diagonal and non-neighbours included, as the reference's does: with
-    no guard, a non-finite transmit reaches every receiver (0 * nan)."""
+    no guard, a non-finite transmit reaches every receiver (0 * nan).  It
+    is summed in ascending j from 0, the kernel's order, the same for
+    every column however many come with it."""
     m = X.shape[0]
     w = metropolis_ref(mask)
     eye = torch.eye(m, device=w.device)
@@ -149,7 +161,10 @@ def guarded_gossip_ref(mask: torch.Tensor, B: torch.Tensor, X: torch.Tensor,
     if clip is not None:
         v = torch.where(torch.isfinite(v), torch.clamp(v, -clip, clip),
                         torch.zeros_like(v))
-    return (self_term + v.sum(dim=1)).to(X.dtype)
+    acc = torch.zeros_like(self_term)
+    for j in range(m):
+        acc = acc + v[:, j]
+    return (self_term + acc).to(X.dtype)
 
 
 def ring_gossip_ref(w_tab: torch.Tensor, b_tab: torch.Tensor,

@@ -6,7 +6,7 @@
         [--algorithm pdsgd|dsgd|dsgt|dp_dsgd] [--sigma-dp 0.01]
         [--grad-clip-kappa 1.0] [--unroll-k 4]
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
-        [--kernel-layout ring] [--privacy-audit]
+        [--kernel-layout ring|leafwise] [--privacy-audit]
         [--checkpoint-dir ck --checkpoint-every 50 [--resume]]
         [--scan-layers]
 
@@ -23,8 +23,12 @@ replayed per chunk — and the remaining steps eagerly; both loops walk
 the same trajectory bit for bit, and the history keeps one record per
 logged step either way.  The time-varying topology (``--topology-*``),
 agent faults (``--fault-*``) and the ``--nan-policy`` sentinels are the
-reference's flags, and so is ``--kernel-layout ring`` (the whole update
-as one ring kernel; needs ``--topology ring``).  Every one of them runs
+reference's flags, and so are ``--kernel-layout ring`` (the whole update
+as one ring kernel; needs ``--topology ring``) and ``--kernel-layout
+leafwise`` (the obfuscate kernel reading the step's Lambda bits, then the
+gossip kernel, once per leaf on its columns of the flat buffer: bit for
+bit the concat layout's bits path; ``auto`` stays ``concat`` on one
+card).  Every one of them runs
 under ``--unroll-k > 1``, as under the reference's ``lax.scan``, and so
 do trimmed-mean steps and the xLSTM family: W_k, the faults and the
 sentinel flag are realized in the graph from the device step counter,
@@ -54,8 +58,9 @@ most ``--max-rollbacks`` times before the run fails.  The scanned loop
 takes its chunks from `data.prefetch_chunks`, built ``--prefetch-depth``
 chunks ahead on a worker thread; a rollback there closes that stream and
 opens a new one at the restored step, and the restore writes into the
-graph's own buffers, so the captured graph replays on.  The leafwise
-layout of sharded agents is not ported yet (ROADMAP 7).
+graph's own buffers, so the captured graph replays on.  The mesh flags
+(``--mesh-fsdp``, ``--mesh-tensor``) and the sharded execution they turn
+on are not ported yet (ROADMAP 7b).
 """
 from __future__ import annotations
 
@@ -142,11 +147,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "'warn' counts non-finite steps, 'skip' also holds "
                         "the last finite state")
     p.add_argument("--kernel-layout", default="auto",
-                   choices=["auto", "concat", "ring"],
+                   choices=["auto", "concat", "leafwise", "ring"],
                    help="fused update layout: auto = concat (obfuscate "
-                        "kernel, then gossip kernel); 'ring' = Lambda-draw, "
-                        "obfuscate and the per-direction exchange in one "
-                        "kernel (requires --topology ring)")
+                        "kernel, then gossip kernel); 'leafwise' = the two "
+                        "kernels once per leaf (Lambda from the bits "
+                        "buffer); 'ring' = Lambda-draw, obfuscate and the "
+                        "per-direction exchange in one kernel (requires "
+                        "--topology ring)")
     p.add_argument("--algorithm", default="pdsgd", choices=list(ALGORITHMS))
     p.add_argument("--grad-clip-kappa", type=float, default=None,
                    help="clip every gradient element to [-kappa, kappa] "

@@ -40,6 +40,24 @@ class ModelBundle:
         (the generator must live on that device)."""
         return init_params(generator, self.param_defs, self.dtype, device)
 
+    def abstract(self) -> Any:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage (the reference's ShapeDtypeStructs)."""
+        return _map_defs(lambda d: torch.empty(d.shape, dtype=self.dtype,
+                                               device="meta"),
+                         self.param_defs)
+
+    def logical_axes(self) -> Any:
+        """The parameter tree's logical axis names, one tuple per leaf
+        (``ArrayDef.logical``), for `dist.sharding`."""
+        return _map_defs(lambda d: tuple(d.logical), self.param_defs)
+
+
+def _map_defs(fn, defs):
+    if isinstance(defs, dict):
+        return {k: _map_defs(fn, defs[k]) for k in sorted(defs)}
+    return fn(defs)
+
 
 def build_model(cfg: ArchConfig) -> ModelBundle:
     if cfg.family not in _FAMILIES:

@@ -27,7 +27,7 @@ __all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
            "chunked_attention", "decode_attention", "ring_buffer_write",
            "decode_cache_valid", "decode_positions", "swiglu",
            "gelu_mlp", "cross_entropy", "pad_vocab", "einsum_promoted",
-           "layer_views"]
+           "layer_views", "remat"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +70,21 @@ def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     an f32 activation times a bf16 weight computes in f32."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def remat(fn, *args):
+    """``fn(*args)`` recomputed in the backward (the reference's
+    ``jax.checkpoint`` of a layer body): autograd keeps only the tensor
+    arguments, and the backward runs ``fn`` again to get what its own
+    backward needs, so the values and the graph are those of ``fn(*args)``
+    run directly.  Nothing in a layer draws randomness, so the RNG state is
+    not kept (reading it is illegal while a CUDA graph captures).  Without
+    grad mode it is ``fn(*args)``."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def layer_views(stacked: dict) -> list[dict]:

@@ -11,9 +11,11 @@ Parameters: ``embed``, the final norm, and the ``encoder`` and
 ``decoder`` subtrees of (L, ...) stacked leaves with the reference's
 names and shapes (the decoder adds ``cross_norm_*`` and ``xq``, ``xk``,
 ``xv``, ``xo``), so the reference's weights load unchanged
-(`repro_torch.convert`).  The layers run in an unrolled Python loop with
-no recomputation: the reference's per-layer ``jax.checkpoint`` changes
-its memory, not its values.
+(`repro_torch.convert`).  The layers run in an unrolled Python loop; in
+training each encoder and decoder layer is recomputed in the backward
+(`common.remat`; the reference's per-layer ``jax.checkpoint``, full
+recompute under either ``remat_policy``): values and gradients are those
+of the layers run without it.
 
 Attention.  In a prefill on a CUDA tensor the encoder's self-attention
 runs the flash-attention kernel B10 non-causal and the decoder's causal
@@ -37,8 +39,8 @@ from ..configs.base import ArchConfig
 from . import transformer as tfm
 from .common import (ArrayDef, attention, cross_entropy, decode_attention,
                      decode_cache_valid, decode_positions, einsum_promoted,
-                     layer_views, pad_vocab, ring_buffer_write, rope_tables,
-                     rope_tables_at)
+                     layer_views, pad_vocab, remat, ring_buffer_write,
+                     rope_tables, rope_tables_at)
 
 __all__ = ["param_defs", "encode", "forward_train", "loss_fn",
            "forward_prefill", "forward_decode", "cache_spec"]
@@ -130,7 +132,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ArchConfig,
                                        frames.device)[None]
     rope = _rope(S, cfg, x.device)
     for p in layer_views(params["encoder"]):
-        x = _enc_layer(p, x, rope, cfg, kernel)
+        x = remat(_enc_layer, p, x, rope, cfg, kernel)
     return x
 
 
@@ -182,6 +184,12 @@ def _dec_layer(p: dict, x: torch.Tensor, enc_out: torch.Tensor, rope,
     return tfm._mlp_block(p, x, cfg), k, v, xk, xv
 
 
+def _dec_layer_train(p: dict, x: torch.Tensor, enc_out: torch.Tensor, rope,
+                     cfg: ArchConfig) -> torch.Tensor:
+    """A training decoder layer's output (the plain self-attention)."""
+    return _dec_layer(p, x, enc_out, rope, cfg, kernel=False)[0]
+
+
 def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence logits (B, S, V_padded) of ``batch["tokens"]`` given
     ``batch["frames"]``."""
@@ -189,7 +197,7 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x = params["embed"][batch["tokens"].long()]
     rope = _rope(x.shape[1], cfg, x.device)
     for p in layer_views(params["decoder"]):
-        x = _dec_layer(p, x, enc_out, rope, cfg, kernel=False)[0]
+        x = remat(_dec_layer_train, p, x, enc_out, rope, cfg)
     return tfm.unembed(params, tfm._final_norm(params, x, cfg), cfg)
 
 

@@ -11,8 +11,11 @@ shared block is the dense family's layer (`transformer._layer_train`,
 ssm state and a conv tail, and one KV cache per attention *site* (weights
 are shared, caches are not); decode writes all of them into the caller's
 cache IN PLACE (the reference returns a new cache) and returns that same
-cache.  No per-block recomputation (the reference's remat changes memory,
-not values).
+cache.  In training each mamba block and each shared-attention block is
+recomputed in the backward (`common.remat`; the reference's
+``jax.checkpoint`` of both bodies, full recompute under either
+``remat_policy``): values and gradients are those of the blocks run
+without it.
 
 The reference's dtype promotion is kept: from the first mamba block on, a
 bf16 model carries an f32 residual stream, so its prefill cache leaves
@@ -24,8 +27,8 @@ import torch
 
 from ..configs.base import ArchConfig
 from .common import (ArrayDef, cross_entropy, decode_cache_valid,
-                     decode_positions, layer_views, pad_vocab, rms_norm,
-                     rope_tables, rope_tables_at)
+                     decode_positions, layer_views, pad_vocab, remat,
+                     rms_norm, rope_tables, rope_tables_at)
 from . import ssm
 from . import transformer as tfm
 
@@ -75,9 +78,9 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     x = tfm.embed_tokens(params, batch, cfg)
     rope = _rope(cfg, x.shape[1], x.device)
     for p, site in _blocks(params, cfg):
-        x = ssm.mamba_block_train(p, x, cfg)
+        x = remat(ssm.mamba_block_train, p, x, cfg)
         if site is not None:
-            x = tfm._layer_train(site[1], x, rope, cfg)
+            x = remat(tfm._layer_train, site[1], x, rope, cfg)
     return tfm.unembed(params, rms_norm(x, params["final_norm_gamma"]), cfg)
 
 

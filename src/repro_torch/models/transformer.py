@@ -9,10 +9,16 @@ positions out unless the batch brings ``loss_weights``.
 Parameters are a nested dict with the reference's leaf names and shapes —
 layer weights stacked on a leading (L,) axis, e.g. ``layers/wq`` is
 (L, d, H, hd) — so the reference's weights load unchanged
-(`repro_torch.convert`).  The layers run in an unrolled Python loop with
-no recomputation (the reference's per-layer remat changes memory, not
-values; ``remat_policy`` and ``scan_layers`` are accepted and change
-nothing here).
+(`repro_torch.convert`).  The layers run in an unrolled Python loop
+(``scan_layers`` is accepted and changes nothing here), each layer
+recomputed in the backward as the reference's per-layer
+``jax.checkpoint`` (`common.remat`, `_layer_remat`): under
+``remat_policy="full"`` only each layer's input is kept; under
+``"save_collectives"`` also the attention's output projection
+(``attn_out``), the one value the reference's
+``save_only_these_names("attn_out", "ffn_out")`` keeps as a residual
+(the FFN's output feeds only an addition, whose backward needs no
+value).  Values and gradients are those of the layers run without it.
 
 Prefill attention on a CUDA tensor runs the hand-written flash-attention
 kernel (B10, `kernels.flash_attention`); on the CPU, and in training
@@ -32,8 +38,9 @@ from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, chunked_attention,
                      cross_entropy, decode_attention, decode_cache_valid,
                      decode_positions, einsum_promoted, gelu_mlp,
-                     layer_norm, layer_views, pad_vocab, ring_buffer_write,
-                     rms_norm, rope_tables, rope_tables_at, swiglu)
+                     layer_norm, layer_views, pad_vocab, remat,
+                     ring_buffer_write, rms_norm, rope_tables, rope_tables_at,
+                     swiglu)
 from .moe import moe_defs, moe_ffn_decode, moe_ffn_train
 
 __all__ = ["param_defs", "attn_defs", "mlp_defs", "forward_train",
@@ -155,14 +162,38 @@ def _mlp_block(p: dict, x: torch.Tensor, cfg: ArchConfig,
     return x + _ffn(p, h, cfg, decode)
 
 
-def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
-    """One layer; ``p`` holds this layer's slices of the stacked leaves,
-    ``rope`` the (cos, sin) tables of the sequence."""
+def _attn_out(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
+    """A training layer's attention half up to its output projection (the
+    reference's ``attn_out``)."""
     h = _norm(x, p["attn_norm_gamma"], p.get("attn_norm_beta"), cfg)
     q, k, v = _qkv(p, h, rope)
     o = _plain_attn(q, k, v, cfg.attn_window, cfg)
-    x = x + einsum_promoted("bshk,hkd->bsd", o, p["wo"])
-    return _mlp_block(p, x, cfg)
+    return einsum_promoted("bshk,hkd->bsd", o, p["wo"])
+
+
+def _ffn_residual(p: dict, x: torch.Tensor, attn_out: torch.Tensor,
+                  cfg: ArchConfig):
+    """The rest of a training layer: the attention's residual, then the
+    MLP block."""
+    return _mlp_block(p, x + attn_out, cfg)
+
+
+def _layer_train(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
+    """One layer; ``p`` holds this layer's slices of the stacked leaves,
+    ``rope`` the (cos, sin) tables of the sequence."""
+    return _ffn_residual(p, x, _attn_out(p, x, rope, cfg), cfg)
+
+
+def _layer_remat(p: dict, x: torch.Tensor, rope, cfg: ArchConfig):
+    """`_layer_train` recomputed in the backward by ``cfg.remat_policy``:
+    one region for "full"; for "save_collectives" two, the attention half
+    and the rest, so that ``attn_out`` (the second region's input) is
+    kept.  The same operations in the same order either way, so the
+    values and the gradients are `_layer_train`'s."""
+    if cfg.remat_policy == "save_collectives":
+        return remat(_ffn_residual, p, x,
+                     remat(_attn_out, p, x, rope, cfg), cfg)
+    return remat(_layer_train, p, x, rope, cfg)
 
 
 def _layer_prefill(p: dict, x: torch.Tensor, rope, cfg: ArchConfig,
@@ -226,7 +257,7 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     rope = rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
                        cfg.rope_theta, x.device)
     for p in layer_views(params["layers"]):
-        x = _layer_train(p, x, rope, cfg)
+        x = _layer_remat(p, x, rope, cfg)
     return unembed(params, _final_norm(params, x, cfg), cfg)
 
 

@@ -12,8 +12,10 @@ The reference's dtype promotion is kept: its einsums of f32 activations
 with bf16 weights compute in f32, so from the first mLSTM block on a bf16
 model carries an f32 residual stream (`_mm`).  Decode writes each block's
 new state into the caller's cache IN PLACE (the reference returns a new
-cache) and returns that same cache.  No per-block recomputation (the
-reference's remat changes memory, not values).
+cache) and returns that same cache.  In training each block is
+recomputed in the backward (`common.remat`; the reference's per-block
+``jax.checkpoint``, full recompute under either ``remat_policy``):
+values and gradients are those of the blocks run without it.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
-from .common import ArrayDef, cross_entropy, layer_views, pad_vocab, rms_norm
+from .common import (ArrayDef, cross_entropy, layer_views, pad_vocab, remat,
+                     rms_norm)
 from .common import einsum_promoted as _mm
 from .ssm import ssd_chunked
 from .transformer import embed_tokens, unembed
@@ -211,7 +214,7 @@ def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
     """Full-sequence logits (B, S, V_padded)."""
     x = embed_tokens(params, batch, cfg)
     for kind, _, p in _blocks(params, cfg):
-        x = _BLOCK[kind](p, x, cfg)
+        x = remat(_BLOCK[kind], p, x, cfg)
     return unembed(params, rms_norm(x, params["final_norm_gamma"]), cfg)
 
 

@@ -52,6 +52,9 @@ def test_walk_reaches_every_module():
         assert str((pkg / "__init__.py").relative_to(PORT)) in files, pkg
     for name in ("transformer", "moe", "xlstm", "ssm", "hybrid", "encdec"):
         assert f"models/{name}.py" in files
+    for name in ("launch/mesh.py", "launch/specs.py", "launch/steps.py",
+                 "dist/sharding.py"):
+        assert name in files
 
 
 def test_importing_the_port_loads_no_jax():
@@ -84,3 +87,19 @@ def test_entry_points_default_to_cuda():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             run_training(args)
+
+
+def test_mesh_layer_imports_alone_and_defaults_to_cuda():
+    """The mesh, sharding, specs and steps modules import torch and the
+    port only, and their mesh functions make CUDA meshes unless asked."""
+    import inspect
+
+    from repro_torch.dist import sharding
+    from repro_torch.launch import mesh, specs, steps
+    for mod in (mesh, specs, steps, sharding):
+        roots = set(_imported_roots(Path(mod.__file__)))
+        assert not roots & set(FORBIDDEN), (mod.__name__, roots)
+    for fn in (mesh.make_production_mesh, mesh.make_global_mesh,
+               mesh.make_sharded_mesh):
+        assert inspect.signature(fn).parameters[
+            "device_type"].default == "cuda"

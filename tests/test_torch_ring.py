@@ -531,7 +531,7 @@ def test_ring_layout_refusals():
         run_training(build_parser().parse_args(
             base + ["--fault-corrupt-rate", "0.2"]))
     with pytest.raises(SystemExit):
-        build_parser().parse_args(base[:-1] + ["leafwise"])
+        build_parser().parse_args(base[:-1] + ["bogus"])
     m = 4
     tree = {"w": torch.zeros(3)}
     layout = FlatLayout.of(tree)
@@ -547,7 +547,7 @@ def test_ring_layout_refusals():
         pdsgd_update(X, X.clone(), layout, kernel_layout="ring",
                      corrupt=torch.zeros(m), **kw)
     with pytest.raises(ValueError, match="unknown kernel_layout"):
-        pdsgd_update(X, X.clone(), layout, kernel_layout="leafwise", **kw)
+        pdsgd_update(X, X.clone(), layout, kernel_layout="bogus", **kw)
     from repro_torch.faults import make_faults
     with pytest.raises(ValueError, match="corrupt-link"):
         make_decentralized_step(lambda p, b: p["w"].sum(), top,
