@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
 card: builds the hand-written kernels, holds each against its plain
 PyTorch version, trains stablelm-3b at full width and serves it at full
-width, trains and serves xlstm-125m at full width, trains zamba2-7b at
+width, trains it as four rank processes over HMAC-framed sockets
+(the multi-controller deployment), trains and serves xlstm-125m at full width, trains zamba2-7b at
 full width (depth 12) and serves it at full width, trains chatglm3-6b at
 full width (depth 4) and granite-moe-1b-a400m at full width and depth,
 serves mistral-nemo-12b and olmoe-1b-7b at full width, runs a granite-8b
@@ -67,12 +68,13 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               replay); gates: the manifest holds [4] and no staging
               debris, the resumed state equal to the uninterrupted one
               bit for bit, the losses of steps 4-11 equal, the warm-up's
-              and the replay's launches; then 8 steps under
-              --checkpoint-sync, the thread and the subprocess writer: ms
-              a replayed step beside checkpointing off, the caller's ms a
-              save, the writer's s a commit, bytes, peak device memory,
-              host peak RSS and each child's, load s; gate: the
-              three step-8 archives equal leaf for leaf
+              and the replay's launches; then 4 steps under
+              --checkpoint-sync, the thread and the subprocess writer,
+              one commit each at step 4: the caller's ms a save, the
+              writer's s a commit, bytes, peak device memory, host peak
+              RSS and each child's, load s; the resumed run's ms a
+              replayed step after a save; gate: the three step-4
+              archives equal leaf for leaf
               (build/chip_checkpoints/, removed after; it fails without
               room for three archives)
   fig2_trimmed_mean  the Fig. 2 workload with trimmed-mean aggregation,
@@ -194,12 +196,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               one bf16 ulp of the plain version; timed
   leafwise_path  the bits path with --kernel-layout leafwise (B1 and B2,
               B4 with dropout 0.25, B6 with the fault flags, once per leaf
-              a step), each beside the concat bits path: states and
-              records bitwise; then --unroll-k 2 beside 4 eager steps
+              a step), one step each (cut from 2), each beside the concat
+              bits path: states and records bitwise; then --unroll-k 2
+              beside 4 eager steps
   trivial_mesh_step  the (1, 1, 1) data x fsdp x model mesh on a one-rank
               NCCL group, leaf specs from TRAIN_RULES: three leafwise
               steps over DTensors, each against mesh=None from the same
               state, within B2's bf16 tolerance
+  multihost_path  launch/multihost: stablelm-3b at the bits path's depth
+              (D = 418,145,280 an agent), m = 4 on a ring, f32 parameters,
+              batch 2, seq 512, 3 steps, --grad-clip-kappa 1.0: --world 4
+              (four rank processes on this card, HMAC-framed loopback
+              sockets, the pipelined transport, --frames-ahead 1, a
+              checkpoint of each shard at the end) against --world 1 in
+              this process; gates: each rank's rows bitwise the world=1
+              run's, no tag failures or drops, finite, B3 once a step in
+              every rank (its counts summed by the launcher), step 0's u
+              of agents 2 and 3 bitwise B3's plain version; per rank ms a
+              step, compute, comm, wait and HMAC seconds, bytes sent,
+              peak device memory and peak RSS; this host's loopback and
+              HMAC rates
+  multihost_smoke  stablelm-3b-smoke on the card, world 2 x 2 agents:
+              the blocking transport against the pipelined one and the
+              world=1 run, bitwise; --wiretap's merged stream equal to
+              world=1's; --chaos-kill-rank 1 --chaos-kill-step 3, then
+              --resume: the overlay's W doubly stochastic, the quorum
+              step, generation 1, finite
   serve_parity  stablelm-3b-smoke f32, 4 requests on 2 slots, greedy,
               through launch/serve.run_serving on the card (B10) and on the
               CPU (naive attention), same weights: equal token streams,
@@ -319,7 +341,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               image embeddings and 256 text tokens a request; B10 12 times
               a prefill at (1, 2560, 56, 128); the same gate as serve_path
   kernels     every kernel with its launches in its own path's run (B3
-              and B2: main_path; B10: the seven serve paths and
+              and B2: main_path, B3 also multihost_path's ranks and its
+              world=1 run; B10: the seven serve paths and
               granite_prefill; B11: the xLSTM and hybrid train and serve
               paths), error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
@@ -356,6 +379,7 @@ from __future__ import annotations
 import argparse
 import bisect
 import dataclasses
+import faulthandler
 import gc
 import itertools
 import json
@@ -2342,7 +2366,7 @@ def phase_tree_forms(torch, K, prng, cfg):
 
 
 LEAFWISE_FLAGS = ("--kernel-layout", "leafwise")
-LEAFWISE_STEPS = 2
+LEAFWISE_STEPS = 1
 # the leafwise route's gossip kernel by coupling
 LEAFWISE_GOSSIP = {"static": "gossip_update", "dropout":
                    "masked_gossip_update", "fault": "guarded_gossip_update"}
@@ -2388,8 +2412,8 @@ def phase_leafwise_path(torch, K, train, cfg):
             total[k] = total.get(k, 0) + v
         runs[name] = {
             "flags": list(flags), "losses": [r["loss"] for r in lhist],
-            "ms_per_step": _ms_per_step(lhist, 0),
-            "ms_per_step_concat": _ms_per_step(chist, 0),
+            "first_step_s": lhist[0]["elapsed_s"],
+            "first_step_s_concat": chist[0]["elapsed_s"],
             "run_wall_s": lwall, "run_wall_s_concat": cwall,
             "max_memory_allocated": lpeak,
             "max_memory_allocated_concat": cpeak,
@@ -2659,9 +2683,6 @@ def phase_fig2_path(torch, K, prng):
     last = slice(FIG2_ITERS - FIG2_UNROLL, FIG2_ITERS)
     trace = _trace_replay(torch, lambda: scanned(state, (zb[last], Mk),
                                                  keys[last]), FIG2_UNROLL)
-    step_p, zb_p, M_p, keys_p, _ = _fig2_workload(torch, prng, dev, True)
-    part, _, _, _ = _fig2_eager(torch, K, step_p, zb_p, M_p, keys_p,
-                                FIG2_ITERS)
     gap = abs(e_graph - NORTH_STAR) / NORTH_STAR
     losses = torch.cat(losses)
     check(bool(torch.isfinite(losses).all()), "fig2_path losses")
@@ -2687,7 +2708,6 @@ def phase_fig2_path(torch, K, prng):
           "unroll_k": FIG2_UNROLL, "final_err_eager": e_eager,
           "final_err_graph": e_graph, "north_star": NORTH_STAR,
           "rel_gap_to_north_star": gap,
-          "final_err_eager_partitionable": err(part),
           "graph_equals_eager_bitwise": True,
           "launches_eager": c_eager,
           "launches_graph_warmup_counted": c_graph,
@@ -3309,9 +3329,8 @@ def _step_dirs(d: Path) -> list[str]:
 
 
 def _writer_record(res, step_dir: Path, wall, peak, children) -> dict:
-    times, hist = res["checkpoint"], res["history"]
-    return {"ms_per_step_replayed_3_7": _ms_per_step(hist, 3, 7),
-            "save_ms": [t * 1e3 for t in times["save_s"]],
+    times = res["checkpoint"]
+    return {"save_ms": [t * 1e3 for t in times["save_s"]],
             "commit_s": times["commit_s"],
             "archive_bytes": (step_dir / "arrays.npz").stat().st_size,
             "zip64": _is_zip64(step_dir / "arrays.npz"),
@@ -3334,14 +3353,14 @@ def phase_checkpoint_path(torch, K, train, cfg):
     uninterrupted one bit for bit (the whole flat buffer, padding
     included) at step 12, the losses of steps 4-11 equal, B3 and B2
     counted once a step of the warm-up chunk and replayed once a step of
-    the replay.  Then 8 steps under each writer (--checkpoint-sync, the
-    thread and the subprocess writer); gate: the three writers' step-8
-    archives equal entry by entry (sha256 of each leaf's npy bytes),
-    tree.json too.  Printed for each writer: ms a replayed step over
-    steps 3-7 (one save inside) beside checkpointing off, the caller's ms
-    a save, the writer's seconds a commit, bytes an archive, peak device
-    memory, the host's peak RSS and each child's; and the seconds to
-    load a checkpoint.  At most two checkpoints are on disk at once; the
+    the replay.  Then 4 steps (one chunk) under each writer
+    (--checkpoint-sync, the thread and the subprocess writer), one commit
+    each, at step 4; gate: the three writers' step-4 archives equal entry
+    by entry (sha256 of each leaf's npy bytes), tree.json too.  Printed for each writer: the
+    caller's ms a save, the writer's seconds a commit, bytes an archive,
+    peak device memory, the host's peak RSS and each child's; the resumed
+    run's ms a replayed step after the thread writer's save at step 8,
+    beside checkpointing off; and the seconds to load a checkpoint.  At most two checkpoints are on disk at once; the
     phase fails if the disk has no room for three."""
     import shutil
     from repro_torch import checkpoint as ckpt
@@ -3405,6 +3424,9 @@ def phase_checkpoint_path(torch, K, train, cfg):
               == [steps], "checkpoint_path resumed run's manifest")
         resume = {"resumed_wall_s": r_wall, "max_memory_allocated": r_peak,
                   "commit_s": res["checkpoint"]["commit_s"],
+                  # the replayed chunk (steps 8-11) after the save at 8
+                  "ms_per_step_replayed_7_11": _ms_per_step(
+                      res["history"], 7, steps - 1),
                   "state_equals_uninterrupted_bitwise": same}
         del res
         # the seconds to load the step-12 checkpoint into the state
@@ -3418,24 +3440,29 @@ def phase_checkpoint_path(torch, K, train, cfg):
         del state
         shutil.rmtree(d)
         writers, digests = {}, {}
+        # one chunk and one commit a writer, at step 4 (cut from 8 steps
+        # and commits at 4 and 8 for the script's time limit; the resumed
+        # run above measures a replayed chunk after a thread writer's
+        # save)
         for name, flags in CKPT_WRITERS:
             gc.collect()
             wd = CKPT_DIR / name
             with _ChildPeaks() as children:
                 res, _, wall, peak = _run_path(
-                    torch, K, train, cfg, 8, True,
-                    (*scanned, "--checkpoint-dir", str(wd), *every, *flags),
-                    held=True)
-            step8 = wd / ckpt.step_dirname(8)
-            writers[name] = _writer_record(res, step8, wall, peak, children)
+                    torch, K, train, cfg, CKPT_EVERY, True,
+                    (*scanned, "--checkpoint-dir", str(wd), *every,
+                     *flags), held=True)
+            step_dir = wd / ckpt.step_dirname(CKPT_EVERY)
+            writers[name] = _writer_record(res, step_dir, wall, peak,
+                                           children)
             del res
-            digests[name] = _archive_digests(step8)
+            digests[name] = _archive_digests(step_dir)
             shutil.rmtree(wd)
         check(all(w["zip64"] for w in writers.values()),
               f"checkpoint_path: an archive of {archive_bytes} B did not "
               f"take the ZIP64 route")
         equal = all(v == digests["thread"] for v in digests.values())
-        check(equal, "checkpoint_path: the writers' step-8 archives differ")
+        check(equal, "checkpoint_path: the writers' step-4 archives differ")
         check(all(len(v) == layout.n_leaves + 2 for v in digests.values()),
               "checkpoint_path archive entries")
         rec = {"phase": "checkpoint_path", "arch": cfg.name,
@@ -3642,7 +3669,7 @@ def _step_fn(torch, train, cfg, args, observer):
 
 
 # steps timed per capture configuration (each from the same x^0)
-CAPTURE_REPS = 3
+CAPTURE_REPS = 2
 
 
 def phase_privacy_capture_path(torch, K, train, prng, cfg):
@@ -5552,6 +5579,353 @@ def vlm_cfg():
                                num_layers=VLM_SERVE_LAYERS)
 
 
+MULTIHOST_STEPS = 3
+MULTIHOST_ARGS = ("--arch", "stablelm-3b", "--num-layers",
+                  str(BITS_PATH_LAYERS), "--agents", "4", "--topology",
+                  "ring", "--per-agent-batch", "2", "--seq-len", "512",
+                  "--steps", str(MULTIHOST_STEPS), "--grad-clip-kappa",
+                  "1.0", "--lr", "0.4", "--warmup-hold", "200", "--seed",
+                  "0", "--log-every", "1000", "--device", "cuda",
+                  "--timeout", "600", "--checkpoint-sync")
+MULTIHOST_DIR = ROOT / "build" / "chip_multihost"
+MULTIHOST_SMOKE_ARGS = ("--arch", "stablelm-3b-smoke", "--agents", "4",
+                        "--topology", "ring", "--per-agent-batch", "2",
+                        "--seq-len", "64", "--seed", "0", "--log-every",
+                        "1000", "--device", "cuda", "--timeout", "120",
+                        "--checkpoint-every", "1", "--checkpoint-sync")
+
+
+def _mh_args(mh, root: Path | None, base, *extra):
+    ckpt = ("--checkpoint-dir", str(root)) if root is not None else ()
+    return mh.build_multihost_parser().parse_args([*base, *ckpt, *extra])
+
+
+def _launch_counted(torch, K, mh, args) -> tuple[dict, dict, float]:
+    """`launch.multihost.launch`; returns its summary, the kernel launches
+    of the run (the ranks' own counts, each read in its process, summed)
+    and the wall seconds.  An in-process rank (world 1) also counts here,
+    from 0 just before it, checked against its summary."""
+    # (only an in-process rank counts here: launches of rank processes
+    # may run beside it on other threads, and leave this count alone)
+    if args.world == 1:
+        K.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = mh.launch(args)
+    wall = time.perf_counter() - t0
+    if args.world == 1:
+        here = dict(K.launch_counts)
+        check(here == out["launches"],
+              f"in-process launches {here} against the summary's "
+              f"{out['launches']}")
+    check(out["ok"], f"multihost launch failed: {out}")
+    return out, out["launches"], wall
+
+
+def _concurrently(*fns) -> list:
+    """Call each of ``fns`` on its own thread; their results in order
+    (the first exception re-raised)."""
+    import concurrent.futures
+    with concurrent.futures.ThreadPoolExecutor(len(fns)) as ex:
+        futures = [ex.submit(fn) for fn in fns]
+        return [f.result() for f in futures]
+
+
+def _rank_record(s: dict) -> dict:
+    comm = s["comm"]
+    steps = max(1, comm["steps"])
+    return {"rank": s["rank"], "us_per_step": s["us_per_step"],
+            "compute_s": comm["compute_s"], "comm_s": comm["comm_s"],
+            "comm_wait_s": comm["comm_wait_s"], "hmac_s": comm["hmac_s"],
+            "bytes_sent_per_step": comm["bytes_sent"] / steps,
+            "drops": comm["drops"], "tag_failures": comm["tag_failures"],
+            "transport": comm["transport"],
+            "peak_device_bytes": s["peak_device_bytes"],
+            "peak_rss_bytes": s["peak_rss_bytes"],
+            "launches": s["launches"]}
+
+
+def _loopback_probe(nbytes: int = 1 << 30) -> dict:
+    """This host's loopback TCP rate (one stream, ``recv_into`` a
+    preallocated buffer, 4 MiB socket buffers, as the pipelined
+    transport) and its HMAC-SHA256 rate, over ``nbytes``."""
+    import hashlib
+    import hmac
+    import socket
+    import threading
+    import numpy as np
+    payload = np.ones(nbytes // 4, np.float32)
+    sink = np.empty_like(payload)
+    lst = socket.socket()
+    lst.bind(("127.0.0.1", 0))
+    lst.listen(1)
+    out = {}
+
+    def send():
+        s = socket.create_connection(lst.getsockname())
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_SNDBUF, 4 << 20)
+        s.sendall(memoryview(payload).cast("B"))
+        s.close()
+
+    t = threading.Thread(target=send)
+    conn_t0 = time.perf_counter()
+    t.start()
+    conn, _ = lst.accept()
+    conn.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 4 << 20)
+    mv, got = memoryview(sink).cast("B"), 0
+    while got < nbytes:
+        got += conn.recv_into(mv[got:], nbytes - got)
+    out["loopback_GBps"] = nbytes / (time.perf_counter() - conn_t0) / 1e9
+    t.join()
+    conn.close()
+    lst.close()
+    t0 = time.perf_counter()
+    hmac.new(b"k" * 32, memoryview(payload).cast("B"),
+             hashlib.sha256).digest()
+    out["hmac_sha256_GBps"] = nbytes / (time.perf_counter() - t0) / 1e9
+    return out
+
+
+def _multihost_b3_parity(torch, K, prng, mh, args) -> dict:
+    """Step 0 of the agents [2, 4) of the multihost path's configuration
+    on the card, as a rank owning them runs it: the gradients, then u by
+    B3 keyed by the global ids 2 and 3, against the plain version of B3
+    on the same gradients and key table, bitwise, column chunk by column
+    chunk; then B3 timed on that (2, width) f32 buffer."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.pdsgd import lambda_key_table
+    from repro_torch.core.schedules import warmup_harmonic
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.dist.transport import flatten_one
+    from repro_torch.models import build_model
+    dev = torch.device(args.device)
+    cfg = dataclasses.replace(get_config(args.arch),
+                              num_layers=args.num_layers)
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+    init = bundle.init(gen, dev)
+    lo, L = 2, 2
+    prog = mh._RankProgram(bundle, init, L, lo, dev, args.grad_clip_kappa,
+                           warmup_harmonic(args.lr, hold=args.warmup_hold))
+    x = np.tile(flatten_one(init), (L, 1))
+    del init
+    pipeline = make_lm_pipeline(cfg.vocab_size, args.agents,
+                                args.per_agent_batch, args.seq_len,
+                                seed=args.seed)
+    prog.grads(x, pipeline.batch_at(0, agent_slice=(lo, lo + L)))
+    G0 = prog.G.clone()
+    _, lam_root = mh._key_roots(args, 0)
+    K.reset_launch_counts()
+    U = prog.obfuscate(0, lam_root)
+    check(dict(K.launch_counts) == {"obfuscate_update_krng": 1},
+          f"multihost B3 parity launches {dict(K.launch_counts)}")
+    width = U.shape[1]
+    keys = lambda_key_table(prng.fold_in(lam_root, 0), 0, L,
+                            prog.layout.n_leaves,
+                            agents=torch.arange(lo, lo + L)).to(dev)
+    offsets = torch.tensor(prog.layout.offsets, dtype=torch.int64)
+    lam = prog.lam_bar(0).to(dev)
+    for s, e in _chunks(width):
+        bits = prng.leaf_bits(keys, offsets, L, width, start=s, stop=e)
+        check(same_bits(torch, U[:, s:e], K.ref.obfuscate_ref(
+            prog.X[:, s:e], G0[:, s:e], bits, lam, 0.0, -1.0)),
+            f"multihost B3 u differs from its plain version at columns "
+            f"{s}:{e}")
+    kd = keys.to(torch.uint32)
+    od = offsets.to(dev)
+    n = L * width
+    rec = {"shape": [L, width], "dtype": "float32", "agents": [lo, lo + L],
+           "u_bitwise_plain": True,
+           "ms": time_ms(torch, lambda: K.obfuscate_update_krng(
+               prog.X, G0, kd, od, lam, 0.0, -1.0, out=U), iters=5)}
+    # f32: x and g read, u written (12 bytes an element)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(n * 12, n * 5,
+                                                n * THREEFRY_INT_OPS)
+    del prog, G0, U
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_multihost_path(torch, K, prng):
+    """The multi-controller deployment at full width: stablelm-3b at
+    BITS_PATH_LAYERS (D = 418,145,280 per agent), m = 4 on a ring, f32
+    parameters (as the reference's ranks), 3 steps with the clip at 1.0
+    and a terminal checkpoint of each shard.  --world 4: four rank
+    processes on this card over HMAC-framed loopback sockets
+    (PipelinedSocketTransport, --frames-ahead 1), each drawing its
+    Lambda^k in B3 keyed by its agent's global id; --world 1: the same
+    configuration in this process (InProcessTransport).  Gates: each
+    rank's final rows bitwise the world=1 run's, no tag failures and no
+    drops, every x finite, B3 launched once a step in each rank (one
+    launch over the rank's (L, width) buffer: L x steps with L = 1) and
+    in the world=1 run, and step 0's u of B3 bitwise its plain version
+    (`_multihost_b3_parity`).  Prints MemAvailable before, each rank's
+    ms a step, compute / comm / wait / HMAC seconds, bytes sent a step,
+    peak device memory and peak RSS."""
+    import shutil
+    from repro_torch.launch import multihost as mh
+    shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    MULTIHOST_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mem0 = _mem_available()
+    print(f"multihost_path: MemAvailable {mem0 / 2**30:.1f} GiB, this "
+          f"process's RSS peak {_peak_rss() / 2**30:.1f} GiB", flush=True)
+    probe = _loopback_probe()
+    try:
+        a4 = _mh_args(mh, MULTIHOST_DIR / "w4", MULTIHOST_ARGS, "--world",
+                      "4", "--frames-ahead", "1")
+        # the ranks' peak RSS polled from here (the card's machine has no
+        # VmHWM, and an exec'd child's ru_maxrss starts at its parent's)
+        with _ChildPeaks() as children:
+            o4, c4, wall4 = _launch_counted(torch, K, mh, a4)
+        mem_mid = _mem_available()
+        torch.cuda.reset_peak_memory_stats()
+        # the in-process run writes no shard: its final rows come back in
+        # its summary's digests
+        a1 = _mh_args(mh, None, MULTIHOST_ARGS, "--world", "1")
+        o1, c1, wall1 = _launch_counted(torch, K, mh, a1)
+        s1 = o1["ranks"]["0"]
+        check(s1["finite"] and s1["final_step"] == MULTIHOST_STEPS,
+              f"multihost world=1: {s1}")
+        check(c1.get("obfuscate_update_krng", 0) == MULTIHOST_STEPS,
+              f"multihost world=1 launches {c1}")
+        check(o4["casualties"] == [], f"multihost casualties {o4}")
+        for r in range(4):
+            s = o4["ranks"][str(r)]
+            check(s is not None and s["finite"]
+                  and s["final_step"] == MULTIHOST_STEPS,
+                  f"multihost rank {r}: {s}")
+            check(s["comm"]["tag_failures"] == 0 and s["comm"]["drops"] == 0,
+                  f"multihost rank {r} comm {s['comm']}")
+            check(s["comm"]["transport"] == "PipelinedSocketTransport",
+                  f"multihost rank {r} transport")
+            check(s["row_sha256"] == s1["row_sha256"][r:r + 1],
+                  f"multihost rank {r}'s final x differs from the world=1 "
+                  f"run's row {r}")
+            check(s["launches"].get("obfuscate_update_krng", 0)
+                  == MULTIHOST_STEPS, f"multihost rank {r} launches "
+                                      f"{s['launches']}")
+        check(c4.get("obfuscate_update_krng", 0) == 4 * MULTIHOST_STEPS,
+              f"multihost world=4 launches {c4}")
+        parity = _multihost_b3_parity(torch, K, prng, mh, a1)
+    finally:
+        shutil.rmtree(MULTIHOST_DIR, ignore_errors=True)
+    ranks = [_rank_record(o4["ranks"][str(r)]) for r in range(4)]
+    for rr, r in zip(ranks, range(4)):
+        polled = children.peaks.get(o4["ranks"][str(r)]["pid"], {})
+        rr["polled_peak_rss_bytes"] = polled.get("peak_rss")
+        rr["polled_field"] = polled.get("field")
+    rec = {"phase": "multihost_path", "arch": "stablelm-3b",
+           "num_layers": BITS_PATH_LAYERS, "agents": 4, "world": 4,
+           "params_per_agent": 418_145_280, "steps": MULTIHOST_STEPS,
+           "mem_available_before": mem0, "mem_available_between": mem_mid,
+           "world4_wall_s": wall4, "world1_wall_s": wall1,
+           "world4_ranks": ranks, "world1": _rank_record(s1),
+           "world1_us_per_step": s1["us_per_step"],
+           "launches_world4": c4, "launches_world1": c1,
+           "b3_parity": parity, **probe}
+    emit(rec)
+    for rr in ranks:
+        print(f"multihost_path rank {rr['rank']}: "
+              f"{rr['us_per_step'] / 1e3:.0f} ms a step, compute "
+              f"{rr['compute_s']:.1f} s, comm {rr['comm_s']:.1f} s (wait "
+              f"{rr['comm_wait_s']:.1f}, HMAC {rr['hmac_s']:.1f}), "
+              f"{rr['bytes_sent_per_step'] / 1e9:.2f} GB sent a step, peak "
+              f"device {rr['peak_device_bytes'] / 2**30:.1f} GiB, peak RSS "
+              f"{(rr['polled_peak_rss_bytes'] or 0) / 2**30:.1f} GiB "
+              f"({rr['polled_field']}, polled)", flush=True)
+    return rec
+
+
+def phase_multihost_smoke(torch, K):
+    """The multihost launcher's other paths on the card, stablelm-3b-smoke,
+    world 2 x 2 agents: the blocking SocketTransport against the pipelined
+    one (final rows bitwise), --wiretap (the merged stream and the final
+    x bitwise the world=1 run's), then --chaos-kill-rank 1
+    --chaos-kill-step 3 over 6 steps and --resume: the survivor's
+    fault_log shows the overlay's W doubly stochastic, the resume starts
+    at the quorum step with generation 1 and completes finite."""
+    import json as _json
+    import shutil
+    import numpy as np
+    from repro_torch.launch import multihost as mh
+    root = MULTIHOST_DIR / "smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    try:
+        base = (*MULTIHOST_SMOKE_ARGS, "--steps", "4")
+        chaos = root / "chaos"
+        base6 = (*MULTIHOST_SMOKE_ARGS, "--steps", "6", "--world", "2")
+        # the three two-rank launches run at once (six rank processes on
+        # the card; their start-up dominates), each with its own
+        # coordinator and directory, and the world=1 run in this process
+        # beside them
+        (w1, _, t1), (blk, cb, tb), (pip, cp, tp), (killed, _, tk) = \
+            _concurrently(lambda: _launch_counted(torch, K, mh, _mh_args(
+                mh, root / "w1", base, "--world", "1", "--wiretap")),
+            lambda: _launch_counted(torch, K, mh, _mh_args(
+                mh, root / "blk", base, "--world", "2", "--wiretap")),
+            lambda: _launch_counted(torch, K, mh, _mh_args(
+                mh, root / "pip", base, "--world", "2", "--frames-ahead",
+                "1")),
+            lambda: _launch_counted(torch, K, mh, _mh_args(
+                mh, chaos, base6, "--chaos-kill-rank", "1",
+                "--chaos-kill-step", "3")))
+        rows1 = w1["ranks"]["0"]["row_sha256"]
+        for r in range(2):
+            sb, sp = blk["ranks"][str(r)], pip["ranks"][str(r)]
+            check(sb["comm"]["transport"] == "SocketTransport"
+                  and sp["comm"]["transport"] == "PipelinedSocketTransport",
+                  "multihost_smoke transports")
+            check(sb["row_sha256"] == sp["row_sha256"]
+                  == rows1[2 * r:2 * r + 2],
+                  f"multihost_smoke rank {r}: blocking, pipelined and "
+                  f"world=1 rows differ")
+            for s in (sb, sp):
+                check(s["comm"]["drops"] == 0
+                      and s["comm"]["tag_failures"] == 0,
+                      f"multihost_smoke comm {s['comm']}")
+        with np.load(root / "w1" / "wiretap_merged.npz") as z1, \
+                np.load(root / "blk" / "wiretap_merged.npz") as z2:
+            check(list(z1["steps"]) == list(z2["steps"]) == [0, 1, 2, 3]
+                  and z1["v"].tobytes() == z2["v"].tobytes(),
+                  "multihost_smoke: merged wiretap differs from world=1's")
+        check(killed["casualties"] == [1], f"chaos casualties {killed}")
+        log = _json.loads((chaos / "host_0" / "fault_log.json").read_text())
+        ev = log["events"][0]
+        check(ev["dead"] == [2, 3] and ev["row_sum_err"] < 1e-6
+              and ev["col_sum_err"] < 1e-6,
+              f"chaos overlay not doubly stochastic: {ev}")
+        quorum = mh.quorum_step(str(chaos), 2)
+        check(quorum == 3, f"chaos quorum {quorum}")
+        resumed, _, tr = _launch_counted(torch, K, mh, _mh_args(
+            mh, chaos, base6, "--resume"))
+        check(resumed["generation"] == 1 and resumed["casualties"] == [],
+              f"resume {resumed}")
+        for r in range(2):
+            s = resumed["ranks"][str(r)]
+            check(s["finite"] and s["final_step"] == 6
+                  and s["generation"] == 1, f"resumed rank {r}: {s}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = {"phase": "multihost_smoke", "arch": "stablelm-3b-smoke",
+           "world": 2, "agents": 4, "wall_s": {
+               "world1": t1, "blocking": tb, "pipelined": tp,
+               "chaos": tk, "resume": tr},
+           "blocking_ranks": [_rank_record(blk["ranks"][str(r)])
+                              for r in range(2)],
+           "pipelined_ranks": [_rank_record(pip["ranks"][str(r)])
+                               for r in range(2)],
+           "chaos_event": ev, "quorum": quorum,
+           "resume_generation": resumed["generation"],
+           "launches": {"blocking": cb, "pipelined": cp}}
+    emit(rec)
+    return rec
+
+
 SOURCES = {
     "obfuscate_update": ("src/repro_torch/csrc/obfuscate.cu",
                          "src/repro/kernels/obfuscate.py:85"),
@@ -5579,6 +5953,8 @@ SOURCES = {
 
 
 def main(argv=None) -> int:
+    # a fault in native code prints the Python stack of every thread
+    faulthandler.enable()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and kernel phases only")
@@ -5699,6 +6075,10 @@ def main(argv=None) -> int:
         phase_tree_forms(torch, K, prng, bits_cfg)
         leafwise = phase_leafwise_path(torch, K, train, bits_cfg)
         phase_trivial_mesh_step(torch, K, train, bits_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
+        multihost = phase_multihost_path(torch, K, prng)
+        phase_multihost_smoke(torch, K)
         gc.collect()
         torch.cuda.empty_cache()
         phase_privacy_capture_path(torch, K, train, prng, bits_cfg)
@@ -5855,6 +6235,14 @@ def main(argv=None) -> int:
             counts, r = rows[name]
             rows[name] = ({**counts, name: counts.get(name, 0)
                            + leafwise.get(name, 0)}, r)
+        # B3 also ran in the multihost path's rank processes (their own
+        # counts, summed by the launcher) and in its world=1 run
+        counts, r = rows["obfuscate_update_krng"]
+        rows["obfuscate_update_krng"] = ({**counts, "obfuscate_update_krng":
+            counts.get("obfuscate_update_krng", 0) + sum(
+                c.get("obfuscate_update_krng", 0)
+                for c in (multihost["launches_world4"],
+                          multihost["launches_world1"]))}, r)
         # each kernel's launches from its own path's runs, counted there
         # with the counts set to 0 just before each
         kernels = []

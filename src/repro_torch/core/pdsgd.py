@@ -153,13 +153,21 @@ def consensus_error(flat: torch.Tensor, chunk: int = _CHUNK) -> torch.Tensor:
 
 
 def lambda_key_table(key: torch.Tensor, step, m: int, n_leaves: int,
-                     partitionable: bool = True) -> torch.Tensor:
-    """(m, n_leaves, 2) keys: row a is ``split(agent_key(fold_in(key, 1),
-    step, a), n_leaves)``, every agent at once, on key's device (``step``
-    an int or a device counter; ``partitionable``: the threefry stream,
-    `prng`)."""
+                     partitionable: bool = True,
+                     agents: torch.Tensor | None = None) -> torch.Tensor:
+    """(m, n_leaves, 2) keys: row r is ``split(agent_key(fold_in(key, 1),
+    step, a), n_leaves)`` for agent a = ``agents[r]`` (default a = r), every
+    row at once, on key's device (``step`` an int or a device counter;
+    ``partitionable``: the threefry stream, `prng`).  A process owning a
+    block of agents passes their global ids."""
     lam_key = prng.fold_in(key, 1)
-    agents = torch.arange(m, dtype=torch.int64, device=key.device)
+    if agents is None:
+        agents = torch.arange(m, dtype=torch.int64, device=key.device)
+    else:
+        agents = torch.as_tensor(agents, dtype=torch.int64).to(key.device)
+        if agents.shape != (m,):
+            raise ValueError(f"agents must be ({m},) ids, got "
+                             f"{tuple(agents.shape)}")
     return prng.split(agent_key(lam_key, step, agents), n_leaves,
                       partitionable)
 
@@ -383,19 +391,25 @@ def _obfuscated_rows(G: torch.Tensor, layout: FlatLayout,
 
 def _lambda_source(key: torch.Tensor, step, layout: FlatLayout,
                    X: torch.Tensor, kernel_rng: bool,
-                   partitionable: bool = True) -> dict:
+                   partitionable: bool = True, agents=None) -> dict:
     """What the obfuscate kernel draws Lambda^k from: the key table and the
     leaf offsets (``kernel_rng``), or the `per_agent_bits` buffer.  Derived
     where the key lies: a host key (the eager loop) on the host, a device
-    key (the graph) on the card, as uint32 with device offsets."""
+    key (the graph) on the card, as uint32 with device offsets.
+    ``agents``: the rows' global agent ids (`lambda_key_table`; the key
+    table only)."""
     m = X.shape[0]
     if kernel_rng:
-        keys = lambda_key_table(key, step, m, layout.n_leaves, partitionable)
+        keys = lambda_key_table(key, step, m, layout.n_leaves, partitionable,
+                                agents=agents)
         if keys.device.type == "cuda":
             return {"keys": keys.to(torch.uint32),
                     "offsets": _offsets(layout, keys.device)}
         return {"keys": keys,
                 "offsets": torch.tensor(layout.offsets, dtype=torch.int64)}
+    if agents is not None:
+        raise ValueError("agents= keys the in-kernel draw only "
+                         "(kernel_rng=True)")
     return {"bits": per_agent_bits(key, step, layout, m, device=X.device,
                                    partitionable=partitionable)}
 
@@ -599,14 +613,20 @@ def _tap_record(rec: dict, fields, W, B, X: torch.Tensor, U: torch.Tensor,
 def obfuscate_flat(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
                    key: torch.Tensor, step: int, lam_bar,
                    kernel_rng: bool = True, eager: bool = False,
-                   partitionable: bool = True) -> torch.Tensor:
-    """u = Lambda^k ∘ g alone (the descent of trimmed-mean aggregation):
-    through the obfuscate kernel, written over G, or by the unfused
-    formula (``eager``) into a new buffer.  The same Lambda^k as
-    `pdsgd_update`."""
+                   partitionable: bool = True,
+                   agents=None) -> torch.Tensor:
+    """u = Lambda^k ∘ g alone (the descent of trimmed-mean aggregation, and
+    a multi-controller rank's local update): through the obfuscate kernel,
+    written over G, or by the unfused formula (``eager``) into a new
+    buffer.  The same Lambda^k as `pdsgd_update`; ``agents`` gives the
+    rows' global agent ids when X holds a block of the agents
+    (`lambda_key_table`)."""
     if eager:
+        if agents is not None:
+            raise ValueError("agents= keys the kernel's draw only")
         return _obfuscated_rows(G, layout, key, step, lam_bar, partitionable)
-    src = _lambda_source(key, step, layout, X, kernel_rng, partitionable)
+    src = _lambda_source(key, step, layout, X, kernel_rng, partitionable,
+                         agents=agents)
     if kernel_rng:
         return obfuscate_update_krng(X, G, src["keys"], src["offsets"],
                                      lam_bar, 0.0, -1.0, out=G,

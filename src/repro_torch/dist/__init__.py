@@ -7,10 +7,25 @@
                   (``mesh_pdsgd_tree``);
 ``collectives`` — the torus gossip as per-direction tables (the ring
                   layout) and the single-device forms of
-                  ``torus_gossip_pdsgd``.
+                  ``torus_gossip_pdsgd``;
+``transport``   — the neighbor exchange of Eq. (3) in one process
+                  (``InProcessTransport``) and between processes over
+                  HMAC-framed sockets (``SocketTransport``,
+                  ``PipelinedSocketTransport``), the multi-controller
+                  deployment's channel (`launch.multihost`).
 
-The multi-process transport is not ported yet (ROADMAP 7d).
+The collective transport (one agent per card) waits for the multi-card
+mesh step (ROADMAP 7b).
 """
-from . import collectives, sharding
+from . import collectives, sharding, transport
+from .transport import (FRAME_HEADER, WIRE_TAG_SIZE, InProcessTransport,
+                        PipelinedSocketTransport, SocketTransport, Transport,
+                        accumulate, capture_columns, derive_wire_secret,
+                        flatten_one, link_message, merge_captures,
+                        neighbor_lists, unflatten_one)
 
-__all__ = ["collectives", "sharding"]
+__all__ = ["collectives", "sharding", "transport", "FRAME_HEADER",
+           "WIRE_TAG_SIZE", "InProcessTransport", "PipelinedSocketTransport",
+           "SocketTransport", "Transport", "accumulate", "capture_columns",
+           "derive_wire_secret", "flatten_one", "link_message",
+           "merge_captures", "neighbor_lists", "unflatten_one"]
