@@ -11,8 +11,8 @@ prefill, serves the enc-dec
 seamless-m4t-medium at full width and depth (oneshot) and the VLM
 llava-next-34b at full width (depth 12) with its image-token prefix, all
 through the port's entry points, with per-layer recompute in training;
-runs the tree forms, the leafwise layout and the trivial one-card mesh;
-and reports what ran.
+runs the tree forms, the leafwise layout, the trivial one-card mesh and
+the mesh train step's forms; and reports what ran.
 
     python3 chip_smoke.py            # everything (one card)
     python3 chip_smoke.py --quick    # build + kernel phases only
@@ -203,9 +203,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               NCCL group, leaf specs from TRAIN_RULES: three leafwise
               steps over DTensors, each against mesh=None from the same
               state, within B2's bf16 tolerance
+  mesh_train_step  launch.steps.make_train_step on a stand-in mesh (m = 4
+              on the card) at the bits path's width and depth, bf16,
+              batch 2, seq 512, 3 steps: dense (B1 + B2), link dropout
+              0.25 (B1 + B4), the ring fused (B7), crash faults (B1 + B4);
+              each form's kernels launched every step, its first step
+              within B2/B4/B7's bf16 allowance of the plain formula's,
+              dense bitwise core.pdsgd.make_decentralized_step; then
+              sharded=True on a one-rank NCCL (1, 1, 1) mesh bitwise the
+              unsharded step; ms a step and peak memory of each form
   multihost_path  launch/multihost: stablelm-3b at the bits path's depth
               (D = 418,145,280 an agent), m = 4 on a ring, f32 parameters,
-              batch 2, seq 512, 3 steps, --grad-clip-kappa 1.0: --world 4
+              batch 2, seq 512, 2 steps (cut from 3), --grad-clip-kappa
+              1.0: --world 4
               (four rank processes on this card, HMAC-framed loopback
               sockets, the pipelined transport, --frames-ahead 1, a
               checkpoint of each shard at the end) against --world 1 in
@@ -342,7 +352,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
               a prefill at (1, 2560, 56, 128); the same gate as serve_path
   kernels     every kernel with its launches in its own path's run (B3
               and B2: main_path, B3 also multihost_path's ranks and its
-              world=1 run; B10: the seven serve paths and
+              world=1 run; B1, B2, B4 and B7 also the leafwise runs' and
+              mesh_train_step's forms; B10: the seven serve paths and
               granite_prefill; B11: the xLSTM and hybrid train and serve
               paths), error, times and bound
 Then B10's time and TFLOP/s at the serve shape beside those of
@@ -2537,6 +2548,269 @@ def phase_trivial_mesh_step(torch, K, train, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+MESH_STEP_STEPS = 3
+# the forms of launch.steps.make_train_step the phase drives: name, its
+# keywords (mixing and faults named, built in the phase), the kernels it
+# must launch every step
+MESH_STEP_FORMS = (
+    ("dense", {"use_pallas": True}, ("obfuscate_update", "gossip_update")),
+    ("dropout", {"use_pallas": True, "mixing": "dropout"},
+     ("obfuscate_update", "masked_gossip_update")),
+    ("ring_fused", {"gossip": "ring", "ring_fused": True},
+     ("ring_gossip_update",)),
+    ("crash", {"use_pallas": True, "faults": "crash"},
+     ("obfuscate_update", "masked_gossip_update")))
+
+
+class _StandIn:
+    """A stand-in mesh: m = 4 agents on one card."""
+    shape = {"data": 4, "model": 1}
+
+
+def _flat_of(torch, tree):
+    from repro_torch.core.privacy import tree_leaves
+    return [t.reshape(t.shape[0], -1) for t in tree_leaves(tree)]
+
+
+def _gossip_gate(torch, got, want, x0, u0, W, B) -> float:
+    """Max over the parameters of |got - want| / tol, tol = 2^-7 (|W||x| +
+    |B||u|) + 2^-6 |want| per entry: the kernel route and the plain
+    formula round the two bf16 products and their difference apart
+    (B2/B4/B7's bf16 allowance of the earlier phases), a column chunk at
+    a time."""
+    worst = 0.0
+    for g, w, x, u in zip(_flat_of(torch, got), _flat_of(torch, want),
+                          _flat_of(torch, x0), _flat_of(torch, u0)):
+        for s, e in _chunks(g.shape[1]):
+            diff = (g[:, s:e].float() - w[:, s:e].float()).abs()
+            tol = (2.0 ** -7 * (W.abs() @ x[:, s:e].float().abs()
+                                + B.abs() @ u[:, s:e].float().abs())
+                   + 2.0 ** -6 * w[:, s:e].float().abs())
+            worst = max(worst, float((diff / tol.clamp_min(1e-30)).max()))
+    return worst
+
+
+def phase_mesh_train_step(torch, K, train, cfg):
+    """`launch.steps.make_train_step` on a stand-in mesh {"data": 4,
+    "model": 1} (m = 4 on the card) at the bits path's width and depth,
+    bf16, batch 2, seq 512, 3 steps, four ways: dense (B1 + B2), under
+    link dropout 0.25 (B1 + B4), the ring with ``ring_fused`` (B7), crash
+    faults (B1 + B4, down rows held).  Gates: every step launches its
+    form's kernels; each form's first step against the same step on the
+    plain formula (``use_pallas=False``; the ring's dense fallback)
+    within B2/B4/B7's bf16 allowance (`_gossip_gate`); the dense form
+    bitwise `core.pdsgd.make_decentralized_step` (B1 + B2 on the same
+    key, step and lam_base / (k + 1), as the reference's two are);
+    finite losses.  Then ``sharded=True`` on a one-rank NCCL (1, 1, 1)
+    mesh, bitwise the unsharded step on that mesh (m = 1).  Prints ms a
+    step and peak memory of each form beside the bits path's ms a
+    step."""
+    from repro_torch.core import prng
+    from repro_torch.core.mixing import make_mixing
+    from repro_torch.core.pdsgd import init_state, make_decentralized_step
+    from repro_torch.core.privacy import (agent_key, sample_B, tree_leaves,
+                                          tree_unflatten)
+    from repro_torch.core.schedules import harmonic
+    from repro_torch.data import make_lm_pipeline
+    from repro_torch.dist import collectives as C
+    from repro_torch.faults import make_faults
+    from repro_torch.kernels.build import to_device
+    from repro_torch.launch.steps import (_own_u, make_train_step,
+                                          torus_topology)
+    from repro_torch.models import build_model
+    dev = torch.device("cuda", 0)
+    m, mesh = 4, _StandIn()
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    p0 = bundle.init(gen, dev)
+    params0 = tree_unflatten(p0, [p[None].expand((m,) + tuple(p.shape))
+                                  .contiguous() for p in tree_leaves(p0)])
+    del p0
+    pipe = make_lm_pipeline(cfg.vocab_size, m, 2, 512, seed=0)
+    batches = [{n: to_device(torch.from_numpy(v), dev)
+                for n, v in pipe.batch_at(k).items()}
+               for k in range(MESH_STEP_STEPS)]
+    tt = torus_topology(mesh)
+    named = {"mixing": {"dropout": make_mixing(tt, rate=0.25, seed=0)},
+             "faults": {"crash": make_faults(m, crash_rate=0.2,
+                                             restart_rate=0.5, seed=0)}}
+    # the first step's gradients and u (every form's: one key, one lam,
+    # one batch), the scale of the gate's allowance
+    from repro_torch.core.pdsgd import DecentralizedState, _agent_grads
+    from repro_torch.kernels.ops import FlatLayout
+    layout = FlatLayout.of(tree_unflatten(params0, [
+        t[0] for t in tree_leaves(params0)]))
+    G = torch.empty((m, layout.width), dtype=bundle.dtype, device=dev)
+    X0 = layout.flatten(params0, m)
+    _agent_grads(bundle.loss_fn, DecentralizedState(flat=X0, layout=layout),
+                 batches[0], G)
+    key = prng.key(0)
+    lam = torch.full((), 0.1, dtype=torch.float32, device=dev)
+    U0 = layout.tree(_own_u(G, layout, key.to(dev), 0, lam, 0))
+    del G, X0
+    launches, forms = {}, {}
+    for name, kw, kernels in MESH_STEP_FORMS:
+        kw = {k: named[k][v] if k in named else v for k, v in kw.items()}
+        step = make_train_step(bundle, mesh, lam_base=0.1, **kw)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        params, times, losses, first = params0, [], [], None
+        for k, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, loss = step(params, batch, 0, k)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+            print(f"mesh_train_step {name} step {k}: {times[-1]:.1f} ms",
+                  flush=True)
+            if k == 0:
+                first = params
+        counts = dict(K.launch_counts)
+        peak = torch.cuda.max_memory_allocated() - base
+        check(all(math.isfinite(l) for l in losses),
+              f"mesh_train_step {name}: losses {losses}")
+        for kern in kernels:
+            check(counts.get(kern, 0) == MESH_STEP_STEPS,
+                  f"mesh_train_step {name}: {kern} launched "
+                  f"{counts.get(kern, 0)} times in {MESH_STEP_STEPS} steps")
+            launches[kern] = launches.get(kern, 0) + counts.get(kern, 0)
+        del params
+        # the same first step on the plain formula
+        plain_kw = dict(kw, use_pallas=False)
+        plain_kw.pop("ring_fused", None)
+        K.reset_launch_counts()
+        want, _ = make_train_step(bundle, mesh, lam_base=0.1, **plain_kw)(
+            params0, batches[0], 0, 0)
+        check(not any(K.launch_counts.values()),
+              f"mesh_train_step {name}: the plain step launched "
+              f"{dict(K.launch_counts)}")
+        W, support = step_coupling(named, kw, tt, dev)
+        if kw.get("gossip") == "ring":
+            b = C.sample_b_draws(agent_key(prng.fold_in(key, 2), 0, 0), m,
+                                 m, 1).to(dev)
+            _, B = C.dense_coupling(b, m, 1)
+        else:
+            B = sample_B(agent_key(prng.fold_in(key, 2), 0, 0), support)
+        ratio = _gossip_gate(torch, first, want, params0, U0, W.float(),
+                             B.float())
+        del want
+        check(ratio <= 1.0, f"mesh_train_step {name}: {ratio} of the bf16 "
+                            f"allowance against the plain step")
+        forms[name] = {"ms_per_step": times, "losses": losses,
+                       "peak_bytes": peak, "launches": counts,
+                       "share_of_allowance": ratio}
+        del first
+        print(f"mesh_train_step {name}: {times[1:]} ms a step, peak "
+              f"{peak / 1e9:.2f} GB, {ratio:.3f} of the allowance",
+              flush=True)
+    # dense against the single-controller step, bitwise
+    gc.collect()
+    state = init_state(tree_unflatten(params0, [t[0] for t in tree_leaves(
+        params0)]), m, device=dev)
+    core = make_decentralized_step(bundle.loss_fn, tt, harmonic(0.1),
+                                   kernel_rng=False)
+    step = make_train_step(bundle, mesh, lam_base=0.1, use_pallas=True)
+    params = params0
+    for k in range(2):
+        state.step = k
+        state, aux = core(state, batches[k], prng.key(0))
+        params, loss = step(params, batches[k], 0, k)
+        check(float(loss) == float(aux["loss"]),
+              f"mesh_train_step vs make_decentralized_step: loss {k}")
+        for a, v in zip(tree_leaves(params),
+                        state.layout.leaf_views(state.flat)):
+            check(same_bits(torch, a, v),
+                  f"mesh_train_step vs make_decentralized_step: step {k}")
+    del state, params, params0, U0
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = _one_rank_sharded_step(torch, bundle, batches[0])
+    rec = {"phase": "mesh_train_step", "arch": cfg.name,
+           "num_layers": cfg.num_layers, "agents": m, "steps":
+           MESH_STEP_STEPS, "forms": forms, "launches": launches,
+           "decentralized_step_bitwise": True, "sharded_one_rank": sharded}
+    emit(rec)
+    return launches
+
+
+def step_coupling(named, kw, tt, dev):
+    """(W, support) of step 0 of a form (the realized dropout or crash
+    coupling, else the torus')."""
+    from repro_torch.core.mixing import as_process
+    from repro_torch.faults.process import realize_coupling
+    proc = kw.get("mixing") or as_process(tt)
+    if kw.get("faults") is not None:
+        W, support, _, _, _ = realize_coupling(proc, kw["faults"], 0, dev)
+        return W, support
+    W, support, _ = proc.realize(0, dev)
+    return W, support
+
+
+def _one_rank_sharded_step(torch, bundle, batch):
+    """``make_train_step(sharded=True)`` on a one-rank NCCL (1, 1, 1) mesh
+    (`launch.mesh.make_sharded_mesh`, one agent): the parameters DTensors
+    placed by TRAIN_RULES, the loss and its gradient by DTensor
+    propagation, the update leafwise (B1, B2 per leaf); bitwise the
+    unsharded step on the same mesh (B1 + B2 over the whole row)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.privacy import tree_leaves, tree_unflatten
+    from repro_torch.dist.sharding import local_block, placements
+    from repro_torch.launch.mesh import make_sharded_mesh
+    from repro_torch.launch.steps import _leaf_specs, make_train_step
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_sharded_mesh(agents=1, fsdp=1, tensor=1,
+                                 device_type=dev.type)
+        specs = _leaf_specs(bundle, mesh, 1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        p0 = bundle.init(gen, dev)
+        params = tree_unflatten(p0, [
+            local_block(mesh, p[None].contiguous(),
+                        placements(s, mesh, p.dim() + 1))
+            for p, s in zip(tree_leaves(p0), tree_leaves(specs))])
+        del p0
+        row = {n: v[:1] for n, v in batch.items()}
+        K_counts = {}
+        from repro_torch import kernels as K
+        out = {}
+        for sharded in (True, False):
+            K.reset_launch_counts()
+            step = make_train_step(bundle, mesh, lam_base=0.1,
+                                   use_pallas=True, sharded=sharded)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new, loss = step(params, row, 0, 0)
+            torch.cuda.synchronize()
+            out[sharded] = ([t.to_local().clone() if isinstance(t, DTensor)
+                             else t.clone() for t in tree_leaves(new)],
+                            float(loss), (time.perf_counter() - t0) * 1e3,
+                            dict(K.launch_counts))
+            del new
+        same = (out[True][1] == out[False][1] and all(
+            same_bits(torch, a, b) for a, b in zip(out[True][0],
+                                                   out[False][0])))
+        check(same, "sharded one-rank step differs from the unsharded step")
+        check(out[True][3].get("obfuscate_update", 0) == len(out[True][0])
+              and out[True][3].get("gossip_update", 0) == len(out[True][0]),
+              f"sharded one-rank launches {out[True][3]}")
+        return {"bitwise": same, "loss": out[True][1],
+                "ms_sharded": out[True][2], "ms_unsharded": out[False][2],
+                "launches_sharded": out[True][3],
+                "launches_unsharded": out[False][3]}
+    finally:
+        dist.destroy_process_group()
 
 
 FIG2_ITERS = 600
@@ -5579,7 +5853,7 @@ def vlm_cfg():
                                num_layers=VLM_SERVE_LAYERS)
 
 
-MULTIHOST_STEPS = 3
+MULTIHOST_STEPS = 2
 MULTIHOST_ARGS = ("--arch", "stablelm-3b", "--num-layers",
                   str(BITS_PATH_LAYERS), "--agents", "4", "--topology",
                   "ring", "--per-agent-batch", "2", "--seq-len", "512",
@@ -6077,6 +6351,9 @@ def main(argv=None) -> int:
         phase_trivial_mesh_step(torch, K, train, bits_cfg)
         gc.collect()
         torch.cuda.empty_cache()
+        mesh_step = phase_mesh_train_step(torch, K, train, bits_cfg)
+        gc.collect()
+        torch.cuda.empty_cache()
         multihost = phase_multihost_path(torch, K, prng)
         phase_multihost_smoke(torch, K)
         gc.collect()
@@ -6229,12 +6506,15 @@ def main(argv=None) -> int:
             c.get("ssd_intra_chunk", 0) for c in (
                 train_counts, serve_counts, hybrid_train, hybrid_serve))},
             b11)
-        # B1, B2, B4 and B6 also ran once per leaf in the leafwise runs
+        # B1, B2, B4 and B6 also ran once per leaf in the leafwise runs,
+        # and B1, B2, B4 and B7 in the mesh train step's forms
         for name in ("obfuscate_update", "gossip_update",
-                     "masked_gossip_update", "guarded_gossip_update"):
+                     "masked_gossip_update", "guarded_gossip_update",
+                     "ring_gossip_update"):
             counts, r = rows[name]
             rows[name] = ({**counts, name: counts.get(name, 0)
-                           + leafwise.get(name, 0)}, r)
+                           + leafwise.get(name, 0)
+                           + mesh_step.get(name, 0)}, r)
         # B3 also ran in the multihost path's rank processes (their own
         # counts, summed by the launcher) and in its world=1 run
         counts, r = rows["obfuscate_update_krng"]

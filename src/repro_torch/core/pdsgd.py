@@ -465,9 +465,9 @@ def pdsgd_update(X: torch.Tensor, G: torch.Tensor, layout: FlatLayout, *,
     bits path's bit for bit.  With ``mesh`` (a `DeviceMesh`) and
     ``leaf_specs`` (a partition spec per leaf, agent axis included,
     `dist.sharding`) each leaf is a DTensor on the mesh
-    (`dist.sharding.mesh_pdsgd_tree`): B1 on its local shard, the
-    gossip an f32 product over the agent axis; ``corrupt`` is refused
-    there.  ``observe`` is refused (capture is defined on the
+    (`dist.sharding.mesh_pdsgd_tree`): B1 on its local shard, then B2
+    or B4 over the agents' shards gathered on the agent axes, bit for bit
+    the ``mesh=None`` layout; ``corrupt`` is refused there.  ``observe`` is refused (capture is defined on the
     concatenated wire buffer).
 
     ``eager=True`` is the reference's unfused formula (its

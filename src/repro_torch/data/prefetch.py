@@ -12,8 +12,9 @@ leaf into a pinned host tensor; the consumer copies it to the card on its
 own stream without blocking (the CUDA graph's `core.pdsgd._copy_in`, or
 `kernels.build.to_device` in the eager loop), so the copy is ordered with
 the steps that read it and no stream or event crosses threads.  For the
-CPU the leaves are the numpy arrays as tensors.  The reference's ``mesh``
-placement waits for the distributed port (ROADMAP 7).
+CPU the leaves are the numpy arrays as tensors.  With a ``mesh`` each
+batch (agents, batch, seq) or chunk (k, agents, batch, seq) becomes a
+DTensor placed by the rule table's spec, every rank keeping its block.
 """
 from __future__ import annotations
 
@@ -55,20 +56,52 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def make_placer(device=None, mesh=None) -> Callable[[Any], Any]:
+def make_placer(device=None, mesh=None,
+                rules=None) -> Callable[[Any], Any]:
     """``place(batch_or_chunk)``: a tree of numpy leaves -> a tree of
     tensors staged for ``device`` (pinned host memory for a CUDA device,
-    plain host tensors otherwise; see the module docstring)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_placer(mesh=...): placing chunks over a device mesh "
-            "waits for the distributed port (ROADMAP 7)")
+    plain host tensors otherwise; see the module docstring).
+
+    With ``mesh`` (a `DeviceMesh`; ``rules`` default TRAIN_RULES) a leaf
+    of ``BATCH_LOGICAL``'s rank is a per-step batch and one of
+    ``CHUNK_LOGICAL``'s a scanned chunk: each becomes a DTensor on the
+    mesh's device placed by its spec (`dist.sharding.logical_spec`),
+    each rank keeping its block of the pipeline's batch (the same numpy
+    batch on every rank, so no rank sends any); other leaves become
+    plain tensors there."""
     import torch  # here, so the checkpoint writer's child runs on numpy
+    if mesh is not None:
+        return _mesh_placer(mesh, rules)
     pin = device is not None and torch.device(device).type == "cuda"
 
     def place_leaf(x):
         t = torch.from_numpy(np.ascontiguousarray(x))
         return t.pin_memory() if pin else t
+
+    return lambda tree: _tree_map(place_leaf, tree)
+
+
+def _mesh_placer(mesh, rules):
+    import torch
+
+    from ..dist.sharding import (TRAIN_RULES, local_block, logical_spec,
+                                 placements)
+    from .pipeline import BATCH_LOGICAL, CHUNK_LOGICAL
+    if getattr(mesh, "mesh_dim_names", None) is None:
+        raise TypeError("make_placer(mesh=...) places over a DeviceMesh "
+                        f"with named axes, not {type(mesh).__name__}")
+    rules = TRAIN_RULES if rules is None else rules
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device("cpu"))
+
+    def place_leaf(x):
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        logical = {len(CHUNK_LOGICAL): CHUNK_LOGICAL,
+                   len(BATCH_LOGICAL): BATCH_LOGICAL}.get(t.dim())
+        if logical is None:
+            return t
+        spec = logical_spec(mesh, t.shape, logical, rules)
+        return local_block(mesh, t, placements(spec, mesh, t.dim()))
 
     return lambda tree: _tree_map(place_leaf, tree)
 

@@ -17,10 +17,13 @@ is copied, never recombined, and bitwise the reference's, and no step of
 the ring layout, static or time-varying, reads numpy or the host after
 its first (which a CUDA graph's eager warm-up chunk runs).
 
-Only the single-device forms are here: `torus_gossip_pdsgd` with
-``mesh=None`` (the dense fallback, or the ring kernel with
-``fused=True``).  The mesh form — one agent per card, a point-to-point
-shift per direction — is not ported yet.
+`torus_gossip_pdsgd` has two forms.  With ``mesh=None`` all agents are
+on one device: the dense fallback, or the ring kernel with
+``fused=True``.  With a `DeviceMesh` each ("pod", "data") rank holds
+one agent: the sender computes its message per direction, and only that
+message crosses the link, by one point-to-point shift on the
+direction's mesh axis (`shift`, shared with
+`dist.transport.ShardMapTransport`).
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from ..core.privacy import tree_leaves, tree_unflatten
 
 __all__ = ["sample_b_draws", "torus_weights", "torus_gossip_pdsgd",
            "dense_coupling", "directional_keep", "directional_weights",
-           "mask_b_draws", "perm_stack", "source_table", "rows_from_dense"]
+           "mask_b_draws", "perm_stack", "source_table", "rows_from_dense",
+           "mesh_coords", "mesh_agent", "shift", "gather_agents"]
 
 Pytree = Any
 
@@ -217,6 +221,158 @@ def mask_b_draws(b: torch.Tensor, keep_dir: torch.Tensor) -> torch.Tensor:
     return e / _row_sum(e)
 
 
+# -- the torus over a DeviceMesh: one agent per ("pod", "data") rank -----
+
+_AGENT_GROUPS: dict = {}
+
+
+def mesh_coords(mesh) -> dict[str, int]:
+    """This rank's coordinate on each named axis of a `DeviceMesh`."""
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+def _mesh_sizes(mesh) -> dict[str, int]:
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def mesh_agent(mesh) -> int:
+    """The agent this rank hosts: pod * n_data + data, as the reference's
+    device order."""
+    c = mesh_coords(mesh)
+    return c.get("pod", 0) * _mesh_sizes(mesh).get("data", 1) \
+        + c.get("data", 0)
+
+
+def _rank_at(mesh, coords: dict) -> int:
+    return int(mesh.mesh[tuple(coords[n] for n in mesh.mesh_dim_names)])
+
+
+def _agent_group(mesh):
+    """``(group, ranks)``: the process group of the ranks that share this
+    rank's non-agent coordinates, and those ranks in agent-id order
+    (group None for a single agent).  The groups of a mesh are made once,
+    by every rank in the same order, as `new_group` needs."""
+    import torch.distributed as dist
+    names = tuple(mesh.mesh_dim_names)
+    grid = mesh.mesh
+    key = (names, tuple(grid.flatten().tolist()))
+    if key not in _AGENT_GROUPS:
+        agent = [i for i, n in enumerate(names) if n in ("pod", "data")]
+        other = [i for i in range(len(names)) if i not in agent]
+        n_agents = 1
+        for i in agent:
+            n_agents *= grid.shape[i]
+        rows = grid.permute(other + agent).reshape(-1, n_agents).tolist()
+        groups = {}
+        for row in rows:
+            grp = dist.new_group(sorted(row)) if len(row) > 1 else None
+            for r in row:
+                groups[r] = (grp, row)
+        _AGENT_GROUPS[key] = groups
+    return _AGENT_GROUPS[key][dist.get_rank()]
+
+
+def gather_agents(mesh, t: torch.Tensor) -> torch.Tensor:
+    """All-gather this rank's (L, ...) block over the mesh's agent axes:
+    the agents' blocks concatenated in agent-id order, on t's device,
+    through the mesh's own process group (no host copy)."""
+    import torch.distributed as dist
+    grp, row = _agent_group(mesh)
+    if grp is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in row]
+    dist.all_gather(parts, t, group=grp)
+    by_rank = dict(zip(sorted(row), parts))
+    return torch.cat([by_rank[r] for r in row], dim=0)
+
+
+def shift(mesh, axis: str, step: int, tensors):
+    """One point-to-point shift on ``axis``: each tensor goes to the rank
+    ``step`` further along the axis' ring (the other coordinates kept),
+    and the matching tensors come from the rank ``step`` behind.  Returns
+    ``(received, requests)``; wait on the requests before reading
+    ``received``, and keep ``tensors`` alive until then."""
+    import torch.distributed as dist
+    c = mesh_coords(mesh)
+    size = _mesh_sizes(mesh)[axis]
+    dst, src = dict(c), dict(c)
+    dst[axis] = (c[axis] + step) % size
+    src[axis] = (c[axis] - step) % size
+    dst_r, src_r = _rank_at(mesh, dst), _rank_at(mesh, src)
+    recv = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for i, (t, r) in enumerate(zip(tensors, recv)):
+        ops.append(dist.P2POp(dist.isend, t, dst_r, tag=i))
+        ops.append(dist.P2POp(dist.irecv, r, src_r, tag=i))
+    return recv, dist.batch_isend_irecv(ops)
+
+
+def _mesh_gossip(mesh, params, u, b, W, n_data: int, n_pod: int,
+                 capture: bool, finite_guard: bool, schedule: str):
+    """`torus_gossip_pdsgd`'s mesh form: this rank's agent a sends, per
+    direction, v = w x_a - b u_a computed from its own row of the tables,
+    receives its neighbour's, and accumulates self term first, then the
+    directions in order (the reference's shard_map body)."""
+    from torch.distributed.tensor import DTensor
+    from .transport import link_message
+    x_leaves, u_leaves = tree_leaves(params), tree_leaves(u)
+    xl = [t.to_local() if isinstance(t, DTensor) else t for t in x_leaves]
+    ul = [t.to_local() if isinstance(t, DTensor) else t for t in u_leaves]
+    dev = xl[0].device
+    dirs = _directions(n_data, n_pod)
+    a = mesh_agent(mesh)
+    if W is None:
+        w_row = _dense_on(n_data, n_pod, str(dev))["w_row"][0]
+    else:
+        W = to_device(W, dev)
+        tabs = directional_weights(W, n_data, n_pod)
+        w_row = torch.cat([tabs["w_self"][a:a + 1], tabs["w_dir"][a]])
+    b_row = to_device(b, dev)[a]
+
+    def coeff(tab, col, leaf):
+        return tab[col].reshape((1,) * leaf.dim())
+
+    def mk_v(col):
+        return [link_message(coeff(w_row, col, x), coeff(b_row, col, x),
+                             x, uu).contiguous() for x, uu in zip(xl, ul)]
+
+    out = mk_v(0)
+    taps = []
+    if schedule == "pipelined" and dirs:
+        v = mk_v(1)
+    for di, (axis, _size, step) in enumerate(dirs):
+        if schedule == "staged":
+            v = mk_v(1 + di)
+        if capture:
+            # the sender's own buffer, before the shift puts it on the wire
+            taps.append(torch.cat([t.reshape(1, -1).float() for t in v], 1))
+        sent = v
+        recv, reqs = shift(mesh, axis, step, sent)
+        if schedule == "pipelined" and di + 1 < len(dirs):
+            # the next direction's v while this shift is in flight
+            v = mk_v(2 + di)
+        for r in reqs:
+            r.wait()
+        del sent
+        if finite_guard:
+            recv = [torch.where(torch.isfinite(t), t, torch.zeros_like(t))
+                    for t in recv]
+        out = [o + c for o, c in zip(out, recv)]
+    res = tree_unflatten(params, [
+        DTensor.from_local(o, x.device_mesh, x.placements, shape=x.shape,
+                           stride=x.stride()) if isinstance(x, DTensor)
+        else o for o, x in zip(out, x_leaves)])
+    if not capture:
+        return res
+    from ..privacy import observe as O
+    D = taps[0].shape[1] if taps else sum(t[0].numel() for t in xl)
+    v_dir = gather_agents(mesh, torch.stack(taps, 1) if taps else
+                          torch.zeros((1, 0, D), device=dev))
+    return res, O.scatter_directions(v_dir.transpose(0, 1).contiguous(),
+                                     perm_stack(n_data, n_pod), D)
+
+
 def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
                        n_data: int | None = None, n_pod: int | None = None,
                        leaf_specs: Pytree | None = None,
@@ -227,8 +383,28 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
     (m, ...) and ``b`` (m, 1 + ndirs) rows from `sample_b_draws` (masked
     by `mask_b_draws` for a time-varying ``W``, the step's realized W_k).
 
-    Only ``mesh=None`` is ported: the torus is (``n_data``, ``n_pod``)
-    (default (m, 1), one ring).  Without ``fused`` the update runs as the
+    ``mesh`` a `DeviceMesh` whose ("pod", "data") axes hold the torus, one
+    agent a rank: params/u are DTensors (m, ...) sharded over those axes
+    (``leaf_specs``' trailing dims may shard over the others: each leaf's
+    local shard is exchanged as it is, nothing gathered), or this rank's
+    local (1, ...) blocks.  The sender computes v = w x - b u from its
+    own row of the tables (`transport.link_message`, each product and the
+    difference rounded apart); per direction one point-to-point `shift`
+    on that axis' process group carries it; the receiver accumulates its
+    self term, then the directions in `_directions` order (the
+    reference's order, which its tests anchor to the bit), each received
+    term through ``where(isfinite(v), v, 0)`` with ``finite_guard``.
+    ``schedule="pipelined"`` computes direction d+1's v while direction
+    d's shift is in flight; ``"staged"`` computes it after; the values
+    are the same.  ``capture`` taps each v before its send and gathers
+    the taps to the dense V (m, m, D) on every rank.  ``fused`` is
+    ignored there (the exchange is the fused schedule).  Returns the same
+    kind of leaves it was given (f32 where the coefficients promote).
+
+    Without a mesh (``None``, or a stand-in whose ``.shape`` maps axes to
+    sizes, which gives the torus) all agents are on one device: the torus
+    is (``n_data``, ``n_pod``) (default (m, 1), one ring).  Without
+    ``fused`` the update runs as the
     dense product with `dense_coupling`'s matrices (`core.pdsgd.
     oracle_mix`, summed as B2 sums on the card; ``finite_guard``:
     every link passed through ``where(isfinite(v), v, 0)`` by
@@ -240,8 +416,7 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
     ``capture=True`` also returns V (m, m, D) f32, the message on every
     link: with ``fused`` scattered from the kernel's own per-direction v
     (`privacy.observe.scatter_directions`), else `privacy.observe.
-    wire_messages` of the dense matrices.  ``schedule`` is the mesh
-    form's loop order; it is only validated here.
+    wire_messages` of the dense matrices.
     """
     if schedule not in ("staged", "pipelined"):
         raise ValueError(f"unknown schedule {schedule!r}; "
@@ -254,15 +429,21 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
             "capture=True flattens each agent's leaves to (m, D) and so "
             "requires replicated non-agent dims (leaf_specs=None); audit "
             "workloads replicate per agent")
-    if mesh is not None:
-        raise NotImplementedError(
-            "torus_gossip_pdsgd over a device mesh (one agent per card, a "
-            "point-to-point shift per direction) is not ported yet; pass "
-            "mesh=None for the single-device forms")
     leaves = tree_leaves(params)
     m = leaves[0].shape[0]
-    n_pod = 1 if n_pod is None else n_pod
-    n_data = m // n_pod if n_data is None else n_data
+    device_mesh = getattr(mesh, "mesh_dim_names", None) is not None
+    if mesh is not None and not (device_mesh or hasattr(mesh, "shape")):
+        raise TypeError("mesh must be a DeviceMesh, or a stand-in whose "
+                        f".shape maps axes to sizes, not "
+                        f"{type(mesh).__name__}")
+    sizes = (_mesh_sizes(mesh) if device_mesh
+             else dict(mesh.shape) if mesh is not None else {})
+    if n_pod is None:
+        n_pod = sizes.get("pod", 1)
+    if n_data is None:
+        n_data = sizes.get("data", m // n_pod)
+    if device_mesh and not hasattr(leaves[0], "device_mesh"):
+        m = n_pod * n_data  # this rank's local blocks
     if n_pod * n_data != m:
         raise ValueError(
             f"torus {n_pod}x{n_data} does not hold m={m} agents")
@@ -271,6 +452,13 @@ def torus_gossip_pdsgd(mesh, params: Pytree, u: Pytree, b: torch.Tensor, *,
         raise ValueError(
             f"b has {b.shape[-1]} coefficients but the {n_pod}x{n_data} "
             f"torus has {len(dirs)} neighbor directions")
+    if device_mesh:
+        if (sizes.get("pod", 1), sizes.get("data", 1)) != (n_pod, n_data):
+            raise ValueError(
+                f"the mesh's agent axes {sizes} do not hold the "
+                f"{n_pod}x{n_data} torus")
+        return _mesh_gossip(mesh, params, u, b, W, n_data, n_pod, capture,
+                            finite_guard, schedule)
 
     if fused:
         from ..kernels.gossip import ring_gossip_update

@@ -35,13 +35,12 @@ import torch
 # the kernels package first: core.privacy imports kernels.build, whose
 # package imports core.privacy back
 from ..kernels.obfuscate import obfuscate_update
-from ..kernels.ref import metropolis_ref
 from ..core.privacy import tree_leaves, tree_paths, tree_unflatten
 
 __all__ = ["TRAIN_RULES", "SERVE_RULES", "DECODE_RULES", "RuleTable",
            "Spec", "MeshSharding", "mesh_shape", "logical_spec",
            "placements", "sharding_tree", "audit_rules", "keystr",
-           "mesh_mix", "mesh_pdsgd_tree"]
+           "local_block", "mesh_pdsgd_tree"]
 
 # Each value is a tuple of candidates; each candidate a tuple of mesh axes.
 RuleTable = Mapping[str, tuple[tuple[str, ...], ...]]
@@ -236,6 +235,16 @@ def audit_rules(abstract: Any, logical: Any, mesh,
     return findings
 
 
+def local_block(mesh, full: torch.Tensor, pls):
+    """``full`` (the same on every rank) as a DTensor placed by ``pls`` on
+    ``mesh``: each rank keeps its own block, a local chunk, with no
+    communication."""
+    from torch.distributed.tensor import DTensor, Replicate
+    rep = DTensor.from_local(full, mesh, [Replicate()] * mesh.ndim,
+                             run_check=False)
+    return rep.redistribute(mesh, pls)
+
+
 _MESH_CORRUPT = ("fault injection on the sharded leafwise path is not "
                  "supported; use the dense paths for fault scenarios")
 
@@ -249,14 +258,6 @@ def _mesh_leaf(t, mesh, pl):
     return distribute_tensor(t, mesh, pl)
 
 
-def mesh_mix(M: torch.Tensor, leaf):
-    """sum_j M[i, j] leaf_j over the agent axis of one mesh leaf, the
-    reference's ``einsum("ij,j...->i...")`` in f32 (the f32 ``M`` and the
-    leaf cast to f32), the result cast to the leaf's dtype."""
-    return torch.einsum("ij,j...->i...", M,
-                        leaf.to(torch.float32)).to(leaf.dtype)
-
-
 def mesh_pdsgd_tree(W: torch.Tensor, B: torch.Tensor, x_tree, g_tree,
                     bits_tree, lam_bar, *, mesh, leaf_specs=None,
                     mask: torch.Tensor | None = None,
@@ -264,37 +265,48 @@ def mesh_pdsgd_tree(W: torch.Tensor, B: torch.Tensor, x_tree, g_tree,
     """The leafwise Eq. (4) update with every leaf a DTensor on ``mesh`` (a
     `DeviceMesh`), placed by its spec in ``leaf_specs`` (a tree or
     sequence of specs, agent axis included; DTensor leaves are taken as
-    they are): the obfuscate kernel (B1) on each leaf's local shard
-    reading ``bits_tree``'s uint32 draws, then the gossip an f32
-    `mesh_mix` of the DTensors over the agent axis (W_k from ``mask``),
-    as the reference's GSPMD einsum outside any kernel.  Returns a tree of
-    DTensors.  ``corrupt`` is refused with the reference's message."""
+    they are).  Per leaf: the obfuscate kernel (B1) on the rank's local
+    shard reading ``bits_tree``'s uint32 draws; the local shards of x and
+    u gathered over the agent axes (`dist.collectives.gather_agents`: the
+    ranks holding the same block of the leaf in the other agents); the
+    gossip kernel over them, B2 (W) or B4 (``mask``: W_k from the edge
+    mask on chip); the rank keeps its agents' rows.  Every column is the
+    ``mesh=None`` leafwise layout's bit for bit, and nothing of a leaf
+    outside the rank's block is gathered.  Returns a tree of DTensors.
+    ``corrupt`` is refused with the reference's message."""
     if corrupt is not None:
         raise NotImplementedError(_MESH_CORRUPT)
     if leaf_specs is None:
         raise ValueError("mesh given but leaf_specs is None; resolve specs "
                          "via dist.sharding.logical_spec")
-    from torch.distributed.tensor import DTensor, Replicate
-    if mask is not None:
-        W = metropolis_ref(mask)
-    rep = [Replicate()] * mesh.ndim
-    Wd = _mesh_leaf(W.to(torch.float32), mesh, rep)
-    Bd = _mesh_leaf(B.to(torch.float32), mesh, rep)
+    from torch.distributed.tensor import DTensor
+    from ..kernels.gossip import gossip_update, masked_gossip_update
+    from .collectives import gather_agents, mesh_agent
     specs = (tree_leaves(leaf_specs) if isinstance(leaf_specs, dict)
              else list(leaf_specs))
+    slot = mesh_agent(mesh)
     outs = []
     for x, g, b, spec in zip(tree_leaves(x_tree), tree_leaves(g_tree),
                              tree_leaves(bits_tree), specs):
         pl = placements(spec, mesh, x.dim())
-        # the bits travel as int32 words (gloo has no uint32)
-        xd, gd, bd = (_mesh_leaf(t, mesh, pl)
-                      for t in (x, g, b.view(torch.int32)))
+        xd, gd = _mesh_leaf(x, mesh, pl), _mesh_leaf(g, mesh, pl)
+        # full bits travel as int32 words (gloo has no uint32); a DTensor
+        # holds its rank's block already
+        bl = (b if isinstance(b, DTensor)
+              else _mesh_leaf(b.view(torch.int32), mesh, pl)).to_local()
+        bl = bl.view(torch.uint32)
         xl, gl = xd.to_local(), gd.to_local()
-        bl = bd.to_local().view(torch.uint32)
         rows = xl.shape[0]
         u = obfuscate_update(xl.reshape(rows, -1), gl.reshape(rows, -1),
                              bl.reshape(rows, -1), lam_bar, 0.0, -1.0)
-        ud = DTensor.from_local(u.reshape(xl.shape), mesh, xd.placements,
-                                shape=xd.shape, stride=xd.stride())
-        outs.append(mesh_mix(Wd, xd) - mesh_mix(Bd, ud))
+        Xa = gather_agents(mesh, xl.reshape(rows, -1))
+        Ua = gather_agents(mesh, u)
+        if mask is not None:
+            out = masked_gossip_update(mask.to(Xa.device), B.to(Xa.device),
+                                       Xa, Ua)
+        else:
+            out = gossip_update(W.to(Xa.device), B.to(Xa.device), Xa, Ua)
+        own = out[slot * rows:(slot + 1) * rows].reshape(xl.shape)
+        outs.append(DTensor.from_local(own, mesh, xd.placements,
+                                       shape=xd.shape, stride=xd.stride()))
     return tree_unflatten(x_tree, outs)

@@ -21,8 +21,10 @@ and never any Lambda-key material, crosses an agent boundary:
                           ``frames_ahead`` run-ahead window; bit-identical
                           trajectories to `SocketTransport`.
 
-(The reference's collective transport, one agent per mesh shard, waits
-for the multi-card mesh step, ROADMAP 7b.)
+* `ShardMapTransport`   — one agent per ("pod", "data") rank of a
+                          `DeviceMesh`: one point-to-point shift per
+                          torus direction on the mesh's process group
+                          (`collectives.shift`).
 
 Canonical accumulation order: each receiver accumulates its self term
 first, then every neighbor contribution in ascending global sender id.
@@ -67,6 +69,7 @@ __all__ = [
     "merge_captures",
     "Transport",
     "InProcessTransport",
+    "ShardMapTransport",
     "SocketTransport",
     "PipelinedSocketTransport",
     "FRAME_HEADER",
@@ -282,6 +285,80 @@ class InProcessTransport(Transport):
         if not capture:
             return out
         return out, capture_columns(W, B, x, u, lo=0)
+
+
+class ShardMapTransport(Transport):
+    """One agent per ("pod", "data") coordinate of a `DeviceMesh`, this
+    process its rank's agent: ``local_lo``/``local_hi`` mark that one row.
+
+    The self term and the per-direction messages are computed eagerly on
+    the host by `link_message` (numpy bits, as every transport); only the
+    shift per direction goes through the mesh (`collectives.shift`, the
+    mesh branch of `collectives.torus_gossip_pdsgd`).  The receiver adds
+    what it got in ascending global sender id, not direction order: on a
+    ring receiver 0 hears direction +1 from sender m - 1 but direction -1
+    from sender 1.  ``capture`` gathers the senders' tapped messages to
+    the dense (m, m, D) V on every rank (the reference returns it
+    whole)."""
+
+    def __init__(self, mesh, n_data: int | None = None,
+                 n_pod: int | None = None):
+        from . import collectives as C
+        shape = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+        self.mesh = mesh
+        self.n_pod = n_pod if n_pod is not None else shape.get("pod", 1)
+        self.n_data = n_data if n_data is not None else shape.get("data", 1)
+        if (shape.get("pod", 1), shape.get("data", 1)) != (self.n_pod,
+                                                          self.n_data):
+            raise ValueError(f"the mesh {shape} does not hold the "
+                             f"{self.n_pod}x{self.n_data} torus")
+        self.num_agents = self.n_pod * self.n_data
+        self.local_lo = C.mesh_agent(mesh)
+        self.local_hi = self.local_lo + 1
+        self._dirs = C._directions(self.n_data, self.n_pod)
+
+    def _source(self, axis: str, shift: int) -> int:
+        pod, data = divmod(self.local_lo, self.n_data)
+        if axis == "data":
+            return pod * self.n_data + (data - shift) % self.n_data
+        return ((pod - shift) % self.n_pod) * self.n_data + data
+
+    def exchange(self, x_local, u_local, W, B, *, step: int = 0,
+                 capture: bool = False):
+        import torch
+
+        from . import collectives as C
+        x, u, W, B = _f32(x_local, u_local, W, B)
+        if x.shape[0] != 1:
+            raise ValueError(f"a rank holds one agent, got {x.shape[0]} "
+                             "rows")
+        a = self.local_lo
+        targets = C._targets(self.n_data, self.n_pod)
+        # each entry copied from the dense matrices, never recombined
+        w = [W[a, a]] + [W[targets[d, a], a] for d in range(len(self._dirs))]
+        b = [B[a, a]] + [B[targets[d, a], a] for d in range(len(self._dirs))]
+        out = link_message(w[0], b[0], x, u)
+        v_dirs = [link_message(w[1 + d], b[1 + d], x, u)
+                  for d in range(len(self._dirs))]
+        got = {}
+        for d, (axis, _size, shift) in enumerate(self._dirs):
+            recv, reqs = C.shift(self.mesh, axis, shift,
+                                 [torch.from_numpy(v_dirs[d])])
+            for r in reqs:
+                r.wait()
+            got[self._source(axis, shift)] = recv[0].numpy()
+        for j in sorted(got):
+            out += got[j]
+        if not capture:
+            return out
+        taps = C.gather_agents(self.mesh, torch.from_numpy(
+            np.stack(v_dirs, axis=1) if v_dirs
+            else np.zeros((1, 0, x.shape[1]), np.float32))).numpy()
+        V = np.zeros((self.num_agents, self.num_agents, x.shape[1]),
+                     np.float32)
+        for d in range(len(self._dirs)):
+            V[targets[d], np.arange(self.num_agents)] = taps[:, d]
+        return out, V
 
 
 # -- the inter-process channel ------------------------------------------

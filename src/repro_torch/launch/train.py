@@ -8,7 +8,7 @@
         [--topology-dropout 0.25] [--fault-crash-rate 0.2 ...]
         [--kernel-layout ring|leafwise] [--privacy-audit]
         [--checkpoint-dir ck --checkpoint-every 50 [--resume]]
-        [--scan-layers]
+        [--scan-layers] [--mesh-fsdp 2] [--mesh-tensor 2]
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Batches come from the
 random-access numpy pipeline and the step key of step k is
@@ -58,9 +58,21 @@ most ``--max-rollbacks`` times before the run fails.  The scanned loop
 takes its chunks from `data.prefetch_chunks`, built ``--prefetch-depth``
 chunks ahead on a worker thread; a rollback there closes that stream and
 opens a new one at the restored step, and the restore writes into the
-graph's own buffers, so the captured graph replays on.  The mesh flags
-(``--mesh-fsdp``, ``--mesh-tensor``) and the sharded execution they turn
-on are not ported yet (ROADMAP 7b).
+graph's own buffers, so the captured graph replays on.
+
+``--mesh-fsdp F`` / ``--mesh-tensor T`` (either above 1) turn on the
+sharded execution: one process a rank (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``; gloo on the CPU, NCCL on the card, one
+card a rank), the ("data", "fsdp", "model") mesh of
+`launch.mesh.make_sharded_mesh` with one agent a "data" rank, the
+sharding audit record first, each agent's parameters DTensors placed by
+TRAIN_RULES (`optim.shard_like`), batches by `data.make_placer(mesh=)`,
+the loss and its gradient by DTensor propagation and the update leafwise
+(`launch.steps.sharded_pdsgd_step`).  It trains the dense transformer
+family with pdsgd on a ring; the trainer's other options are refused
+there.  Each record of rank 0's history carries the agents' mean loss;
+a last record ``{"sharded_summary": ...}`` counts the leaves still
+sharded after the update.
 """
 from __future__ import annotations
 
@@ -204,6 +216,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="restore the latest full state (with its step "
                         "counter) from --checkpoint-dir and continue")
+    p.add_argument("--mesh-fsdp", type=int, default=1,
+                   help="shard each agent's parameters over this many "
+                        "ranks (FSDP within the agent; agents x fsdp x "
+                        "tensor ranks).  >1 turns on the sharded "
+                        "execution: the mesh of launch.mesh."
+                        "make_sharded_mesh, parameters placed by the "
+                        "logical-axis rules, the update leafwise over the "
+                        "sharded tree.  One process a rank (RANK, "
+                        "WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    p.add_argument("--mesh-tensor", type=int, default=1,
+                   help="tensor-parallel ('model' axis) ranks per agent; "
+                        "composes with --mesh-fsdp")
     p.add_argument("--scan-layers", action="store_true",
                    help="sets the config's scan_layers (the reference's "
                         "lax.scan over the layer stack); the port's layer "
@@ -323,6 +347,8 @@ def run_training(args, cfg=None, init_params=None,
     if args.checkpoint_sync and args.checkpoint_writer:
         raise ValueError("--checkpoint-sync and --checkpoint-writer "
                          "are mutually exclusive")
+    if args.mesh_fsdp > 1 or args.mesh_tensor > 1:
+        return _run_sharded(args, cfg, init_params, device)
     bundle = build_model(cfg)
     mixing = build_mixing(args)
     faults = build_faults(args)
@@ -607,8 +633,159 @@ def _resume(args, state, meta: dict):
     return state
 
 
+_SHARDED_ONLY = ("the sharded execution (--mesh-fsdp/--mesh-tensor > 1) "
+                 "trains pdsgd on --topology ring, eagerly, with "
+                 "--kernel-layout auto or leafwise; {} waits for the rest "
+                 "of ROADMAP 7b (7c)")
+
+
+def _refuse_sharded(args) -> None:
+    """The trainer options the sharded execution does not carry."""
+    checks = (
+        (args.algorithm != "pdsgd", f"--algorithm {args.algorithm}"),
+        (args.topology != "ring", f"--topology {args.topology}"),
+        (args.topology_resample_every > 0, "--topology-resample-every"),
+        (args.kernel_layout not in ("auto", "leafwise"),
+         f"--kernel-layout {args.kernel_layout}"),
+        (args.unroll_k > 1, "--unroll-k > 1"),
+        (args.fault_crash_rate > 0 or args.fault_corrupt_rate > 0,
+         "fault injection"),
+        (args.nan_policy != "off", "--nan-policy"),
+        (args.grad_clip_kappa is not None, "--grad-clip-kappa"),
+        (bool(args.checkpoint_dir), "--checkpoint-dir"),
+        (args.privacy_audit, "--privacy-audit"))
+    for bad, what in checks:
+        if bad:
+            raise SystemExit(_SHARDED_ONLY.format(what))
+
+
+def _run_sharded(args, cfg, init_params, device) -> dict:
+    """The sharded execution (see the module docstring); returns
+    ``{"params", "history", "mesh"}``, ``params`` the (m, ...) DTensor
+    tree."""
+    import torch.distributed as dist
+
+    from ..core.privacy import tree_leaves, tree_unflatten
+    from ..dist.sharding import (TRAIN_RULES, MeshSharding, audit_rules,
+                                 local_block, sharding_tree)
+    from ..optim import shard_like
+    from .mesh import make_sharded_mesh, num_agents
+    from .specs import with_agent_axis
+    from ..dist.collectives import gather_agents
+    from .steps import _leaf_specs, _sub_placements, sharded_pdsgd_step
+    _refuse_sharded(args)
+    if not dist.is_initialized():
+        raise SystemExit("--mesh-fsdp/--mesh-tensor need one process a rank "
+                         "(set RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT)")
+    mesh = make_sharded_mesh(agents=args.agents, fsdp=args.mesh_fsdp,
+                             tensor=args.mesh_tensor,
+                             device_type=device.type)
+    m = num_agents(mesh)
+    if m != args.agents:
+        raise SystemExit(f"the sharded execution takes one agent a 'data' "
+                         f"rank: {m} slots for --agents {args.agents}")
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    bundle = build_model(cfg, mesh=mesh)
+    findings = audit_rules(bundle.abstract(), bundle.logical_axes(), mesh)
+    errors = [f for f in findings if f["severity"] == "error"]
+    if errors:
+        raise ValueError(
+            "sharding audit failed (unknown logical axes):\n"
+            + "\n".join(f"  {f['path']}: {f['issue']}" for f in errors))
+    rank0 = dist.get_rank() == 0
+    if rank0:
+        print(json.dumps({"sharding_audit": "ok",
+                          "mesh": dict(zip(mesh.mesh_dim_names,
+                                           tuple(mesh.shape))),
+                          "replicated_leaves": len(findings)}), flush=True)
+    p_abs, p_log = with_agent_axis(bundle.abstract(), bundle.logical_axes(),
+                                   m)
+    sh = shard_like({"params": p_abs, "step": 0}, p_abs,
+                    sharding_tree(mesh, p_abs, p_log, TRAIN_RULES),
+                    scalar_sharding=MeshSharding(mesh, ()))
+    if init_params is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.seed)
+        init_params = bundle.init(gen, device)
+    sub = mesh[tuple(n for n in mesh.mesh_dim_names
+                     if n not in ("pod", "data"))]
+    leaves = []
+    # every agent starts from the same parameters: each rank places its
+    # block of them, nothing is sent
+    for p, s_ in zip(tree_leaves(init_params), tree_leaves(sh["params"])):
+        pls = s_.placements
+        blk = local_block(sub, p.to(device), _sub_placements(mesh, pls))
+        leaves.append(torch.distributed.tensor.DTensor.from_local(
+            blk.to_local()[None], mesh, pls, shape=(m,) + tuple(p.shape),
+            stride=tuple((p.numel(),) + p.stride()), run_check=False))
+    params = tree_unflatten(init_params, leaves)
+    del init_params
+    specs = _leaf_specs(bundle, mesh, m)
+    mixing = build_mixing(args)
+    sched = warmup_harmonic(args.lr, hold=args.warmup_hold)
+    pipeline = make_lm_pipeline(cfg.vocab_size, args.agents,
+                                args.per_agent_batch, args.seq_len,
+                                seed=args.seed)
+    place = make_placer(device, mesh=mesh)
+    key = prng.key(args.seed + 1)
+    history: list[dict] = []
+    t0 = time.perf_counter()
+    for k in range(args.steps):
+        W, support, mask = mixing.realize(k, device)
+        lam = sched(torch.full((), float(k), dtype=torch.float32,
+                               device=device))
+        params, loss = sharded_pdsgd_step(
+            bundle, mesh, params, place(pipeline.batch_at(k)),
+            prng.fold_in(key, k), k, W, support, mask, lam, specs)
+        loss = gather_agents(mesh, loss).mean()
+        if k % args.log_every == 0 or k == args.steps - 1:
+            rec = {"step": k, "loss": float(loss),
+                   "elapsed_s": time.perf_counter() - t0}
+            history.append(rec)
+            if rank0:
+                print(json.dumps(rec), flush=True)
+    sharded = sum(any(not pl.is_replicate() for pl in t.placements[1:])
+                  for t in tree_leaves(params))
+    summary = {"sharded_summary": {
+        "mesh": dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+        "leaves": len(tree_leaves(params)), "sharded_leaves": sharded}}
+    history.append(summary)
+    if rank0:
+        print(json.dumps(summary), flush=True)
+    return {"params": params, "history": history, "mesh": mesh}
+
+
+def _init_process_group(device: str) -> None:
+    """One process a rank when the environment names a multi-rank job
+    (``WORLD_SIZE`` > 1): gloo on the CPU, NCCL with this rank's local
+    card on CUDA, a timeout of ``TORCH_DIST_TIMEOUT_S`` (default 300)."""
+    import datetime
+
+    import torch.distributed as dist
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return
+    timeout = datetime.timedelta(
+        seconds=float(os.environ.get("TORCH_DIST_TIMEOUT_S", "300")))
+    if torch.device(device).type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", os.environ.get("RANK", 0)))
+        torch.cuda.set_device(local)
+        dist.init_process_group("nccl", timeout=timeout,
+                                device_id=torch.device("cuda", local))
+    else:
+        dist.init_process_group("gloo", timeout=timeout)
+
+
 def main(argv=None) -> int:
-    run_training(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    _init_process_group(args.device)
+    try:
+        run_training(args)
+    finally:
+        import torch.distributed as dist
+        if dist.is_initialized() and int(os.environ.get("WORLD_SIZE",
+                                                        "1")) > 1:
+            dist.destroy_process_group()
     return 0
 
 

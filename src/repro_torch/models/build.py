@@ -59,14 +59,32 @@ def _map_defs(fn, defs):
     return fn(defs)
 
 
-def build_model(cfg: ArchConfig) -> ModelBundle:
+SHARDED_FAMILIES = ("dense",)
+
+
+def build_model(cfg: ArchConfig, mesh=None) -> ModelBundle:
+    """The family's bundle.  ``mesh`` (a `DeviceMesh` of agents x fsdp x
+    tensor) turns on the activation constraints of the sharded execution
+    in the training loss (`models.common.constrain`); the dense
+    transformer family takes it, the others refuse it."""
     if cfg.family not in _FAMILIES:
         raise KeyError(f"unknown family {cfg.family!r}; have "
                        f"{sorted(_FAMILIES)}")
+    if mesh is not None and cfg.family not in SHARDED_FAMILIES:
+        raise ValueError(
+            f"the sharded execution (--mesh-fsdp/--mesh-tensor > 1) runs "
+            f"the {SHARDED_FAMILIES} family; {cfg.family!r} waits for the "
+            "rest of ROADMAP 7b (7c: the other families' sharded route, "
+            "moe_impl='deferred')")
     mod = _FAMILIES[cfg.family]
+    if mesh is not None:
+        loss = lambda params, batch: mod.loss_fn(params, batch, cfg,
+                                                 mesh=mesh)
+    else:
+        loss = lambda params, batch: mod.loss_fn(params, batch, cfg)
     return ModelBundle(
         cfg=cfg, param_defs=mod.param_defs(cfg),
-        loss_fn=lambda params, batch: mod.loss_fn(params, batch, cfg),
+        loss_fn=loss,
         prefill_fn=lambda params, batch: mod.forward_prefill(params, batch,
                                                              cfg),
         decode_fn=lambda params, token, cache, pos: mod.forward_decode(

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..kernels.build import to_device
 
-__all__ = ["ArrayDef", "init_params", "rms_norm", "layer_norm", "rope_freqs",
+__all__ = ["ArrayDef", "init_params", "constrain", "rms_norm", "layer_norm", "rope_freqs",
            "rope_tables", "rope_tables_at", "apply_rope", "attention",
            "chunked_attention", "decode_attention", "ring_buffer_write",
            "decode_cache_valid", "decode_positions", "swiglu",
@@ -70,6 +70,24 @@ def einsum_promoted(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     an f32 activation times a bf16 weight computes in f32."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.einsum(eq, a.to(dt), b.to(dt))
+
+
+def constrain(x: torch.Tensor, mesh, logical: tuple, rules=None):
+    """The reference's activation constraint (``with_logical_constraint``)
+    as a DTensor redistribution: ``x``, a DTensor on one agent's block of
+    the mesh, placed by the spec of ``logical`` (TRAIN_RULES unless
+    ``rules``) resolved on its own device mesh.  Exactly ``x`` when
+    ``mesh`` is None, ``x`` is a plain tensor, or every dimension
+    resolves to replication, as the reference's no-op."""
+    if mesh is None or not hasattr(x, "device_mesh"):
+        return x
+    from ..dist.sharding import TRAIN_RULES, logical_spec, placements
+    sub = x.device_mesh
+    spec = logical_spec(sub, x.shape, logical,
+                        TRAIN_RULES if rules is None else rules)
+    if not any(e is not None for e in spec):
+        return x
+    return x.redistribute(sub, placements(spec, sub, x.dim()))
 
 
 def remat(fn, *args):

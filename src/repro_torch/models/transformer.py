@@ -36,7 +36,7 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels.flash_attention import flash_attention
 from .common import (ArrayDef, apply_rope, attention, chunked_attention,
-                     cross_entropy, decode_attention, decode_cache_valid,
+                     constrain, cross_entropy, decode_attention, decode_cache_valid,
                      decode_positions, einsum_promoted, gelu_mlp,
                      layer_norm, layer_views, pad_vocab, remat,
                      ring_buffer_write, rms_norm, rope_tables, rope_tables_at,
@@ -251,22 +251,37 @@ def _final_norm(params: dict, x: torch.Tensor, cfg: ArchConfig):
                  params.get("final_norm_beta"), cfg)
 
 
-def forward_train(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence logits (B, S, V_padded)."""
-    x = embed_tokens(params, batch, cfg)
+def forward_train(params: dict, batch: dict, cfg: ArchConfig,
+                  mesh=None) -> torch.Tensor:
+    """Full-sequence logits (B, S, V_padded).  With ``mesh`` (DTensor
+    parameters and batch on one agent's (fsdp, model) block) the
+    residual stream is constrained to ("batch", "seq", None) after the
+    embedding and after every layer, the reference's
+    ``models.common.constrain`` points."""
+    x = constrain(embed_tokens(params, batch, cfg), mesh,
+                  ("batch", "seq", None))
     rope = rope_tables(x.shape[1], cfg.head_dim, cfg.rotary_frac,
                        cfg.rope_theta, x.device)
     for p in layer_views(params["layers"]):
-        x = _layer_remat(p, x, rope, cfg)
+        x = constrain(_layer_remat(p, x, rope, cfg), mesh,
+                      ("batch", "seq", None))
     return unembed(params, _final_norm(params, x, cfg), cfg)
 
 
-def loss_fn(params: dict, batch: dict, cfg: ArchConfig) -> torch.Tensor:
+def loss_fn(params: dict, batch: dict, cfg: ArchConfig,
+            mesh=None) -> torch.Tensor:
     """Mean cross-entropy; with ``batch["loss_weights"]``, or with prefix
     embeds configured (weights 0 on the first ``num_prefix_embeds``
     positions, 1 after), the weighted mean over the whole padded vocab,
-    as the reference's."""
-    logits = forward_train(params, batch, cfg)
+    as the reference's.  With ``mesh`` the logits are constrained to
+    ("batch", "seq", None) before the loss: on an fsdp x model block that
+    gathers the vocab-sharded logits over "model" (DTensor's masked
+    gather of the gold logit fails when the batch is sharded too)."""
+    if mesh is None:
+        logits = forward_train(params, batch, cfg)
+    else:
+        logits = constrain(forward_train(params, batch, cfg, mesh), mesh,
+                           ("batch", "seq", None))
     labels = batch["labels"]
     weights = batch.get("loss_weights")
     if weights is None and cfg.num_prefix_embeds:

@@ -53,7 +53,8 @@ def test_walk_reaches_every_module():
     for name in ("transformer", "moe", "xlstm", "ssm", "hybrid", "encdec"):
         assert f"models/{name}.py" in files
     for name in ("launch/mesh.py", "launch/specs.py", "launch/steps.py",
-                 "dist/sharding.py"):
+                 "dist/sharding.py", "dist/collectives.py",
+                 "dist/transport.py", "data/prefetch.py"):
         assert name in files
 
 
@@ -90,13 +91,16 @@ def test_entry_points_default_to_cuda():
 
 
 def test_mesh_layer_imports_alone_and_defaults_to_cuda():
-    """The mesh, sharding, specs and steps modules import torch and the
-    port only, and their mesh functions make CUDA meshes unless asked."""
+    """The mesh, sharding, specs and steps modules, and the mesh step's
+    collectives, transport and placement, import torch and the port only,
+    and their mesh functions make CUDA meshes unless asked."""
     import inspect
 
-    from repro_torch.dist import sharding
-    from repro_torch.launch import mesh, specs, steps
-    for mod in (mesh, specs, steps, sharding):
+    from repro_torch.data import prefetch
+    from repro_torch.dist import collectives, sharding, transport
+    from repro_torch.launch import mesh, specs, steps, train
+    for mod in (mesh, specs, steps, sharding, collectives, transport,
+                prefetch, train):
         roots = set(_imported_roots(Path(mod.__file__)))
         assert not roots & set(FORBIDDEN), (mod.__name__, roots)
     for fn in (mesh.make_production_mesh, mesh.make_global_mesh,

@@ -26,16 +26,12 @@ reference on the CPU, where the kernels' plain versions run.
   a one-rank gloo group (an
   in-process HashStore, destroyed after the test) and the (1, 1, 1)
   ("data", "fsdp", "model") mesh of `launch.mesh.make_sharded_mesh`,
-  leaf specs from TRAIN_RULES.  Its gossip is its own f32 product over
-  the agent axis (`dist.sharding.mesh_mix`, the reference's einsum), not
-  `core.pdsgd.gossip_mix` (which rounds W to the parameters' dtype
-  first, and sums as B2's plain version, a matrix product over the
-  concatenated columns, does not: einsum lays the leaf out otherwise); it
-  is held against ``mesh=None`` within B2's tolerance (f32 atol = rtol =
-  1e-5; bf16 one bf16 ulp of (|W||X| + |B||U|) per entry, the rounding
-  of its two products and their difference), with the max deviation
-  printed; the step one update at a time from the same state, so the
-  losses are equal.
+  leaf specs from TRAIN_RULES.  Its gossip is B2 over the agents'
+  gathered local shards (`dist.collectives.gather_agents`), so it is
+  ``mesh=None``'s bit for bit; it is held against ``mesh=None`` within
+  B2's tolerance (f32 atol = rtol = 1e-5; bf16 one bf16 ulp of (|W||X| +
+  |B||U|) per entry), with the max deviation printed; the step one update
+  at a time from the same state, so the losses are equal.
 """
 import jax
 import jax.numpy as jnp

@@ -3,7 +3,8 @@
 reference's numpy (tolerance: none), and the `Prefetcher` keeps the
 reference's lifecycle (order, close, GC, None items, errors, a dead
 worker, overlap).  `make_placer` turns leaves into host tensors (pinned
-for a CUDA device) and refuses a mesh (ROADMAP 7)."""
+for a CUDA device) and refuses a mesh that is not a `DeviceMesh` (its
+mesh placement is held in tests/test_torch_sharded_train.py)."""
 import gc
 import threading
 import time
@@ -188,7 +189,7 @@ def test_make_placer_host_tensors_and_mesh_refusal(pipeline):
     assert chunk["tokens"].shape == (3, 4, 2, 16)
     assert chunk["tokens"].dtype == torch.int32
     assert not chunk["tokens"].is_pinned()
-    with pytest.raises(NotImplementedError, match="ROADMAP 7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_placer("cpu", mesh=object())
 
 

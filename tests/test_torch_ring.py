@@ -62,6 +62,16 @@ TORI = [(2, 1), (3, 1), (4, 1), (5, 1), (8, 1), (4, 2), (3, 3)]
 KERNEL_TORI = [(3, 1), (4, 1), (8, 1), (4, 2)]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the tests stay fast beside other xdist workers
+    (each comparison is between runs made with one thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
@@ -422,7 +432,7 @@ def test_torus_gossip_refusals():
         TC.torus_gossip_pdsgd(None, p, p, b, n_data=3, n_pod=1)
     with pytest.raises(ValueError, match="neighbor directions"):
         TC.torus_gossip_pdsgd(None, p, p, b[:, :2])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         TC.torus_gossip_pdsgd(object(), p, p, b)
     # the guarded dense fallback: identity on finite inputs
     guarded = TC.torus_gossip_pdsgd(None, p, p, b, finite_guard=True)

@@ -11,6 +11,7 @@ step); static and with ``--topology-dropout 0.3``.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_config
 from repro.launch.train import build_parser as jax_parser
@@ -21,6 +22,16 @@ from repro_torch.core.privacy import tree_leaves
 from repro_torch.launch.train import build_parser, run_training
 
 ARCH = "stablelm-3b-smoke"
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the tests stay fast beside other xdist workers
+    (each comparison is between runs made with one thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _jax_params(seed):

@@ -36,6 +36,16 @@ FIG2_M, FIG2_D = 5, 2
 NORTH_STAR = 0.07891825798133546
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the tests stay fast beside other xdist workers
+    (each comparison is between runs made with one thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def fig2_batches(iters: int):
     """`bench_step_path`'s workload: the problem, the per-step sample
     batches (iters, m, 8, s) and M."""

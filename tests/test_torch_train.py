@@ -45,6 +45,16 @@ from repro_torch.models import build_model
 ARCH = "stablelm-3b-smoke"
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the tests stay fast beside other xdist workers
+    (each comparison is between runs made with one thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_params(seed):
     return jax.tree.map(np.asarray,
                         jax_build(jax_config(ARCH)).init(jax.random.key(seed)))

@@ -55,6 +55,16 @@ TOL = 2e-5
 _BUNDLES = {}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One torch thread: the tests stay fast beside other xdist workers
+    (each comparison is between runs made with one thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _bundles(arch=SMOKE, seed=0):
     """(reference bundle, reference params, port bundle, port params) on
     the reference's init, built once per module."""
